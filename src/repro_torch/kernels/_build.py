@@ -40,6 +40,15 @@ _SIGNATURES = {
         "dot_interaction": ([_P, _P, _I, _I, _I, _I, _P], _I),
         "dot_interaction_error_string": ([_I], ctypes.c_char_p),
     },
+    "qr_gather": {
+        "qr_gather": ([_P] * 5 + [_I] * 4 + [_P], _I),
+        "qr_gather_quant": ([_P] * 9 + [_I] * 3 + [_P], _I),
+        "qr_gather_error_string": ([_I], ctypes.c_char_p),
+    },
+    "embedding_bag": {
+        "qr_embedding_bag": ([_P] * 6 + [_I] * 5 + [_P], _I),
+        "embedding_bag_error_string": ([_I], ctypes.c_char_p),
+    },
 }
 SOURCES = tuple(_SIGNATURES)
 

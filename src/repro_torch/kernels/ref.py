@@ -11,7 +11,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-__all__ = ["fused_serve_pool", "dot_interaction", "pad_empty_wave"]
+__all__ = ["qr_gather", "qr_gather_quant", "qr_embedding_bag", "fused_serve_pool",
+           "dot_interaction", "pad_empty_wave"]
 
 
 def pad_empty_wave(idx_a, idx_b, mask):
@@ -34,6 +35,37 @@ def _rows(w, scale, zp, idx):
     return r
 
 
+def _combine(a, b, op):
+    return a * b if op == "mult" else a + b
+
+
+def qr_gather(rem, quo, w_rem, w_quo, *, op: str = "mult"):
+    """``w_rem[rem] op w_quo[quo]`` for ``(N,)`` ids: both rows widen to
+    f32 (exact for bf16), combine in f32, one cast to the table dtype."""
+    return _combine(_rows(w_rem, None, None, rem), _rows(w_quo, None, None, quo),
+                    op).to(w_rem.dtype)
+
+
+def qr_gather_quant(rem, quo, q_rem, q_quo, scale_rem, zp_rem, scale_quo, zp_quo, *,
+                    op: str = "mult"):
+    """The int8 QR pair's lookup: each gathered row dequantizes as
+    ``(q - zp) * scale`` in f32 from its stored bf16 scale and int8 zero
+    point, the two rows combine in f32, and the output is f32."""
+    return _combine(_rows(q_rem, scale_rem, zp_rem, rem),
+                    _rows(q_quo, scale_quo, zp_quo, quo), op)
+
+
+def qr_embedding_bag(rem, quo, mask, w_rem, w_quo, *, op: str = "mult"):
+    """``out[b] = sum_l mask[b, l] * (w_rem[rem[b, l]] op w_quo[quo[b, l]])``
+    over ``(B, L)`` ids.  The mask is rounded to the table dtype first (a
+    fractional weight on a bf16 table multiplies as bf16), each slot's
+    contribution ``(a op b) * w`` and the bag sum are f32, and the pooled
+    bag is cast once to the table dtype.  ``L = 0`` pools to zeros."""
+    w = mask.to(w_rem.dtype).to(torch.float32)[..., None]
+    rows = _combine(_rows(w_rem, None, None, rem), _rows(w_quo, None, None, quo), op)
+    return torch.sum(rows * w, dim=1, dtype=torch.float32).to(w_rem.dtype)
+
+
 def fused_serve_pool(idx_a, mask, w_a, idx_b=None, w_b=None, scale_a=None,
                      zp_a=None, scale_b=None, zp_b=None, proj=None, *,
                      op: str = "mult"):
@@ -52,8 +84,7 @@ def fused_serve_pool(idx_a, mask, w_a, idx_b=None, w_b=None, scale_a=None,
     idx_a, idx_b, mask = pad_empty_wave(idx_a, idx_b, mask)
     row = _rows(w_a, scale_a, zp_a, idx_a)
     if idx_b is not None:
-        rb = _rows(w_b, scale_b, zp_b, idx_b)
-        row = row * rb if op == "mult" else row + rb
+        row = _combine(row, _rows(w_b, scale_b, zp_b, idx_b), op)
     pooled = torch.sum(row * mask[..., None].to(torch.float32), dim=1,
                        dtype=torch.float32)
     pooled = pooled.to(torch.float32 if quant else w_a.dtype)

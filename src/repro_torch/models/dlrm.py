@@ -41,7 +41,7 @@ class DLRMConfig:
     bottom_mlp: tuple[int, ...] = (512, 256, 64)
     top_mlp: tuple[int, ...] = (512, 256)
     embedding: EmbeddingSpec = EmbeddingSpec()
-    use_kernel: bool = False     # route pooling and interaction through the kernels
+    use_kernel: bool = False     # route lookups, pooling and interaction through the kernels
     param_dtype: str = "float32"
 
     @property
@@ -113,7 +113,8 @@ def embed_features(table_params, sparse_idx, cfg, modules=None, mask=None, proj=
     ``mask (B, F, L)`` (masked slots contribute nothing, so an empty bag
     pools to the exact zero vector).  Tables may be dense or row-quantized.
     With ``cfg.use_kernel`` every multi-hot full/hash table or mult/add QR
-    pair goes through the fused serving kernel.  Returns a list of
+    pair goes through the fused serving kernel, and every one-hot mult/add
+    QR pair through ``ops.qr_lookup`` (K1 dense, K5 int8).  Returns a list of
     ``(B, D)`` features (feature mode expands per partition, one-hot only).
     """
     modules = tables_for(cfg) if modules is None else modules
@@ -147,11 +148,10 @@ def embed_features(table_params, sparse_idx, cfg, modules=None, mask=None, proj=
         idx = sparse_idx[:, i]
         if _feature_mode(cfg) and isinstance(mod, CompositionalEmbedding):
             feats.extend(mod.partition_embeddings(tp, idx))
+        elif use_kernel and qr2:
+            feats.append(_project(ops.qr_lookup(idx, tp["table_0"], tp["table_1"], op=mod.op),
+                                  proj, i))
         else:
-            if use_kernel and qr2 and idx.is_cuda:
-                raise NotImplementedError(
-                    "one-hot QR lookups on the card need kernels K1 qr_gather and "
-                    "K5 qr_gather_quant, not ported yet (ROADMAP, TPU kernels to port)")
             feats.append(_project(mod.apply(tp, idx), proj, i))
     return feats
 

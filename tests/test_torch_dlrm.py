@@ -140,14 +140,15 @@ def test_init_layout_matches_reference():
 
 
 def test_one_hot_qr_kernel_route_on_card_is_refused():
-    """The one-hot QR kernels (K1, K5) are not ported: on a CUDA tensor the
-    kernel route raises instead of silently taking a plain path."""
+    """The one-hot QR kernel route goes through the K1 wrapper, which never
+    takes the plain version for a tensor off the CPU.  With no card here,
+    tensors on the meta device stand in for one: the kernel route raises
+    instead of computing, and the plain route stays plain on any device."""
     _, tcfg = _cfgs(KINDS["qr"], use_kernel=True)
     tp = tdlrm.dlrm_init(tcfg, torch.Generator().manual_seed(0), device="cpu")
-
-    class CudaLike(torch.Tensor):
-        is_cuda = True
-
-    idx = torch.zeros((2, len(SIZES)), dtype=torch.int32).as_subclass(CudaLike)
-    with pytest.raises(NotImplementedError, match="K1"):
-        tdlrm.embed_features(tp["tables"], idx, tcfg)
+    tables = [{k: v.to("meta") for k, v in t.items()} for t in tp["tables"]]
+    idx = torch.zeros((2, len(SIZES)), dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError, match="one CUDA device"):
+        tdlrm.embed_features(tables, idx, tcfg)
+    feats = tdlrm.embed_features(tables, idx, dataclasses.replace(tcfg, use_kernel=False))
+    assert [tuple(f.shape) for f in feats] == [(2, 8)] * len(SIZES)
