@@ -7,40 +7,53 @@ Phases (any failure exits non-zero, and no result line is printed):
 2. build every CUDA kernel of the port from ``src/repro_torch/csrc`` (four
    sources, one ``nvcc`` each, started together) and print the compiler's
    register / shared-memory report;
-3. hold the fused serving kernel (K4, ``fused_serve_pool``) against its
-   plain PyTorch version on the card at the serving shapes (int8 QR pair,
-   B=256, L=4, D=16) and over its variants: f32, bf16, add, a single
-   table, a projection, empty bags and an all-empty (L=0) wave;
+3. hold the fused serving kernel's per-table entry (K4,
+   ``fused_serve_pool``) against its plain PyTorch version on the card at
+   the serving shapes (int8 QR pair, B=256, L=4, D=16) and over its
+   variants: f32, bf16, add, a single table, a projection, empty bags and
+   an all-empty (L=0) wave;
 4. hold the interaction kernel (K2, ``dot_interaction``) against its plain
    version at B=256, F=27, D=16 in f32 and bf16;
 5. hold the one-hot QR lookups against their plain versions on the
    largest Kaggle table (QR c=4: 2,532,807 + 4 rows, D=16) at N=256 Zipf
    ids: K1 ``qr_gather`` in f32 and bf16, mult and add, and a 3-D ``idx``
    through ``ops.qr_lookup``; K5 ``qr_gather_quant`` on the int8 pair;
-6. hold the QR embedding bag (K3, ``qr_embedding_bag``) against its plain
-   version on that table at B=256, L=4, D=16 (f32 and bf16, fractional
-   weights, empty bags), and run the f32-accumulation audit (B=8, L=16,
-   D=128, bf16) against an f32 oracle;
-7. serve the full-width DLRM-Criteo (26 Kaggle tables, QR with 4
+6. hold the grouped kernels (``csrc/grouped_lookup.cu``) at full width —
+   the 26 Kaggle tables as QR pairs (c=4), D=16, raw ids with 0, m-1, m and
+   size-1 of every table — against their plain versions and against 26
+   per-table launches of the same kernel (max |diff| 0 expected): grouped
+   K4 at B=256, L=4 in int8 (mult, add), f32 and bf16 with empty bags, and
+   an all-empty (L=0) wave; grouped K5 at B=256 in int8 (mult, add);
+7. hold the QR embedding bag (K3, ``qr_embedding_bag``) against its plain
+   version on the largest table at B=256, L=4, D=16 (f32 and bf16,
+   fractional weights, empty bags), and run the f32-accumulation audit
+   (B=8, L=16, D=128, bf16) against an f32 oracle;
+8. serve the full-width DLRM-Criteo (26 Kaggle tables, QR with 4
    collisions, D=16, int8 tables) through ``RecsysEngine`` over launcher-
    style requests with some empty bags; check that every request is scored
-   and finite, that the kernels' launch counts match the waves, and that a
-   sample of scores matches the same engine with ``use_kernel=False``;
-   print p50/p99/QPS, peak memory and table bytes; profile a full wave;
-8. score 12 held-out batches of 256 (steps 10,000-10,011, the reference's
+   and finite, that the kernels' launch counts match the waves (one grouped
+   K4 and one K2 per wave), and that a sample of scores matches the same
+   engine with ``use_kernel=False``; print p50/p99/QPS, peak memory and
+   table bytes; profile a full wave, with its device operations and any id
+   split or copy kernels left;
+9. score 12 held-out batches of 256 (steps 10,000-10,011, the reference's
    ``paper_tables`` evaluation) with the full-width one-hot DLRM-Criteo
    through ``api(cfg).batch_fn`` / ``loss_fn`` / ``predict``, once with
-   f32 tables (K1 and K2) and once after int8 quantization (K5 and K2);
-   check the launch counts, finite logits, and logits and loss against
-   ``use_kernel=False``; print BCE, accuracy, wall and device ms per batch,
-   the device's busy share, table bytes and peak memory;
-9. drive K3's own entry point ``ops.qr_bag_lookup`` at the shape of the
+   f32 tables (K1 per table, and K2) and once after int8 quantization (one
+   grouped K5 per batch, and K2); check the launch counts, finite logits,
+   and logits and loss against ``use_kernel=False``; print BCE, accuracy,
+   wall and device ms per batch, device operations, the device's busy
+   share, table bytes and peak memory;
+10. drive K3's own entry point ``ops.qr_bag_lookup`` at the shape of the
    reference's kernel bench and on the largest Kaggle table;
-10. time each kernel, its plain version and a PyTorch yardstick with CUDA
+11. time each kernel, its plain version and a PyTorch yardstick with CUDA
    events, compute each kernel's bound from this run's inputs, and print
-   the ``kernels`` JSON line.
+   the ``kernels`` JSON line.  For the grouped kernels it times, at a full
+   26-table wave (K4) and batch (K5), 1 to 16 threads per (bag, table),
+   the route each replaces (26 x (id split + mask copy + per-table
+   launch), stacked), and both routes' host enqueue time per call.
 
-Each of the paths in 7, 8 and 9 runs with every launch count set to 0
+Each of the paths in 8, 9 and 10 runs with every launch count set to 0
 just before it and read just after; launches made to compare a kernel
 with its plain version count nowhere.  Peak device memory is printed as
 the process's peak and as the peak above what the phase found allocated
@@ -99,19 +112,46 @@ def _card_line() -> str:
 
 def _time_ms(torch, fn, iters: int) -> float:
     """Device time of one ``fn()`` call: CUDA events around ``iters`` calls
-    queued behind a sleep kernel, so the host's launch cost stays off the
-    device's clock."""
+    queued behind a sleep kernel long enough for the host to enqueue them
+    all, so the host's launch cost stays off the device's clock.  When the
+    host could not enqueue them within the sleep — the launch queue fills
+    with calls of many kernels (plain versions, yardsticks, replaced
+    routes) — it halves ``iters`` and measures again.  A call that waits on
+    the device itself cannot be queued ahead at all: it is timed back to
+    back, host included, and said so."""
+    fn()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
     for _ in range(5):
         fn()
     torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    torch.cuda._sleep(200_000_000)  # ~0.1 s at H100 clocks: the host queues ahead
+    per_call_s = (time.perf_counter() - t) / 5
+    n = iters
+    while True:
+        ahead_s = max(0.1, 3 * n * per_call_s)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(int(ahead_s * 2e9))  # cycles: at most 2 GHz on an H100
+        t = time.perf_counter()
+        start.record()
+        for _ in range(n):
+            fn()
+        end.record()
+        enqueued_s = time.perf_counter() - t
+        torch.cuda.synchronize()
+        if enqueued_s <= 0.9 * ahead_s:
+            return start.elapsed_time(end) / n
+        if n == 1:
+            break
+        n //= 2
     start.record()
     for _ in range(iters):
         fn()
     end.record()
     torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
+    ms = start.elapsed_time(end) / iters
+    print(f"  (timing: one call waits on the device, so {ms:.6f} ms is back-to-back "
+          f"calls with the host's time included)")
+    return ms
 
 
 def _short_name(kernel: str) -> str:
@@ -291,6 +331,87 @@ def check_qr_gather(torch, gen):
     return k1, k5, (m, rem, quo, w_rem, w_quo, quant_args)
 
 
+def _kaggle_ids(torch, gen, sizes, length):
+    """``(B, T, L)`` raw Zipf ids, table t's drawn in ``[0, size_t)``, with
+    ``0``, ``m_t - 1``, ``m_t`` and ``size_t - 1`` (``m_t = ceil(size_t / 4)``)
+    in the first slot of the first four bags."""
+    ids = torch.stack([_zipf_ids(torch, gen, (B, length), s) for s in sizes], dim=1)
+    for t, size in enumerate(sizes):
+        m = -(-size // 4)
+        for k, v in enumerate((0, m - 1, min(m, size - 1), size - 1)):
+            ids[k, t, 0] = v
+    return ids
+
+
+def check_grouped(torch, gen):
+    """Grouped K4 and K5 at full width (the 26 Kaggle tables as QR pairs,
+    c=4, D=16) against their plain versions and against 26 per-table
+    launches; returns the errors and the timing inputs."""
+    from repro_torch.configs import dlrm_criteo
+    from repro_torch.kernels import qr_gather, ref, serve_path
+    from repro_torch.serve.quantize import quantize_table
+
+    sizes = dlrm_criteo.config(reduced=False).table_sizes
+    pairs = [_qr_pair(torch, gen, size, D) for size in sizes]
+    quant = [(quantize_table(w_rem), quantize_table(w_quo)) for _, w_rem, w_quo in pairs]
+
+    def group(kind, op="mult"):
+        if kind == "int8":
+            return [ref.GroupTable(qa["q"], qb["q"], qa["scale"], qa["zp"], qb["scale"],
+                                   qb["zp"], m, op) for (m, _, _), (qa, qb) in zip(pairs, quant)]
+        dt = torch.bfloat16 if kind == "bf16" else torch.float32
+        return [ref.GroupTable(a.to(dt), b.to(dt), m=m, op=op) for m, a, b in pairs]
+
+    idx = _kaggle_ids(torch, gen, sizes, L)
+    mask = (torch.rand(idx.shape, generator=gen, device="cuda") > 0.2).float()
+    mask[:4, :, 0] = 1.0                                  # the edge ids are live
+    mask[B - 8:] = 0.0                                    # requests with every bag empty
+    mask[torch.rand((B, len(sizes)), generator=gen, device="cuda") < 0.1] = 0.0  # empty bags
+
+    def per_table_k4(tables, ids, weights):
+        return torch.stack([serve_path.fused_serve_pool(
+            ids[:, t] % tab.m, weights[:, t], tab.w_a, ids[:, t] // tab.m, tab.w_b, tab.scale_a,
+            tab.zp_a, tab.scale_b, tab.zp_b, op=tab.op) for t, tab in enumerate(tables)], dim=1)
+
+    k4_err = k4_diff = 0.0
+    cases = [("int8 mult", "int8", group("int8"), idx, mask),
+             ("int8 add", "int8", group("int8", "add"), idx, mask),
+             ("f32 mult", "f32", group("f32"), idx, mask),
+             ("bf16 mult", "bf16", group("bf16"), idx, mask),
+             ("int8 mult L=0", "int8", group("int8"), idx[:, :, :0], mask[:, :, :0])]
+    for name, kind, tables, ids, weights in cases:
+        got = serve_path.fused_serve_pool_grouped(ids, weights, tables)
+        want = ref.fused_serve_pool_grouped(ids, weights, tables)
+        k4_err = max(k4_err, _hold(torch, f"grouped K4 {name} B={B} T={len(sizes)}", kind,
+                                   got, want))
+        diff = _max_err(torch, got, per_table_k4(tables, ids, weights))
+        empty_ok = bool((got[B - 8:] == 0).all()) and bool((got[weights.sum(-1) == 0] == 0).all())
+        print(f"    vs {len(sizes)} per-table launches: max |diff| {diff:.3e}; "
+              f"empty bags zero: {empty_ok}")
+        if diff != 0 or not empty_ok:
+            _fail(f"grouped K4 {name} differs from per-table launches or an empty bag")
+        k4_diff = max(k4_diff, diff)
+
+    sparse = _kaggle_ids(torch, gen, sizes, 1)[:, :, 0]
+    k5_err = k5_diff = 0.0
+    for op in ("mult", "add"):
+        tables = group("int8", op)
+        got = qr_gather.qr_gather_quant_grouped(sparse, tables)
+        want = ref.qr_gather_quant_grouped(sparse, tables)
+        k5_err = max(k5_err, _hold(torch, f"grouped K5 int8 {op} B={B} T={len(sizes)}", "int8",
+                                   got, want))
+        per_table = torch.stack([qr_gather.qr_gather_quant(
+            sparse[:, t] % tab.m, sparse[:, t] // tab.m, tab.w_a, tab.w_b, tab.scale_a, tab.zp_a,
+            tab.scale_b, tab.zp_b, op=op) for t, tab in enumerate(tables)], dim=1)
+        diff = _max_err(torch, got, per_table)
+        print(f"    vs {len(sizes)} per-table launches: max |diff| {diff:.3e}")
+        if diff != 0:
+            _fail(f"grouped K5 {op} differs from per-table launches")
+        k5_diff = max(k5_diff, diff)
+    errs = {"k4": k4_err, "k4_vs_per_table": k4_diff, "k5": k5_err, "k5_vs_per_table": k5_diff}
+    return errs, (idx, mask, group("int8"), sparse)
+
+
 def check_embedding_bag(torch, gen):
     """K3 against its plain version on the largest Kaggle table, and the
     f32-accumulation audit; returns the worst error and timing inputs."""
@@ -379,13 +500,12 @@ def serve_full_width(torch):
     scores = np.array([done[u].score for u in uids], dtype=np.float64)
     if len(scores) != len(main) or not np.isfinite(scores).all():
         _fail("not every request was scored with a finite value")
-    waves, n_tables = m["waves"], len(cfg.table_sizes)
+    waves = m["waves"]
     print(f"  served {m['requests']} requests in {waves} waves | p50 {m['p50_ms']:.3f} ms "
           f"p99 {m['p99_ms']:.3f} ms qps {m['qps']:.1f} | peak memory {peak} B "
           f"({peak - base} B above the phase's start) | buckets {m['buckets']}")
-    # the serving path: K4 once per table and wave, K2 once per wave
-    _check_counts("serve", counts, {"fused_serve_pool": n_tables * waves,
-                                    "dot_interaction": waves})
+    # the serving path: one grouped K4 over all tables and one K2 per wave
+    _check_counts("serve", counts, {"fused_serve_pool": waves, "dot_interaction": waves})
 
     plain_cfg = dataclasses.replace(cfg, use_kernel=False)
     plain = RecsysEngine(plain_cfg, qparams, max_batch=256, batching="continuous")
@@ -418,6 +538,18 @@ def _profile_device(run):
         name = _short_name(ev.key)
         dev[name] = dev.get(name, 0.0) + ev.self_device_time_total
     return out, dev, sum(ev.count for ev in on_device)
+
+
+# device kernels of the per-table route that the grouped kernels remove: the
+# id split (``%``, ``//``) and the mask-slice copies
+_SPLIT_OR_COPY = re.compile(r"remainder|floor|div|copy", re.IGNORECASE)
+
+
+def _split_or_copy(dev_us, per):
+    """Device ms per unit of work of every split or copy kernel left
+    (host-device transfers, ``Memcpy``, and ``torch.cat`` are not)."""
+    return {name: us / per / 1e3 for name, us in dev_us.items()
+            if _SPLIT_OR_COPY.search(name) and not name.startswith(("Memcpy", "CatArray"))}
 
 
 def _top_ms(dev_us, per, k=8):
@@ -455,11 +587,13 @@ def profile_waves(torch, engine, reqs):
            "device_ms_per_wave": sum(dev.values()) / pwaves / 1e3,
            "host_pad_ms_per_full_wave": pad_ms,
            "device_ops_per_wave": n_ops / pwaves,
+           "split_or_copy_ms_per_wave": _split_or_copy(dev, pwaves),
            "top_device_ms_per_wave": _top_ms(dev, pwaves)}
     out["device_busy_share"] = out["device_ms_per_wave"] / out["wall_ms_per_wave"]
     print(f"  per wave: wall {out['wall_ms_per_wave']:.3f} ms, device "
           f"{out['device_ms_per_wave']:.3f} ms (busy {out['device_busy_share']:.3f}), "
-          f"host pad {pad_ms:.3f} ms")
+          f"host pad {pad_ms:.3f} ms, {out['device_ops_per_wave']:.1f} device operations, "
+          f"split/copy kernels left: {out['split_or_copy_ms_per_wave'] or 'none'}")
     print(json.dumps({"wave_profile": out}))
 
 
@@ -474,10 +608,11 @@ def _score(api, params, batches):
     return losses, accs
 
 
-def _eval_run(torch, api, plain, params, batches, mode, lookup, table_bytes, base):
-    """One held-out scoring run of the full-width model; returns its
+def _eval_run(torch, api, plain, params, batches, mode, lookup, per_batch, table_bytes, base):
+    """One held-out scoring run of the full-width model, expecting
+    ``per_batch`` launches of the ``lookup`` kernel per batch; returns its
     launch counts.  ``base``: device bytes allocated before the phase."""
-    n_tables, n = len(api.cfg.table_sizes), len(batches)
+    n = len(batches)
     _score(api, params, batches[:1])        # first call outside the window
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -487,8 +622,7 @@ def _eval_run(torch, api, plain, params, batches, mode, lookup, table_bytes, bas
     wall = time.perf_counter() - t
     counts = _read_counts()
     peak = torch.cuda.max_memory_allocated()
-    # one-hot scoring: the lookup kernel once per table and batch, K2 once per batch
-    _check_counts(f"eval {mode}", counts, {lookup: n_tables * n, "dot_interaction": n})
+    _check_counts(f"eval {mode}", counts, {lookup: per_batch * n, "dot_interaction": n})
 
     logit_diff = loss_diff = 0.0
     for batch, loss in zip(batches, losses):
@@ -506,13 +640,16 @@ def _eval_run(torch, api, plain, params, batches, mode, lookup, table_bytes, bas
     prof = {"mode": mode, "batches": n, "batch_size": B, "heldout_bce": sum(losses) / n,
             "heldout_acc": sum(accs) / n, "wall_ms_per_batch": wall / n * 1e3,
             "device_ms_per_batch": sum(dev.values()) / n / 1e3,
-            "device_ops_per_batch": n_ops / n, "table_bytes": table_bytes,
+            "device_ops_per_batch": n_ops / n, "split_or_copy_ms_per_batch": _split_or_copy(dev, n),
+            "table_bytes": table_bytes,
             "peak_memory_bytes": peak, "peak_above_phase_start_bytes": peak - base,
             "top_device_ms_per_batch": _top_ms(dev, n)}
     prof["device_busy_share"] = prof["device_ms_per_batch"] / prof["wall_ms_per_batch"]
     print(f"  {mode}: held-out BCE {prof['heldout_bce']:.5f} acc {prof['heldout_acc']:.5f} | "
           f"per batch: wall {prof['wall_ms_per_batch']:.3f} ms, device "
-          f"{prof['device_ms_per_batch']:.3f} ms (busy {prof['device_busy_share']:.3f}) | "
+          f"{prof['device_ms_per_batch']:.3f} ms (busy {prof['device_busy_share']:.3f}), "
+          f"{prof['device_ops_per_batch']:.1f} device operations, split/copy kernels left: "
+          f"{prof['split_or_copy_ms_per_batch'] or 'none'} | "
           f"tables {table_bytes} B | peak memory {peak} B ({peak - base} B above the "
           f"phase's start)")
     print(json.dumps({"eval_profile": prof}))
@@ -533,12 +670,15 @@ def eval_full_width(torch):
     base = torch.cuda.memory_allocated()
     batches = [api.batch_fn(step, shape) for step in EVAL_STEPS]
     params = api.init(torch.Generator(device="cuda").manual_seed(0))
+    # one-hot scoring: K1 once per table and batch (f32), one grouped K5 per
+    # batch (int8), and K2 once per batch
+    n_tables = len(cfg.table_sizes)
     counts = {"eval_f32": _eval_run(torch, api, plain, params, batches, "f32", "qr_gather",
-                                    table_bytes(params), base)}
+                                    n_tables, table_bytes(params), base)}
     qparams = quantize_params(params, mode="int8")
     del params                                   # the int8 run holds only int8 tables
     counts["eval_int8"] = _eval_run(torch, api, plain, qparams, batches, "int8",
-                                    "qr_gather_quant", table_bytes(qparams), base)
+                                    "qr_gather_quant", 1, table_bytes(qparams), base)
     return counts
 
 
@@ -604,12 +744,101 @@ def _bag_bound(rem, quo, mask, d):
     return nbytes, int(live.sum()) * d * 3
 
 
+def _grouped_bound(idx, tables, mask=None):
+    """Grouped K4 (``mask`` given) or K5 over int8 QR pairs: the per-table
+    bounds summed — raw ids and mask once, each distinct live row of each
+    table once at D + 3 bytes, the f32 output once — and the f32
+    operations (dequant x 2 tables, combine, and for K4 weight and add per
+    element of a live slot)."""
+    nbytes = idx.numel() * 4 * (1 if mask is None else 2) + idx.shape[0] * len(tables) * D * 4
+    ops = 0
+    for t, tab in enumerate(tables):
+        ids = idx[:, t]
+        live = (ids >= 0) if mask is None else mask[:, t] > 0
+        nbytes += (_distinct(ids % tab.m, live) + _distinct(ids // tab.m, live)) * (D + 3)
+        ops += int(live.sum()) * D * (5 if mask is None else 7)
+    return nbytes, ops
+
+
+def _host_us(torch, fn, iters: int) -> float:
+    """Host time to enqueue one ``fn()`` call, in µs: ``iters`` calls back to
+    back on the host clock, one synchronise at the end."""
+    fn()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t) / iters * 1e6
+
+
+def time_grouped(torch, grouped_inputs, errs):
+    """The grouped kernels at a full 26-table wave (K4, B=256, L=4) and
+    batch (K5, B=256): device ms at 1, 2, 4, 8 and 16 threads per (bag, table),
+    the route each replaces on the same inputs (26 x (id split + mask copy
+    + per-table launch), stacked), host enqueue µs of both routes, and the
+    bound.  Returns the ``grouped`` fields of the K4 and K5 entries."""
+    from repro_torch.kernels import grouped_lookup, qr_gather, serve_path
+
+    idx, mask, tables, sparse = grouped_inputs
+    n_tables = len(tables)
+
+    def k4():
+        return serve_path.fused_serve_pool_grouped(idx, mask, tables)
+
+    def k4_replaced():
+        return torch.stack([serve_path.fused_serve_pool(
+            idx[:, t] % tab.m, mask[:, t].contiguous(), tab.w_a, idx[:, t] // tab.m, tab.w_b,
+            tab.scale_a, tab.zp_a, tab.scale_b, tab.zp_b) for t, tab in enumerate(tables)], dim=1)
+
+    def k5():
+        return qr_gather.qr_gather_quant_grouped(sparse, tables)
+
+    def k5_replaced():
+        return torch.stack([qr_gather.qr_gather_quant(
+            sparse[:, t] % tab.m, sparse[:, t] // tab.m, tab.w_a, tab.w_b, tab.scale_a, tab.zp_a,
+            tab.scale_b, tab.zp_b) for t, tab in enumerate(tables)], dim=1)
+
+    fields = {}
+    for name, fn, replaced, bound in (
+            ("fused_serve_pool", k4, k4_replaced, _grouped_bound(idx, tables, mask)),
+            ("qr_gather_quant", k5, k5_replaced, _grouped_bound(sparse, tables))):
+        kept = grouped_lookup.THREADS_PER_BAG
+        want = fn()
+        by_tpb = {}
+        for tpb in (1, 2, 4, 8, 16):
+            grouped_lookup.THREADS_PER_BAG = tpb
+            if not torch.equal(fn(), want):
+                _fail(f"grouped {name}: {tpb} threads per bag change the result")
+            by_tpb[tpb] = _time_ms(torch, fn, 200)
+        grouped_lookup.THREADS_PER_BAG = kept
+        bound_ms, bound_by = _bound(*bound)
+        key = "k4" if name == "fused_serve_pool" else "k5"
+        fields[name] = {
+            "shape": (f"int8 QR pairs (c=4) of the {n_tables} Kaggle tables, B={B}"
+                      + (f" L={L}" if key == "k4" else "") + f" D={D}, Zipf ids"),
+            "ms": by_tpb[kept], "threads_per_bag": kept,
+            "ms_by_threads_per_bag": by_tpb,
+            "bound_ms": bound_ms, "bound_by": bound_by, "bound_bytes": bound[0],
+            "replaced_route_ms": _time_ms(torch, replaced, 6),
+            "host_us": _host_us(torch, fn, 200),
+            "replaced_route_host_us": _host_us(torch, replaced, 20),
+            "max_abs_err": errs[key], "max_abs_diff_vs_per_table": errs[f"{key}_vs_per_table"]}
+        g = fields[name]
+        print(f"  grouped {name}: {g['ms']:.6f} ms ({kept} thread(s) per bag; by threads per "
+              f"bag {by_tpb}), bound {bound_ms:.7f} ms ({bound[0]} B), replaced route "
+              f"{g['replaced_route_ms']:.6f} ms; host {g['host_us']:.1f} us vs "
+              f"{g['replaced_route_host_us']:.1f} us per call")
+    return fields
+
+
 def _bound(nbytes, ops):
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / F32_FLOPS_PER_S * 1e3
     return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
-def measure(torch, gen, k4_inputs, x, qr_inputs, bag_inputs, bench_bag, counts, errs):
+def measure(torch, gen, k4_inputs, x, qr_inputs, bag_inputs, bench_bag, counts, errs,
+            grouped):
     """The ``kernels`` JSON entries: each kernel's time on the card at the
     main path's shapes, its plain version's, its bound from these inputs, a
     PyTorch yardstick where one exists, and its launches on every path."""
@@ -620,15 +849,15 @@ def measure(torch, gen, k4_inputs, x, qr_inputs, bag_inputs, bench_bag, counts, 
     rem, quo, mask, qa, qb, w_rem = k4_inputs
     k4_args = (rem, mask, qa["q"], quo, qb["q"], qa["scale"], qa["zp"], qb["scale"], qb["zp"])
     k4_ms = _time_ms(torch, lambda: serve_path.fused_serve_pool(*k4_args), 200)
-    k4_plain = _time_ms(torch, lambda: ref.fused_serve_pool(*k4_args), 50)
+    k4_plain = _time_ms(torch, lambda: ref.fused_serve_pool(*k4_args), 20)
     # yardstick: one dense f32 table, where a single PyTorch call exists
     k4_single = _time_ms(torch, lambda: serve_path.fused_serve_pool(rem, mask, w_rem), 200)
     bag_ms = _time_ms(torch, lambda: tf.embedding_bag(rem, w_rem, mode="sum",
-                                                      per_sample_weights=mask), 200)
+                                                      per_sample_weights=mask), 100)
     k2_ms = _time_ms(torch, lambda: dot_interaction.dot_interaction(x), 200)
-    k2_plain = _time_ms(torch, lambda: ref.dot_interaction(x), 50)
+    k2_plain = _time_ms(torch, lambda: ref.dot_interaction(x), 20)
     i, j = torch.tril_indices(F, F, offset=-1, device="cuda")
-    bmm_ms = _time_ms(torch, lambda: torch.bmm(x, x.transpose(1, 2))[:, i, j], 200)
+    bmm_ms = _time_ms(torch, lambda: torch.bmm(x, x.transpose(1, 2))[:, i, j], 100)
     k4_bytes, k4_ops = _k4_bound(rem, quo, mask)
     k2_bytes = x.numel() * 4 + B * (F * (F - 1) // 2) * 4
     k2_ops = B * (F * (F - 1) // 2) * 2 * D
@@ -637,7 +866,7 @@ def measure(torch, gen, k4_inputs, x, qr_inputs, bag_inputs, bench_bag, counts, 
     _, g_rem, g_quo, gw_rem, gw_quo, quant_args = qr_inputs
     k1_args = (g_rem, g_quo, gw_rem, gw_quo)
     k1_ms = _time_ms(torch, lambda: qr_gather.qr_gather(*k1_args), 200)
-    k1_plain = _time_ms(torch, lambda: ref.qr_gather(*k1_args), 50)
+    k1_plain = _time_ms(torch, lambda: ref.qr_gather(*k1_args), 20)
     k1_yard = _time_ms(torch, lambda: tf.embedding(g_rem, gw_rem) * tf.embedding(g_quo, gw_quo),
                        200)
     k1_bytes, k1_ops = _gather_bound(g_rem, g_quo, D * 4, 1)
@@ -650,13 +879,13 @@ def measure(torch, gen, k4_inputs, x, qr_inputs, bag_inputs, bench_bag, counts, 
     b_bytes = 2 * b_n * 4 + (_distinct(b_args[0]) + _distinct(b_args[1])) * bd * 4 + b_n * bd * 4
     k1_bench = {"shape": "f32 m=2048 q=16 D=128 N=512 uniform ids (kernels_bench)",
                 "ms": _time_ms(torch, lambda: qr_gather.qr_gather(*b_args), 200),
-                "plain_ms": _time_ms(torch, lambda: ref.qr_gather(*b_args), 50),
+                "plain_ms": _time_ms(torch, lambda: ref.qr_gather(*b_args), 20),
                 "bound_ms": _bound(b_bytes, b_n * bd)[0],
                 "yardstick_ms": _time_ms(torch, lambda: tf.embedding(b_args[0], b_args[2])
                                          * tf.embedding(b_args[1], b_args[3]), 200)}
 
     k5_ms = _time_ms(torch, lambda: qr_gather.qr_gather_quant(*quant_args), 200)
-    k5_plain = _time_ms(torch, lambda: ref.qr_gather_quant(*quant_args), 50)
+    k5_plain = _time_ms(torch, lambda: ref.qr_gather_quant(*quant_args), 20)
     q_rem, q_quo, q_ra, q_qa, s_ra, z_ra, s_qa, z_qa = quant_args
 
     def k5_library():
@@ -665,24 +894,24 @@ def measure(torch, gen, k4_inputs, x, qr_inputs, bag_inputs, bench_bag, counts, 
                     * tf.embedding(ids, scale).float())
         return rows(q_rem, q_ra, s_ra, z_ra) * rows(q_quo, q_qa, s_qa, z_qa)
 
-    k5_yard = _time_ms(torch, k5_library, 200)
+    k5_yard = _time_ms(torch, k5_library, 50)
     k5_bytes, k5_ops = _gather_bound(q_rem, q_quo, D + 3, 5)
 
     # K3 on the largest Kaggle table, B=256, L=4, fractional weights, op=add
     _, c_rem, c_quo, c_mask, cw_rem, cw_quo = bag_inputs
     k3_args = (c_rem, c_quo, c_mask, cw_rem, cw_quo)
     k3_ms = _time_ms(torch, lambda: embedding_bag.qr_embedding_bag(*k3_args, op="add"), 200)
-    k3_plain = _time_ms(torch, lambda: ref.qr_embedding_bag(*k3_args, op="add"), 50)
+    k3_plain = _time_ms(torch, lambda: ref.qr_embedding_bag(*k3_args, op="add"), 20)
     k3_yard = _time_ms(torch, lambda: (
         tf.embedding_bag(c_rem, cw_rem, mode="sum", per_sample_weights=c_mask)
-        + tf.embedding_bag(c_quo, cw_quo, mode="sum", per_sample_weights=c_mask)), 200)
+        + tf.embedding_bag(c_quo, cw_quo, mode="sum", per_sample_weights=c_mask)), 100)
     k3_bytes, k3_ops = _bag_bound(c_rem, c_quo, c_mask, D)
     # ... and at the reference kernel bench's shape (B=32, L=8, D=128, mult)
     e_idx, e_mask, e_rem, e_quo = bench_bag
     e_args = (e_idx % e_rem.shape[0], e_idx // e_rem.shape[0], e_mask, e_rem, e_quo)
     k3_bench = {"shape": "f32 m=2048 q=16 B=32 L=8 D=128 mult, every slot on (kernels_bench)",
                 "ms": _time_ms(torch, lambda: embedding_bag.qr_embedding_bag(*e_args), 200),
-                "plain_ms": _time_ms(torch, lambda: ref.qr_embedding_bag(*e_args), 50),
+                "plain_ms": _time_ms(torch, lambda: ref.qr_embedding_bag(*e_args), 20),
                 "bound_ms": _bound(*_bag_bound(*e_args[:3], e_rem.shape[1]))[0],
                 "yardstick_ms": None}
 
@@ -695,12 +924,13 @@ def measure(torch, gen, k4_inputs, x, qr_inputs, bag_inputs, bench_bag, counts, 
                 "library_ms": None, "launches_by_path": by_path, **extra}
 
     return [
-        entry("fused_serve_pool", "src/repro_torch/csrc/serve_path.cu",
+        entry("fused_serve_pool", "src/repro_torch/csrc/grouped_lookup.cu",
               "src/repro/kernels/serve_path.py:191", k4_ms, k4_plain, k4_bytes, k4_ops,
-              {"shape": f"int8 QR pair B={B} L={L} D={D}",
+              {"shape": f"per-table entry, int8 QR pair B={B} L={L} D={D}",
                "yardstick": "F.embedding_bag(mode='sum', per_sample_weights=) on one "
                             "dense f32 table, beside the kernel on that table",
-               "yardstick_ms": bag_ms, "ms_single_f32_table": k4_single}),
+               "yardstick_ms": bag_ms, "ms_single_f32_table": k4_single,
+               "grouped": grouped["fused_serve_pool"]}),
         entry("dot_interaction", "src/repro_torch/csrc/dot_interaction.cu",
               "src/repro/kernels/dot_interaction.py:52", k2_ms, k2_plain, k2_bytes, k2_ops,
               {"shape": f"f32 B={B} F={F} D={D}",
@@ -711,12 +941,13 @@ def measure(torch, gen, k4_inputs, x, qr_inputs, bag_inputs, bench_bag, counts, 
               {"shape": f"f32 QR pair of the {BIG_TABLE}-row table (c=4) D={D} N={B} Zipf ids",
                "yardstick": "no single call: two F.embedding calls + the multiply",
                "yardstick_ms": k1_yard, "bench_shape": k1_bench}),
-        entry("qr_gather_quant", "src/repro_torch/csrc/qr_gather.cu",
+        entry("qr_gather_quant", "src/repro_torch/csrc/grouped_lookup.cu",
               "src/repro/kernels/qr_gather.py:132", k5_ms, k5_plain, k5_bytes, k5_ops,
-              {"shape": f"int8 QR pair of the {BIG_TABLE}-row table (c=4) D={D} N={B} Zipf ids",
+              {"shape": f"per-table entry, int8 QR pair of the {BIG_TABLE}-row table (c=4) "
+                        f"D={D} N={B} Zipf ids",
                "yardstick": "no single call: six F.embedding calls (q, scale, zp of each "
                             "table) + dequant + multiply",
-               "yardstick_ms": k5_yard}),
+               "yardstick_ms": k5_yard, "grouped": grouped["qr_gather_quant"]}),
         entry("qr_embedding_bag", "src/repro_torch/csrc/embedding_bag.cu",
               "src/repro/kernels/embedding_bag.py:78", k3_ms, k3_plain, k3_bytes, k3_ops,
               {"shape": f"f32 QR pair of the {BIG_TABLE}-row table (c=4) B={B} L={L} D={D} "
@@ -755,6 +986,8 @@ def main() -> int:
     k2_err, x = check_interaction(torch, gen)
     print("[K1/K5] qr_gather and qr_gather_quant vs plain")
     k1_err, k5_err, qr_inputs = check_qr_gather(torch, gen)
+    print("[grouped] grouped K4 and K5 over the 26 Kaggle tables vs plain and per-table")
+    grouped_errs, grouped_inputs = check_grouped(torch, gen)
     print("[K3] qr_embedding_bag vs plain, and the f32-accumulation audit")
     k3_err, bag_inputs = check_embedding_bag(torch, gen)
     print("[serve] full-width DLRM-Criteo, int8 QR tables")
@@ -768,9 +1001,13 @@ def main() -> int:
     print("[bag] ops.qr_bag_lookup, K3's own entry point")
     counts["bag"], bench_bag = drive_bag_path(torch, gen)
     print("[time] CUDA events")
-    errs = {"fused_serve_pool": k4_err, "dot_interaction": k2_err, "qr_gather": k1_err,
-            "qr_gather_quant": k5_err, "qr_embedding_bag": k3_err}
-    kernels = measure(torch, gen, k4_inputs, x, qr_inputs, bag_inputs, bench_bag, counts, errs)
+    print(f"  card: {card}")
+    errs = {"fused_serve_pool": max(k4_err, grouped_errs["k4"]), "dot_interaction": k2_err,
+            "qr_gather": k1_err, "qr_gather_quant": max(k5_err, grouped_errs["k5"]),
+            "qr_embedding_bag": k3_err}
+    grouped = time_grouped(torch, grouped_inputs, grouped_errs)
+    kernels = measure(torch, gen, k4_inputs, x, qr_inputs, bag_inputs, bench_bag, counts, errs,
+                      grouped)
     for k in kernels:
         if k["launches"] == 0:
             _fail(f"{k['name']} was launched on no path")

@@ -29,12 +29,13 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 _FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
           "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # name -> {C symbol: (argtypes, restype)}
 _SIGNATURES = {
-    "serve_path": {
-        "fused_serve_pool": ([_P] * 11 + [_I] * 8 + [_P], _I),
-        "serve_path_error_string": ([_I], ctypes.c_char_p),
+    "grouped_lookup": {
+        "grouped_lookup": ([_P, _P, _I, _P, _P] + [_L] * 3 + [_P] + [_L] * 3 + [_P]
+                           + [_I] * 7 + [_P], _I),
+        "grouped_lookup_error_string": ([_I], ctypes.c_char_p),
     },
     "dot_interaction": {
         "dot_interaction": ([_P, _P, _I, _I, _I, _I, _P], _I),
@@ -42,7 +43,6 @@ _SIGNATURES = {
     },
     "qr_gather": {
         "qr_gather": ([_P] * 5 + [_I] * 4 + [_P], _I),
-        "qr_gather_quant": ([_P] * 9 + [_I] * 3 + [_P], _I),
         "qr_gather_error_string": ([_I], ctypes.c_char_p),
     },
     "embedding_bag": {

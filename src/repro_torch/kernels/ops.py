@@ -3,8 +3,10 @@
 They split QR ids into (remainder, quotient) rows, pick the fused kernel
 for what it covers and the plain tensor path for what it does not
 (``op="concat"`` pairs and pairs that mix a dense and a quantized table,
-on either device).  Whether a kernel launches is the kernel wrapper's
-decision: a CPU tensor takes the plain version, a CUDA tensor the kernel.
+on either device).  The grouped entries look up every feature of a wave
+or batch in one launch, with the id split inside the kernel.  Whether a
+kernel launches is the kernel wrapper's decision: a CPU tensor takes the
+plain version, a CUDA tensor the kernel.
 """
 
 from __future__ import annotations
@@ -15,10 +17,11 @@ from ..core.compositional import is_quantized_table, table_rows
 from . import ref
 from .dot_interaction import dot_interaction
 from .embedding_bag import qr_embedding_bag
-from .qr_gather import qr_gather, qr_gather_quant
-from .serve_path import fused_serve_pool
+from .qr_gather import qr_gather, qr_gather_quant, qr_gather_quant_grouped
+from .serve_path import fused_serve_pool, fused_serve_pool_grouped
 
-__all__ = ["qr_lookup", "qr_bag_lookup", "serve_bag_pool", "dlrm_interact"]
+__all__ = ["qr_lookup", "qr_bag_lookup", "serve_bag_pool", "dlrm_interact",
+           "serve_bag_pool_grouped", "qr_lookup_grouped"]
 
 
 def _rows(table) -> int:
@@ -30,6 +33,22 @@ def _operands(table):
     if is_quantized_table(table):
         return table["q"], table["scale"], table["zp"]
     return table, None, None
+
+
+def _fusable(w_a, w_b, op) -> bool:
+    """Whether the fused serving kernel takes the table (pair): a single
+    table, or a mult/add pair whose two tables are both dense or both
+    quantized."""
+    if w_b is None:
+        return True
+    return op in ("mult", "add") and is_quantized_table(w_a) == is_quantized_table(w_b)
+
+
+def _group_table(w_a, w_b, m, op, proj):
+    qa, sa, za = _operands(w_a)
+    qb, sb, zb = _operands(w_b) if w_b is not None else (None, None, None)
+    return ref.GroupTable(qa, qb, sa, za, sb, zb, _rows(w_a) if w_b is not None else m,
+                          op, proj)
 
 
 def _split(idx, w_rem):
@@ -108,11 +127,8 @@ def serve_bag_pool(idx, mask, w_a, w_b=None, *, op: str = "mult", proj=None,
     ``(d, D)`` projection.  ``use_kernel=False`` computes the same function
     with the plain version, on any device.
     """
-    quant_a = is_quantized_table(w_a)
-    quant_b = is_quantized_table(w_b) if w_b is not None else quant_a
     idx_a, idx_b = _split(idx, w_a) if w_b is not None else (idx, None)
-    fusable = (w_b is None or op in ("mult", "add")) and quant_a == quant_b
-    if not fusable:
+    if not _fusable(w_a, w_b, op):
         # concat / mixed dense+quant pair: gather per table, combine, pool
         # in f32, project — the same contract with plain tensor operations
         pooled = _plain_bag(w_a, w_b, idx_a, idx_b, mask, op)
@@ -121,6 +137,39 @@ def serve_bag_pool(idx, mask, w_a, w_b=None, *, op: str = "mult", proj=None,
     qb, sb, zb = _operands(w_b) if w_b is not None else (None, None, None)
     pool = fused_serve_pool if use_kernel else ref.fused_serve_pool
     return pool(idx_a, mask, qa, idx_b, qb, sa, za, sb, zb, proj, op=op)
+
+
+def serve_bag_pool_grouped(idx, mask, tables):
+    """Serving pooled lookup of every feature in one kernel launch:
+    ``idx``/``mask`` ``(B, T, L)`` raw ids and weights (``mask=None``:
+    weight 1) → ``(B, T, D)``.
+
+    ``tables`` holds one ``(w_a, w_b, m, op, proj)`` per feature, each
+    table dense or row-quantized: a QR pair (``w_b`` given) splits the ids
+    by ``w_a``'s rows; a single table folds them ``i % m`` (a hash table)
+    or, with ``m = 0``, takes them as given (a full table).  Returns None,
+    launching nothing, unless the fused kernel takes every table
+    (``serve_bag_pool``'s rule) and they all pool to one dtype: the caller
+    then keeps its per-table route.
+    """
+    if not all(_fusable(w_a, w_b, op) for w_a, w_b, _, op, _ in tables):
+        return None
+    group = [_group_table(*spec) for spec in tables]
+    if len({ref.pool_out_dtype(t) for t in group}) != 1:
+        return None
+    return fused_serve_pool_grouped(idx, mask, group)
+
+
+def qr_lookup_grouped(idx, tables):
+    """One-hot QR lookup of every feature in one K5 launch: ``idx`` ``(B,
+    T)`` raw ids → f32 ``(B, T, D)``; ``tables`` as for
+    ``serve_bag_pool_grouped``.  Returns None, launching nothing, unless
+    every table is an int8 mult/add QR pair with no projection."""
+    for w_a, w_b, _, op, proj in tables:
+        if not (w_b is not None and is_quantized_table(w_a) and is_quantized_table(w_b)
+                and op in ("mult", "add") and proj is None):
+            return None
+    return qr_gather_quant_grouped(idx, [_group_table(*spec) for spec in tables])
 
 
 def dlrm_interact(x, *, use_kernel: bool = True):

@@ -1,31 +1,36 @@
 """One-hot quotient-remainder lookup: ``w_rem[rem] op w_quo[quo]`` per id.
 
-Kernels: ``csrc/qr_gather.cu`` (CUDA C++ for sm_90a), one source with two
-entry points, replacing the Pallas TPU kernels
-``repro/kernels/qr_gather.py::qr_gather`` (K1, dense tables) and
-``::qr_gather_quant`` (K5, an int8 pair).
+Kernels: ``csrc/qr_gather.cu`` (CUDA C++ for sm_90a) for K1 ``qr_gather``
+on dense tables, replacing the Pallas TPU kernel
+``repro/kernels/qr_gather.py::qr_gather``; ``csrc/grouped_lookup.cu`` for
+K5 ``qr_gather_quant`` on int8 pairs, replacing
+``repro/kernels/qr_gather.py::qr_gather_quant``.  K5 has a per-table entry
+(pre-split ids, one table) and ``qr_gather_quant_grouped``, which looks up
+every table of a batch in one launch from the raw ids and splits them in
+the kernel.
 
 Bound on the card: memory.  A call gathers two short scattered rows per id
 (64 bytes each for f32 at D=16, 19 for an int8 row with its scale and
 zero point) and writes one row, with 1 (K1) or 5 (K5) f32 operations per
-element.  The design has a group of threads own one output row, load its
-two ids itself and read each gathered row once as a contiguous run.  K5
-reads the stored bf16 scale and int8 zero point of each gathered row;
-where the TPU wrapper built a ``(rows, 2)`` f32 metadata table from the
-whole quantized table on every call, a call here does nothing table-wide.
+element.  K1 has a group of threads own one output row, load its two ids
+itself and read each gathered row once as a contiguous run.  K5 reads the
+stored bf16 scale and int8 zero point of each gathered row; where the TPU
+wrapper built a ``(rows, 2)`` f32 metadata table from the whole quantized
+table on every call, a call here does nothing table-wide.
 
 For CPU tensors the wrappers return the plain versions
 (``kernels/ref.py``); for CUDA tensors they launch the kernel or raise.
-``qr_gather.launches`` and ``qr_gather_quant.launches`` count launches.
+``qr_gather.launches`` and ``qr_gather_quant.launches`` count launches
+(the latter of both K5 entries).
 """
 
 from __future__ import annotations
 
 import torch
 
-from . import _build, ref
+from . import _build, grouped_lookup, ref
 
-__all__ = ["qr_gather", "qr_gather_quant"]
+__all__ = ["qr_gather", "qr_gather_quant", "qr_gather_quant_grouped"]
 
 _TABLE_TYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -82,29 +87,24 @@ def qr_gather_quant(rem, quo, q_rem, q_quo, scale_rem, zp_rem, scale_quo, zp_quo
     ``(N, d)`` of dequantized, combined rows."""
     _check_op("qr_gather_quant", op)
     operands = (rem, quo, q_rem, q_quo, scale_rem, zp_rem, scale_quo, zp_quo)
-    device = _build.launch_device(*operands)
-    if device is None:
+    if _build.launch_device(*operands) is None:
         return ref.qr_gather_quant(*operands, op=op)
-    rem, quo = _check_ids("qr_gather_quant", rem, quo)
-    _check_tables("qr_gather_quant", q_rem, q_quo)
-    _require(q_rem.dtype == torch.int8, "qr_gather_quant", f"table dtype {q_rem.dtype} not int8")
-    for q, scale, zp in ((q_rem, scale_rem, zp_rem), (q_quo, scale_quo, zp_quo)):
-        _require(scale.dtype == torch.bfloat16 and zp.dtype == torch.int8, "qr_gather_quant",
-                 "scale is bf16 and zp int8")
-        _require(scale.shape == (q.shape[0], 1) and zp.shape == (q.shape[0], 1)
-                 and scale.is_contiguous() and zp.is_contiguous(), "qr_gather_quant",
-                 "scale and zp are contiguous (rows, 1)")
-    n, d = rem.shape[0], q_rem.shape[1]
-    out = torch.empty((n, d), dtype=torch.float32, device=device)
-    if n == 0 or d == 0:
-        return out
-    code = _build.library("qr_gather").qr_gather_quant(
-        rem.data_ptr(), quo.data_ptr(), q_rem.data_ptr(), q_quo.data_ptr(),
-        scale_rem.data_ptr(), zp_rem.data_ptr(), scale_quo.data_ptr(), zp_quo.data_ptr(),
-        out.data_ptr(), n, d, int(op == "mult"), torch.cuda.current_stream(device).cuda_stream)
-    _build.check("qr_gather", code, "qr_gather_quant launch")
-    qr_gather_quant.launches += 1
-    return out
+    _require(rem.dim() == 1, "qr_gather_quant", f"ids are (N,), got {tuple(rem.shape)}")
+    table = ref.GroupTable(q_rem, q_quo, scale_rem, zp_rem, scale_quo, zp_quo, 0, op)
+    out = grouped_lookup.launch(qr_gather_quant, "qr_gather_quant", rem[:, None], None,
+                                [table], bag=False, idx_b=quo[:, None])
+    return out[:, 0]
+
+
+def qr_gather_quant_grouped(idx, tables):
+    """K5 over every table of a batch in one launch: ``idx`` int ``(B, T)``
+    raw ids, non-negative and below each table's size; ``tables``: T int8
+    QR-pair ``ref.GroupTable``s, split by their ``m`` inside the kernel.
+    Returns f32 ``(B, T, d)``."""
+    if _build.launch_device(idx, *(x for t in tables for x in t.tensors())) is None:
+        return ref.qr_gather_quant_grouped(idx, tables)
+    return grouped_lookup.launch(qr_gather_quant, "qr_gather_quant_grouped", idx, None,
+                                 tables, bag=False)
 
 
 qr_gather.launches = 0

@@ -8,11 +8,38 @@ CPU tensors, the CPU tests hold it against the JAX package, and
 
 from __future__ import annotations
 
+from typing import NamedTuple, Optional
+
 import numpy as np
 import torch
 
 __all__ = ["qr_gather", "qr_gather_quant", "qr_embedding_bag", "fused_serve_pool",
-           "dot_interaction", "pad_empty_wave"]
+           "dot_interaction", "pad_empty_wave", "GroupTable", "pool_out_dtype",
+           "fused_serve_pool_grouped", "qr_gather_quant_grouped"]
+
+
+class GroupTable(NamedTuple):
+    """One table of a grouped lookup, as raw tensors.
+
+    ``w_a`` alone is a full table (``m = 0``: ids taken as given) or a
+    hash table (ids folded ``i % m``).  With ``w_b`` it is a QR pair: the
+    remainder table ``w_a`` of ``m`` rows and the quotient table ``w_b``,
+    ids split ``(i % m, i // m)`` and the rows combined by ``op``.  An int8
+    table carries its bf16 ``scale`` and int8 ``zp`` ``(rows, 1)`` columns;
+    ``proj`` is an optional ``(d, D)`` projection of the pooled bag.
+    """
+    w_a: torch.Tensor
+    w_b: Optional[torch.Tensor] = None
+    scale_a: Optional[torch.Tensor] = None
+    zp_a: Optional[torch.Tensor] = None
+    scale_b: Optional[torch.Tensor] = None
+    zp_b: Optional[torch.Tensor] = None
+    m: int = 0
+    op: str = "mult"
+    proj: Optional[torch.Tensor] = None
+
+    def tensors(self) -> list:
+        return [x for x in self if isinstance(x, torch.Tensor)]
 
 
 def pad_empty_wave(idx_a, idx_b, mask):
@@ -91,6 +118,47 @@ def fused_serve_pool(idx_a, mask, w_a, idx_b=None, w_b=None, scale_a=None,
     if proj is None:
         return pooled
     return pooled.to(torch.float32) @ proj.to(torch.float32)
+
+
+def pool_out_dtype(table: GroupTable) -> torch.dtype:
+    """``fused_serve_pool``'s output dtype for one table: f32 when
+    quantized or projected, else the table dtype."""
+    quant = table.scale_a is not None
+    return torch.float32 if quant or table.proj is not None else table.w_a.dtype
+
+
+def _split_ids(idx, table: GroupTable):
+    """Raw ids → (rows of ``w_a``, rows of ``w_b`` or None)."""
+    if table.w_b is not None:
+        return idx % table.m, idx // table.m
+    return (idx % table.m if table.m else idx), None
+
+
+def fused_serve_pool_grouped(idx, mask, tables):
+    """``fused_serve_pool`` of every table of a wave: ``idx``/``mask``
+    ``(B, T, L)`` raw ids and weights (``mask=None``: every slot weighs 1),
+    ``tables`` T ``GroupTable``s → ``(B, T, D)``.  Table t's ids split or
+    fold by its ``m``, its bags pool as ``fused_serve_pool`` pools them, and
+    the T features stack on dim 1."""
+    if mask is None:
+        mask = torch.ones(idx.shape, dtype=torch.float32, device=idx.device)
+    feats = []
+    for t, tab in enumerate(tables):
+        ia, ib = _split_ids(idx[:, t], tab)
+        feats.append(fused_serve_pool(ia, mask[:, t], tab.w_a, ib, tab.w_b, tab.scale_a,
+                                      tab.zp_a, tab.scale_b, tab.zp_b, tab.proj, op=tab.op))
+    return torch.stack(feats, dim=1)
+
+
+def qr_gather_quant_grouped(idx, tables):
+    """``qr_gather_quant`` of every table: ``idx`` ``(B, T)`` raw ids,
+    ``tables`` T int8 QR-pair ``GroupTable``s → f32 ``(B, T, D)``."""
+    feats = []
+    for t, tab in enumerate(tables):
+        rem, quo = _split_ids(idx[:, t], tab)
+        feats.append(qr_gather_quant(rem, quo, tab.w_a, tab.w_b, tab.scale_a, tab.zp_a,
+                                     tab.scale_b, tab.zp_b, op=tab.op))
+    return torch.stack(feats, dim=1)
 
 
 def dot_interaction(x):

@@ -106,25 +106,59 @@ def dlrm_init(cfg: DLRMConfig, generator: torch.Generator, device="cuda"):
     }
 
 
+def _qr2(mod) -> bool:
+    return isinstance(mod, CompositionalEmbedding) and len(mod.partitions) == 2 \
+        and mod.op in ("mult", "add")
+
+
+def _embed_grouped(table_params, sparse_idx, modules, mask, proj):
+    """The embed stage in one kernel launch — K4 over every table for
+    multi-hot ids, K5 for one-hot ids — as a ``(B, F, D)`` tensor, or None
+    where the per-table route stays: a table kind the fused kernels do not
+    take, or a set of tables they cannot serve together (``ops``' rules:
+    one-hot takes only int8 QR pairs)."""
+    specs = []
+    for i, (mod, tp) in enumerate(zip(modules, table_params)):
+        w = None if proj is None else proj.get(str(i))
+        if _qr2(mod):
+            specs.append((tp["table_0"], tp["table_1"], 0, mod.op, w))
+        elif isinstance(mod, (FullEmbedding, HashEmbedding)):
+            m = mod.m if isinstance(mod, HashEmbedding) else 0
+            specs.append((tp["table"], None, m, "mult", w))
+        else:
+            return None
+    if sparse_idx.dim() == 3:
+        return ops.serve_bag_pool_grouped(sparse_idx, mask, specs)
+    return ops.qr_lookup_grouped(sparse_idx, specs)
+
+
 def embed_features(table_params, sparse_idx, cfg, modules=None, mask=None, proj=None):
-    """Per-feature pooled embedding list — the serving stack's embed stage.
+    """Per-feature pooled embeddings — the serving stack's embed stage.
 
     ``sparse_idx``: one-hot ``(B, F)`` or multi-hot ``(B, F, L)`` with
     ``mask (B, F, L)`` (masked slots contribute nothing, so an empty bag
     pools to the exact zero vector).  Tables may be dense or row-quantized.
-    With ``cfg.use_kernel`` every multi-hot full/hash table or mult/add QR
-    pair goes through the fused serving kernel, and every one-hot mult/add
-    QR pair through ``ops.qr_lookup`` (K1 dense, K5 int8).  Returns a list of
-    ``(B, D)`` features (feature mode expands per partition, one-hot only).
+    With ``cfg.use_kernel``, when every table is one the fused kernels take
+    (multi-hot: full and hash tables and mult/add QR pairs; one-hot: int8
+    mult/add QR pairs), all features go through one grouped launch (K4
+    multi-hot, K5 one-hot) and come back stacked as ``(B, F, D)``.
+    Otherwise each multi-hot full/hash table or mult/add QR pair goes
+    through the fused serving kernel, and each one-hot mult/add QR pair
+    through ``ops.qr_lookup`` (K1 dense, K5 int8), and the result is a list
+    of ``(B, D)`` features (feature mode expands per partition, one-hot
+    only).
     """
     modules = tables_for(cfg) if modules is None else modules
     multihot = sparse_idx.dim() == 3
     use_kernel = getattr(cfg, "use_kernel", False)
+    if use_kernel and not _feature_mode(cfg):
+        grouped = _embed_grouped(table_params, sparse_idx, modules, mask, proj)
+        if grouped is not None:
+            return grouped
     feats = []
     for i, mod in enumerate(modules):
         tp = table_params[i]
-        qr2 = isinstance(mod, CompositionalEmbedding) \
-            and len(mod.partitions) == 2 and mod.op in ("mult", "add")
+        qr2 = _qr2(mod)
         if multihot:
             idx = sparse_idx[:, i, :]
             mk = mask[:, i, :] if mask is not None \

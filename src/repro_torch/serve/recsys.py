@@ -114,7 +114,7 @@ class RecsysEngine:
         feats = embed_features(self.params["tables"], idx, self.cfg,
                                modules=self.modules, mask=mask,
                                proj=self.params.get("proj"))
-        return torch.stack(feats, dim=1)
+        return feats if torch.is_tensor(feats) else torch.stack(feats, dim=1)
 
     def _dense_fwd(self, dense, feats):
         return dlrm_forward_from_features(self.params, dense, feats, self.cfg)

@@ -24,7 +24,8 @@ import torch
 from repro_torch.configs import dlrm_criteo
 from repro_torch.configs.common import Shape
 from repro_torch.core import EmbeddingSpec
-from repro_torch.kernels import dot_interaction, embedding_bag, ops, qr_gather, ref, serve_path
+from repro_torch.kernels import (dot_interaction, embedding_bag, grouped_lookup, ops, qr_gather,
+                                 ref, serve_path)
 from repro_torch.launch import serve as launch_serve
 from repro_torch.models.dlrm import DLRMConfig, dlrm_init
 from repro_torch.serve.quantize import quantize_params, quantize_table
@@ -143,7 +144,7 @@ def test_engine_on_card_kernels_match_plain_route(cuda, batching):
         waves = eng.metrics()["waves"]
         launched = (serve_path.fused_serve_pool.launches - k4,
                     dot_interaction.dot_interaction.launches - k2)
-        assert launched == ((len(sizes) * waves, waves) if use_kernel else (0, 0))
+        assert launched == ((waves, waves) if use_kernel else (0, 0))   # one K4 per wave
     assert np.isfinite(scores[True]).all()
     np.testing.assert_allclose(scores[True], scores[False], rtol=0, atol=1e-4)
 
@@ -262,9 +263,9 @@ def test_qr_ops_route_cuda_tensors_to_the_kernels(cuda):
 
 @pytest.mark.parametrize("quant", [None, "int8"])
 def test_one_hot_scoring_route_on_card(cuda, quant):
-    """api(cfg).loss_fn / predict with use_kernel: one K1 (f32) or K5
-    (int8) launch per table and one K2 per batch; logits and loss within
-    1e-4 of use_kernel=False."""
+    """api(cfg).loss_fn / predict with use_kernel: one K1 launch per table
+    (f32) or one grouped K5 launch (int8), and one K2 per batch; logits and
+    loss within 1e-4 of use_kernel=False."""
     sizes = (100, 500, 33, 10_000)
     cfg = dataclasses.replace(dlrm_criteo.config(reduced=True), table_sizes=sizes,
                               bottom_mlp=(32, 16), top_mlp=(32,), use_kernel=True)
@@ -281,7 +282,7 @@ def test_one_hot_scoring_route_on_card(cuda, quant):
         k_before, k2_before = lookup.launches, dot_interaction.dot_interaction.launches
         loss, metrics = kernel_api.loss_fn(params, batch)
         torch.cuda.synchronize()
-        assert lookup.launches - k_before == len(sizes)
+        assert lookup.launches - k_before == (1 if quant else len(sizes))
         assert dot_interaction.dot_interaction.launches - k2_before == 1
         want_loss, want_metrics = plain_api.loss_fn(params, batch)
         torch.testing.assert_close(loss, want_loss, rtol=1e-4, atol=1e-4)
@@ -289,3 +290,104 @@ def test_one_hot_scoring_route_on_card(cuda, quant):
         assert logits.shape == (64,) and torch.isfinite(logits).all()
         torch.testing.assert_close(logits, plain_api.predict(params, batch), rtol=1e-4,
                                    atol=1e-4)
+
+
+def _group(rng, sizes, d, mode, cuda, kinds=("qr", "qr", "hash", "full"), proj_to=None):
+    """One GroupTable per size, of the kinds in turn (QR pairs with c=4),
+    mult and add in turn."""
+    tables = []
+    for t, size in enumerate(sizes):
+        kind = kinds[t % len(kinds)]
+        m = -(-size // 4) if kind == "qr" else (max(1, size // 3) if kind == "hash" else 0)
+        tt = _tables(rng, m or size, -(-size // max(m, 1)), d, mode, cuda)
+        proj = None if proj_to is None else torch.from_numpy(
+            rng.normal(size=(d, proj_to)).astype(np.float32)).to(cuda)
+        pair = kind == "qr"
+        tables.append(ref.GroupTable(tt["w_a"], tt["w_b"] if pair else None, tt.get("scale_a"),
+                                     tt.get("zp_a"), tt.get("scale_b") if pair else None,
+                                     tt.get("zp_b") if pair else None, m,
+                                     ("mult", "add")[t % 2], proj))
+    return tables
+
+
+def _launched_grouped(counter, fn, *args):
+    before = counter.launches
+    out = fn(*args)
+    torch.cuda.synchronize()
+    assert counter.launches == before + 1
+    return out
+
+
+def _edge_ids(rng, sizes, b, length, cuda):
+    idx = np.stack([rng.integers(0, s, size=(b, length)) for s in sizes], axis=1)
+    for t, s in enumerate(sizes):
+        m = -(-s // 4)
+        for k, v in enumerate((0, m - 1, min(m, s - 1), s - 1)):
+            if length:
+                idx[k % b, t, k % length] = v
+    return torch.from_numpy(idx.astype(np.int32)).to(cuda)
+
+
+@pytest.mark.parametrize("mode", ["f32", "bf16", "int8"])
+@pytest.mark.parametrize("threads_per_bag", [1, 2, 4, 8, 16])
+def test_grouped_serve_pool_matches_plain_and_per_table(cuda, mode, threads_per_bag,
+                                                        monkeypatch):
+    """Grouped K4 over ragged QR pairs, hash and full tables (D=16 and a
+    projected D=24), L in {0, 1, 4, 16}, empty bags, mask None: one launch,
+    within tolerance of the plain version and bit-equal to T per-table
+    launches of the same kernel on the split ids."""
+    monkeypatch.setattr(grouped_lookup, "THREADS_PER_BAG", threads_per_bag)
+    sizes = (13, 50, 7, 200, 3, 1_000_003)
+    tol = TOL["bf16" if mode == "bf16" else "f32"]
+    for length in (0, 1, 4, 16):
+        for d, proj_to in ((16, None), (24, 16)):
+            rng = np.random.default_rng(length * 10 + d)
+            tables = _group(rng, sizes, d, mode, cuda, proj_to=proj_to)
+            idx = _edge_ids(rng, sizes, 37, length, cuda)
+            mask = torch.from_numpy((rng.random(idx.shape) > 0.3).astype(np.float32)).to(cuda)
+            mask[-1] = 0.0                                  # a request of empty bags
+            for mk in (mask, None):
+                got = _launched_grouped(serve_path.fused_serve_pool,
+                                        serve_path.fused_serve_pool_grouped, idx, mk, tables)
+                want = ref.fused_serve_pool_grouped(idx, mk, tables)
+                assert got.dtype == want.dtype and got.shape == want.shape
+                torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+                if mk is not None:
+                    assert (got[-1] == 0).all()
+                for t, tab in enumerate(tables):
+                    ia, ib = ref._split_ids(idx[:, t], tab)
+                    one = serve_path.fused_serve_pool(
+                        ia, torch.ones(ia.shape, device=cuda) if mk is None else mk[:, t],
+                        tab.w_a, ib, tab.w_b, tab.scale_a, tab.zp_a, tab.scale_b, tab.zp_b,
+                        tab.proj, op=tab.op)
+                    assert torch.equal(one, got[:, t])
+
+
+@pytest.mark.parametrize("d", [16, 24])
+def test_grouped_qr_gather_quant_matches_plain_and_per_table(cuda, d):
+    sizes = (13, 50, 7, 200, 3, 1_000_003)
+    rng = np.random.default_rng(d)
+    tables = _group(rng, sizes, d, "int8", cuda, kinds=("qr",))
+    idx = _edge_ids(rng, sizes, 300, 1, cuda)[:, :, 0]
+    got = _launched_grouped(qr_gather.qr_gather_quant, qr_gather.qr_gather_quant_grouped,
+                            idx, tables)
+    want = ref.qr_gather_quant_grouped(idx, tables)
+    assert got.dtype == torch.float32 and got.shape == want.shape == (300, len(sizes), d)
+    torch.testing.assert_close(got, want, rtol=TOL["int8"], atol=TOL["int8"])
+    for t, tab in enumerate(tables):
+        one = qr_gather.qr_gather_quant(idx[:, t] % tab.m, idx[:, t] // tab.m, tab.w_a, tab.w_b,
+                                        tab.scale_a, tab.zp_a, tab.scale_b, tab.zp_b, op=tab.op)
+        assert torch.equal(one, got[:, t])
+
+
+def test_grouped_wrapper_refuses_over_the_cap_on_the_card(cuda):
+    w = torch.randn((8, 16), device=cuda)
+    n = grouped_lookup.MAX_TABLES + 1
+    with pytest.raises(ValueError, match="tables"):
+        serve_path.fused_serve_pool_grouped(torch.zeros((2, n, 1), dtype=torch.int32,
+                                                        device=cuda), None,
+                                            [ref.GroupTable(w)] * n)
+    with pytest.raises(ValueError, match="differ"):
+        serve_path.fused_serve_pool_grouped(
+            torch.zeros((2, 2, 1), dtype=torch.int32, device=cuda), None,
+            [ref.GroupTable(w), ref.GroupTable(w.bfloat16())])

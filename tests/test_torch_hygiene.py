@@ -15,7 +15,7 @@ from pathlib import Path
 import pytest
 import torch
 
-from repro_torch.kernels import _build, embedding_bag, qr_gather, serve_path
+from repro_torch.kernels import _build, embedding_bag, qr_gather, ref, serve_path
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
@@ -66,6 +66,10 @@ def test_missing_toolkit_or_mixed_devices_raise(monkeypatch):
         lambda: qr_gather.qr_gather_quant(ids[:, 0], ids[:, 0], meta.to(torch.int8),
                                           cpu.to(torch.int8), None, None, None, None),
         lambda: embedding_bag.qr_embedding_bag(ids, ids, torch.ones((2, 1)), cpu, meta),
+        lambda: serve_path.fused_serve_pool_grouped(ids[:, :, None], None,
+                                                    [ref.GroupTable(meta)]),
+        lambda: qr_gather.qr_gather_quant_grouped(ids, [ref.GroupTable(
+            meta.to(torch.int8), cpu.to(torch.int8), m=2)]),
     ]
     for call in wrappers:
         with pytest.raises(ValueError, match="one CUDA device"):
@@ -79,7 +83,7 @@ def test_failed_build_raises(monkeypatch, tmp_path):
     fake.chmod(0o755)
     monkeypatch.setenv("PATH", str(tmp_path))
     monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
-    assert set(_build.SOURCES) == {"serve_path", "dot_interaction", "qr_gather",
+    assert set(_build.SOURCES) == {"grouped_lookup", "dot_interaction", "qr_gather",
                                    "embedding_bag"}
     with pytest.raises(RuntimeError, match="(?s)build failed.*unsupported gpu") as err:
         _build.build_all(_build.SOURCES)
