@@ -4,7 +4,7 @@
 Phases (any failure exits non-zero, and no result line is printed):
 
 1. print the card's name and power limit (``nvidia-smi``);
-2. build every CUDA kernel of the port from ``src/repro_torch/csrc`` (four
+2. build every CUDA kernel of the port from ``src/repro_torch/csrc`` (three
    sources, one ``nvcc`` each, started together) and print the compiler's
    register / shared-memory report;
 3. hold the fused serving kernel's per-table entry (K4,
@@ -12,18 +12,25 @@ Phases (any failure exits non-zero, and no result line is printed):
    the serving shapes (int8 QR pair, B=256, L=4, D=16) and over its
    variants: f32, bf16, add, a single table, a projection, empty bags and
    an all-empty (L=0) wave;
-4. hold the interaction kernel (K2, ``dot_interaction``) against its plain
-   version at B=256, F=27, D=16 in f32 and bf16;
-5. hold the one-hot QR lookups against their plain versions on the
-   largest Kaggle table (QR c=4: 2,532,807 + 4 rows, D=16) at N=256 Zipf
-   ids: K1 ``qr_gather`` in f32 and bf16, mult and add, and a 3-D ``idx``
-   through ``ops.qr_lookup``; K5 ``qr_gather_quant`` on the int8 pair;
+4. hold the interaction kernel (K2) against its plain versions in f32 and
+   bf16: the top MLP's input ``[z, triangle]`` written from z and the
+   features read in place (``dot_interaction_concat``, the model's call),
+   with z and feats contiguous, as strided views of one buffer and as
+   transposed views, and the stacked ``dot_interaction(x)``, at
+   DLRM-Criteo's B=256, F=27, D=16 and at ragged F (2, 33), D (24, 128)
+   and B (1, 257);
+5. hold the one-hot QR lookups' per-table entries against their plain
+   versions on the largest Kaggle table (QR c=4: 2,532,807 + 4 rows, D=16)
+   at N=256 Zipf ids: K1 ``qr_gather`` in f32 and bf16, mult and add, and a
+   3-D ``idx`` through ``ops.qr_lookup``; K5 ``qr_gather_quant`` on the
+   int8 pair;
 6. hold the grouped kernels (``csrc/grouped_lookup.cu``) at full width —
    the 26 Kaggle tables as QR pairs (c=4), D=16, raw ids with 0, m-1, m and
    size-1 of every table — against their plain versions and against 26
    per-table launches of the same kernel (max |diff| 0 expected): grouped
    K4 at B=256, L=4 in int8 (mult, add), f32 and bf16 with empty bags, and
    an all-empty (L=0) wave; grouped K5 at B=256 in int8 (mult, add);
+   grouped K1 at B=256 in f32 and bf16 (mult, add);
 7. hold the QR embedding bag (K3, ``qr_embedding_bag``) against its plain
    version on the largest table at B=256, L=4, D=16 (f32 and bf16,
    fractional weights, empty bags), and run the f32-accumulation audit
@@ -35,23 +42,25 @@ Phases (any failure exits non-zero, and no result line is printed):
    K4 and one K2 per wave), and that a sample of scores matches the same
    engine with ``use_kernel=False``; print p50/p99/QPS, peak memory and
    table bytes; profile a full wave, with its device operations and any id
-   split or copy kernels left;
+   split, copy or concatenation kernels left;
 9. score 12 held-out batches of 256 (steps 10,000-10,011, the reference's
    ``paper_tables`` evaluation) with the full-width one-hot DLRM-Criteo
    through ``api(cfg).batch_fn`` / ``loss_fn`` / ``predict``, once with
-   f32 tables (K1 per table, and K2) and once after int8 quantization (one
-   grouped K5 per batch, and K2); check the launch counts, finite logits,
-   and logits and loss against ``use_kernel=False``; print BCE, accuracy,
-   wall and device ms per batch, device operations, the device's busy
-   share, table bytes and peak memory;
+   f32 tables (one grouped K1 per batch, and K2) and once after int8
+   quantization (one grouped K5 per batch, and K2); check the launch
+   counts, finite logits, and logits and loss against ``use_kernel=False``;
+   print BCE, accuracy, wall and device ms per batch, device operations,
+   the device's busy share, table bytes and peak memory;
 10. drive K3's own entry point ``ops.qr_bag_lookup`` at the shape of the
    reference's kernel bench and on the largest Kaggle table;
 11. time each kernel, its plain version and a PyTorch yardstick with CUDA
    events, compute each kernel's bound from this run's inputs, and print
-   the ``kernels`` JSON line.  For the grouped kernels it times, at a full
-   26-table wave (K4) and batch (K5), 1 to 16 threads per (bag, table),
-   the route each replaces (26 x (id split + mask copy + per-table
-   launch), stacked), and both routes' host enqueue time per call.
+   the ``kernels`` JSON line.  The grouped kernels are timed at a full
+   26-table wave (K4) and batch (K1 in f32, K5) at 1 to 16 threads per
+   (bag, table), beside the route each replaces (26 x (id split [+ mask
+   copy] + per-table launch), stacked) and both routes' host enqueue time
+   per call; K2 at 1, 2, 4 and 8 examples per block, beside the route it
+   replaces (cat + K2 + cat).
 
 Each of the paths in 8, 9 and 10 runs with every launch count set to 0
 just before it and read just after; launches made to compare a kernel
@@ -268,21 +277,28 @@ def check_serve_pool(torch, gen):
 
 
 def check_interaction(torch, gen):
+    """K2 against its plain versions (see phase 4); returns the worst error
+    and the main shape's f32 inputs ``(x, z, feats)``."""
     from repro_torch.kernels import dot_interaction, ref
 
-    x = torch.randn((B, F, D), generator=gen, device="cuda")
-    worst = 0.0
-    for kind, xi in (("f32", x), ("bf16", x.bfloat16())):
-        got = dot_interaction.dot_interaction(xi)
-        want = ref.dot_interaction(xi)
-        torch.cuda.synchronize()
-        err = _max_err(torch, got, want)
-        tol = TOL[kind] * (1.0 + float(want.float().abs().max()))
-        print(f"  K2 {kind:5s} {tuple(got.shape)} max|err| {err:.3e} (tol {tol:.1e})")
-        if got.shape != (B, F * (F - 1) // 2) or got.dtype != xi.dtype or not err <= tol:
-            _fail(f"K2 {kind} disagrees with its plain version")
-        worst = max(worst, err)
-    return worst, x
+    worst, main = 0.0, None
+    for b, f, d in ((B, F, D), (1, 2, 24), (B + 1, 2, 128), (B + 1, 33, 24), (1, 33, 128)):
+        x32 = torch.randn((b, f, d), generator=gen, device="cuda")
+        for kind, x in (("f32", x32), ("bf16", x32.bfloat16())):
+            xt = x.transpose(1, 2).contiguous().transpose(1, 2)   # last dim strided
+            layouts = (("contiguous", x[:, 0].contiguous(), x[:, 1:].contiguous()),
+                       ("views", x[:, 0], x[:, 1:]), ("transposed", xt[:, 0], xt[:, 1:]))
+            for layout, z, feats in layouts:
+                got = dot_interaction.dot_interaction_concat(z, feats)
+                worst = max(worst, _hold(torch, f"K2 {kind} B={b} F={f} D={d} {layout}", kind,
+                                         got, ref.dot_interaction_concat(z, feats)))
+                if not torch.equal(got[:, :d], z):
+                    _fail(f"K2 {kind} B={b} F={f} D={d} {layout}: z columns not copied exactly")
+            worst = max(worst, _hold(torch, f"K2 {kind} B={b} F={f} D={d} stacked x", kind,
+                                     dot_interaction.dot_interaction(x), ref.dot_interaction(x)))
+        if (b, f, d) == (B, F, D):
+            main = (x32, x32[:, 0].contiguous(), x32[:, 1:].contiguous())
+    return worst, main
 
 
 def _hold(torch, name, kind, got, want):
@@ -291,7 +307,7 @@ def _hold(torch, name, kind, got, want):
         _fail(f"{name}: {tuple(got.shape)} {got.dtype} vs plain {tuple(want.shape)} {want.dtype}")
     err = _max_err(torch, got, want)
     tol = TOL[kind] * (1.0 + float(want.float().abs().max()))
-    print(f"  {name:34s} max|err| {err:.3e} (tol {tol:.1e})")
+    print(f"  {name:40s} max|err| {err:.3e} (tol {tol:.1e})")
     if not err <= tol or not torch.isfinite(got.float()).all():
         _fail(f"{name} disagrees with its plain version")
     return err
@@ -344,8 +360,8 @@ def _kaggle_ids(torch, gen, sizes, length):
 
 
 def check_grouped(torch, gen):
-    """Grouped K4 and K5 at full width (the 26 Kaggle tables as QR pairs,
-    c=4, D=16) against their plain versions and against 26 per-table
+    """Grouped K4, K5 and K1 at full width (the 26 Kaggle tables as QR
+    pairs, c=4, D=16) against their plain versions and against 26 per-table
     launches; returns the errors and the timing inputs."""
     from repro_torch.configs import dlrm_criteo
     from repro_torch.kernels import qr_gather, ref, serve_path
@@ -408,8 +424,25 @@ def check_grouped(torch, gen):
         if diff != 0:
             _fail(f"grouped K5 {op} differs from per-table launches")
         k5_diff = max(k5_diff, diff)
-    errs = {"k4": k4_err, "k4_vs_per_table": k4_diff, "k5": k5_err, "k5_vs_per_table": k5_diff}
-    return errs, (idx, mask, group("int8"), sparse)
+
+    k1_err = k1_diff = 0.0
+    for kind in ("f32", "bf16"):
+        for op in ("mult", "add"):
+            tables = group(kind, op)
+            got = qr_gather.qr_gather_grouped(sparse, tables)
+            k1_err = max(k1_err, _hold(torch, f"grouped K1 {kind} {op} B={B} T={len(sizes)}",
+                                       kind, got, ref.qr_gather_grouped(sparse, tables)))
+            per_table = torch.stack([qr_gather.qr_gather(
+                sparse[:, t] % tab.m, sparse[:, t] // tab.m, tab.w_a, tab.w_b, op=op)
+                for t, tab in enumerate(tables)], dim=1)
+            diff = _max_err(torch, got, per_table)
+            print(f"    vs {len(sizes)} per-table launches: max |diff| {diff:.3e}")
+            if diff != 0:
+                _fail(f"grouped K1 {kind} {op} differs from per-table launches")
+            k1_diff = max(k1_diff, diff)
+    errs = {"k4": k4_err, "k4_vs_per_table": k4_diff, "k5": k5_err, "k5_vs_per_table": k5_diff,
+            "k1": k1_err, "k1_vs_per_table": k1_diff}
+    return errs, (idx, mask, group("int8"), sparse, group("f32"))
 
 
 def check_embedding_bag(torch, gen):
@@ -524,7 +557,7 @@ def serve_full_width(torch):
 def _profile_device(run):
     """``run()`` under ``torch.profiler``: its result, the device's
     microseconds by short kernel name (every kernel and copy), and the
-    count of device operations."""
+    count of device operations by short name."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -533,11 +566,18 @@ def _profile_device(run):
     # device-side events only (kernels, copies): a CPU op's device time
     # would count its kernels twice
     on_device = [ev for ev in prof.key_averages() if ev.device_type == DeviceType.CUDA]
-    dev = {}
+    dev, counts = {}, {}
     for ev in on_device:
         name = _short_name(ev.key)
         dev[name] = dev.get(name, 0.0) + ev.self_device_time_total
-    return out, dev, sum(ev.count for ev in on_device)
+        counts[name] = counts.get(name, 0) + ev.count
+    return out, dev, counts
+
+
+def _cat_ops(counts, per):
+    """Concatenation kernels (``torch.cat`` / ``torch.stack``) per unit of
+    work."""
+    return sum(n for name, n in counts.items() if name.startswith("CatArray")) / per
 
 
 # device kernels of the per-table route that the grouped kernels remove: the
@@ -576,7 +616,8 @@ def profile_waves(torch, engine, reqs):
         return time.perf_counter() - t, engine.metrics()["waves"]
 
     wall, waves = drain()
-    (_, pwaves), dev, n_ops = _profile_device(drain)
+    (_, pwaves), dev, ops_by_name = _profile_device(drain)
+    n_ops = sum(ops_by_name.values())
     wave = [RecRequest(k, np.asarray(d, np.float32), [list(b) for b in bags])
             for k, (d, bags) in enumerate(reqs[:engine.max_batch])]
     t = time.perf_counter()
@@ -586,13 +627,14 @@ def profile_waves(torch, engine, reqs):
     out = {"requests": len(reqs), "waves": waves, "wall_ms_per_wave": wall / waves * 1e3,
            "device_ms_per_wave": sum(dev.values()) / pwaves / 1e3,
            "host_pad_ms_per_full_wave": pad_ms,
-           "device_ops_per_wave": n_ops / pwaves,
+           "device_ops_per_wave": n_ops / pwaves, "cat_ops_per_wave": _cat_ops(ops_by_name, pwaves),
            "split_or_copy_ms_per_wave": _split_or_copy(dev, pwaves),
            "top_device_ms_per_wave": _top_ms(dev, pwaves)}
     out["device_busy_share"] = out["device_ms_per_wave"] / out["wall_ms_per_wave"]
     print(f"  per wave: wall {out['wall_ms_per_wave']:.3f} ms, device "
           f"{out['device_ms_per_wave']:.3f} ms (busy {out['device_busy_share']:.3f}), "
-          f"host pad {pad_ms:.3f} ms, {out['device_ops_per_wave']:.1f} device operations, "
+          f"host pad {pad_ms:.3f} ms, {out['device_ops_per_wave']:.1f} device operations "
+          f"({out['cat_ops_per_wave']:.1f} concatenations), "
           f"split/copy kernels left: {out['split_or_copy_ms_per_wave'] or 'none'}")
     print(json.dumps({"wave_profile": out}))
 
@@ -636,11 +678,13 @@ def _eval_run(torch, api, plain, params, batches, mode, lookup, per_batch, table
     if not (logit_diff <= SCORE_TOL and loss_diff <= SCORE_TOL):
         _fail(f"eval {mode}: kernel logits or loss disagree with the plain route")
 
-    _, dev, n_ops = _profile_device(lambda: _score(api, params, batches))
+    _, dev, ops_by_name = _profile_device(lambda: _score(api, params, batches))
+    n_ops = sum(ops_by_name.values())
     prof = {"mode": mode, "batches": n, "batch_size": B, "heldout_bce": sum(losses) / n,
             "heldout_acc": sum(accs) / n, "wall_ms_per_batch": wall / n * 1e3,
             "device_ms_per_batch": sum(dev.values()) / n / 1e3,
-            "device_ops_per_batch": n_ops / n, "split_or_copy_ms_per_batch": _split_or_copy(dev, n),
+            "device_ops_per_batch": n_ops / n, "cat_ops_per_batch": _cat_ops(ops_by_name, n),
+            "split_or_copy_ms_per_batch": _split_or_copy(dev, n),
             "table_bytes": table_bytes,
             "peak_memory_bytes": peak, "peak_above_phase_start_bytes": peak - base,
             "top_device_ms_per_batch": _top_ms(dev, n)}
@@ -648,7 +692,8 @@ def _eval_run(torch, api, plain, params, batches, mode, lookup, per_batch, table
     print(f"  {mode}: held-out BCE {prof['heldout_bce']:.5f} acc {prof['heldout_acc']:.5f} | "
           f"per batch: wall {prof['wall_ms_per_batch']:.3f} ms, device "
           f"{prof['device_ms_per_batch']:.3f} ms (busy {prof['device_busy_share']:.3f}), "
-          f"{prof['device_ops_per_batch']:.1f} device operations, split/copy kernels left: "
+          f"{prof['device_ops_per_batch']:.1f} device operations "
+          f"({prof['cat_ops_per_batch']:.1f} concatenations), split/copy kernels left: "
           f"{prof['split_or_copy_ms_per_batch'] or 'none'} | "
           f"tables {table_bytes} B | peak memory {peak} B ({peak - base} B above the "
           f"phase's start)")
@@ -670,11 +715,9 @@ def eval_full_width(torch):
     base = torch.cuda.memory_allocated()
     batches = [api.batch_fn(step, shape) for step in EVAL_STEPS]
     params = api.init(torch.Generator(device="cuda").manual_seed(0))
-    # one-hot scoring: K1 once per table and batch (f32), one grouped K5 per
-    # batch (int8), and K2 once per batch
-    n_tables = len(cfg.table_sizes)
+    # one-hot scoring: one grouped K1 (f32) or K5 (int8) and one K2 per batch
     counts = {"eval_f32": _eval_run(torch, api, plain, params, batches, "f32", "qr_gather",
-                                    n_tables, table_bytes(params), base)}
+                                    1, table_bytes(params), base)}
     qparams = quantize_params(params, mode="int8")
     del params                                   # the int8 run holds only int8 tables
     counts["eval_int8"] = _eval_run(torch, api, plain, qparams, batches, "int8",
@@ -744,19 +787,21 @@ def _bag_bound(rem, quo, mask, d):
     return nbytes, int(live.sum()) * d * 3
 
 
-def _grouped_bound(idx, tables, mask=None):
-    """Grouped K4 (``mask`` given) or K5 over int8 QR pairs: the per-table
-    bounds summed — raw ids and mask once, each distinct live row of each
-    table once at D + 3 bytes, the f32 output once — and the f32
-    operations (dequant x 2 tables, combine, and for K4 weight and add per
-    element of a live slot)."""
+def _grouped_bound(idx, tables, mask=None, row_bytes=D + 3, ops_per_elem=None):
+    """A grouped kernel over QR pairs: the per-table bounds summed — raw ids
+    and mask once, each distinct live row of each table once at
+    ``row_bytes`` (D + 3 for an int8 row with its scale and zero point),
+    the f32 output once — and the f32 operations per element of a live
+    slot (default: dequant x 2 tables and combine for K5, and weight and
+    add for K4)."""
+    ops_per_elem = ops_per_elem or (5 if mask is None else 7)
     nbytes = idx.numel() * 4 * (1 if mask is None else 2) + idx.shape[0] * len(tables) * D * 4
     ops = 0
     for t, tab in enumerate(tables):
         ids = idx[:, t]
         live = (ids >= 0) if mask is None else mask[:, t] > 0
-        nbytes += (_distinct(ids % tab.m, live) + _distinct(ids // tab.m, live)) * (D + 3)
-        ops += int(live.sum()) * D * (5 if mask is None else 7)
+        nbytes += (_distinct(ids % tab.m, live) + _distinct(ids // tab.m, live)) * row_bytes
+        ops += int(live.sum()) * D * ops_per_elem
     return nbytes, ops
 
 
@@ -774,13 +819,14 @@ def _host_us(torch, fn, iters: int) -> float:
 
 def time_grouped(torch, grouped_inputs, errs):
     """The grouped kernels at a full 26-table wave (K4, B=256, L=4) and
-    batch (K5, B=256): device ms at 1, 2, 4, 8 and 16 threads per (bag, table),
-    the route each replaces on the same inputs (26 x (id split + mask copy
-    + per-table launch), stacked), host enqueue µs of both routes, and the
-    bound.  Returns the ``grouped`` fields of the K4 and K5 entries."""
-    from repro_torch.kernels import grouped_lookup, qr_gather, serve_path
+    batch (K5 over int8 pairs, K1 over f32 pairs, B=256): device ms at 1,
+    2, 4, 8 and 16 threads per (bag, table), the route each replaces on the
+    same inputs (26 x (id split [+ mask copy] + per-table launch),
+    stacked), host enqueue µs of both routes, the plain version and the
+    bound.  Returns the fields of the K4, K5 and K1 entries."""
+    from repro_torch.kernels import grouped_lookup, qr_gather, ref, serve_path
 
-    idx, mask, tables, sparse = grouped_inputs
+    idx, mask, tables, sparse, dense = grouped_inputs
     n_tables = len(tables)
 
     def k4():
@@ -799,10 +845,24 @@ def time_grouped(torch, grouped_inputs, errs):
             sparse[:, t] % tab.m, sparse[:, t] // tab.m, tab.w_a, tab.w_b, tab.scale_a, tab.zp_a,
             tab.scale_b, tab.zp_b) for t, tab in enumerate(tables)], dim=1)
 
+    def k1():
+        return qr_gather.qr_gather_grouped(sparse, dense)
+
+    def k1_replaced():
+        return torch.stack([qr_gather.qr_gather(
+            sparse[:, t] % tab.m, sparse[:, t] // tab.m, tab.w_a, tab.w_b)
+            for t, tab in enumerate(dense)], dim=1)
+
     fields = {}
-    for name, fn, replaced, bound in (
-            ("fused_serve_pool", k4, k4_replaced, _grouped_bound(idx, tables, mask)),
-            ("qr_gather_quant", k5, k5_replaced, _grouped_bound(sparse, tables))):
+    for name, key, fn, replaced, plain, bound, pairs in (
+            ("fused_serve_pool", "k4", k4, k4_replaced,
+             lambda: ref.fused_serve_pool_grouped(idx, mask, tables),
+             _grouped_bound(idx, tables, mask), "int8"),
+            ("qr_gather_quant", "k5", k5, k5_replaced,
+             lambda: ref.qr_gather_quant_grouped(sparse, tables),
+             _grouped_bound(sparse, tables), "int8"),
+            ("qr_gather", "k1", k1, k1_replaced, lambda: ref.qr_gather_grouped(sparse, dense),
+             _grouped_bound(sparse, dense, row_bytes=D * 4, ops_per_elem=1), "f32")):
         kept = grouped_lookup.THREADS_PER_BAG
         want = fn()
         by_tpb = {}
@@ -813,23 +873,62 @@ def time_grouped(torch, grouped_inputs, errs):
             by_tpb[tpb] = _time_ms(torch, fn, 200)
         grouped_lookup.THREADS_PER_BAG = kept
         bound_ms, bound_by = _bound(*bound)
-        key = "k4" if name == "fused_serve_pool" else "k5"
         fields[name] = {
-            "shape": (f"int8 QR pairs (c=4) of the {n_tables} Kaggle tables, B={B}"
+            "shape": (f"{pairs} QR pairs (c=4) of the {n_tables} Kaggle tables, B={B}"
                       + (f" L={L}" if key == "k4" else "") + f" D={D}, Zipf ids"),
             "ms": by_tpb[kept], "threads_per_bag": kept,
-            "ms_by_threads_per_bag": by_tpb,
+            "ms_by_threads_per_bag": by_tpb, "plain_ms": _time_ms(torch, plain, 20),
             "bound_ms": bound_ms, "bound_by": bound_by, "bound_bytes": bound[0],
+            "bound_operations": bound[1],
             "replaced_route_ms": _time_ms(torch, replaced, 6),
             "host_us": _host_us(torch, fn, 200),
             "replaced_route_host_us": _host_us(torch, replaced, 20),
             "max_abs_err": errs[key], "max_abs_diff_vs_per_table": errs[f"{key}_vs_per_table"]}
         g = fields[name]
         print(f"  grouped {name}: {g['ms']:.6f} ms ({kept} thread(s) per bag; by threads per "
-              f"bag {by_tpb}), bound {bound_ms:.7f} ms ({bound[0]} B), replaced route "
-              f"{g['replaced_route_ms']:.6f} ms; host {g['host_us']:.1f} us vs "
-              f"{g['replaced_route_host_us']:.1f} us per call")
+              f"bag {by_tpb}), bound {bound_ms:.7f} ms ({bound[0]} B), plain "
+              f"{g['plain_ms']:.6f} ms, replaced route {g['replaced_route_ms']:.6f} ms; host "
+              f"{g['host_us']:.1f} us vs {g['replaced_route_host_us']:.1f} us per call")
     return fields
+
+
+def time_interaction(torch, k2_inputs):
+    """K2 as the model calls it — z (B, D) and the features (B, 26, D) in,
+    the top MLP's input out — at 1, 2, 4 and 8 examples per block, beside
+    the route it replaces (cat + K2 on the stacked x + cat), the stacked
+    ``dot_interaction(x)``, and both routes' host enqueue µs per call."""
+    from repro_torch.kernels import dot_interaction
+
+    x, z, feats = k2_inputs
+
+    def k2():
+        return dot_interaction.dot_interaction_concat(z, feats)
+
+    def replaced():
+        stacked = torch.cat([z[:, None], feats], dim=1)
+        return torch.cat([z, dot_interaction.dot_interaction(stacked)], dim=-1)
+
+    kept = dot_interaction.EXAMPLES_PER_BLOCK
+    want = k2()
+    if not torch.equal(replaced(), want):
+        _fail("K2: the replaced route (cat + K2 + cat) differs from dot_interaction_concat")
+    by_e = {}
+    for e in (1, 2, 4, 8):
+        dot_interaction.EXAMPLES_PER_BLOCK = e
+        if not torch.equal(k2(), want):
+            _fail(f"K2: {e} examples per block change the result")
+        by_e[e] = _time_ms(torch, k2, 200)
+    dot_interaction.EXAMPLES_PER_BLOCK = kept
+    out = {"ms": by_e[kept], "examples_per_block": kept, "ms_by_examples_per_block": by_e,
+           "ms_stacked_x": _time_ms(torch, lambda: dot_interaction.dot_interaction(x), 200),
+           "replaced_route_ms": _time_ms(torch, replaced, 100),
+           "host_us": _host_us(torch, k2, 200),
+           "replaced_route_host_us": _host_us(torch, replaced, 200)}
+    print(f"  dot_interaction_concat: {out['ms']:.6f} ms ({kept} example(s) per block; by "
+          f"examples per block {by_e}), stacked dot_interaction(x) {out['ms_stacked_x']:.6f} ms, "
+          f"replaced route {out['replaced_route_ms']:.6f} ms; host {out['host_us']:.1f} us vs "
+          f"{out['replaced_route_host_us']:.1f} us per call")
+    return out
 
 
 def _bound(nbytes, ops):
@@ -837,39 +936,61 @@ def _bound(nbytes, ops):
     return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
-def measure(torch, gen, k4_inputs, x, qr_inputs, bag_inputs, bench_bag, counts, errs,
-            grouped):
+def measure(torch, gen, k4_inputs, k2_inputs, k2_fields, qr_inputs, grouped_inputs, bag_inputs,
+            bench_bag, counts, errs, grouped):
     """The ``kernels`` JSON entries: each kernel's time on the card at the
-    main path's shapes, its plain version's, its bound from these inputs, a
-    PyTorch yardstick where one exists, and its launches on every path."""
+    main path's shapes (the grouped launch for K1, K4 and K5; K2 as the
+    model calls it), its plain version's, its bound from these inputs, a
+    PyTorch yardstick, and its launches on every path; the per-table
+    entries and the kernel bench's shapes beside them."""
     import torch.nn.functional as tf
 
     from repro_torch.kernels import dot_interaction, embedding_bag, qr_gather, ref, serve_path
 
+    # per-table K4 on one int8 pair of the largest table; a dense f32 table,
+    # where one PyTorch call (F.embedding_bag) computes the same function
     rem, quo, mask, qa, qb, w_rem = k4_inputs
     k4_args = (rem, mask, qa["q"], quo, qb["q"], qa["scale"], qa["zp"], qb["scale"], qb["zp"])
-    k4_ms = _time_ms(torch, lambda: serve_path.fused_serve_pool(*k4_args), 200)
-    k4_plain = _time_ms(torch, lambda: ref.fused_serve_pool(*k4_args), 20)
-    # yardstick: one dense f32 table, where a single PyTorch call exists
-    k4_single = _time_ms(torch, lambda: serve_path.fused_serve_pool(rem, mask, w_rem), 200)
-    bag_ms = _time_ms(torch, lambda: tf.embedding_bag(rem, w_rem, mode="sum",
-                                                      per_sample_weights=mask), 100)
-    k2_ms = _time_ms(torch, lambda: dot_interaction.dot_interaction(x), 200)
-    k2_plain = _time_ms(torch, lambda: ref.dot_interaction(x), 20)
-    i, j = torch.tril_indices(F, F, offset=-1, device="cuda")
-    bmm_ms = _time_ms(torch, lambda: torch.bmm(x, x.transpose(1, 2))[:, i, j], 100)
-    k4_bytes, k4_ops = _k4_bound(rem, quo, mask)
-    k2_bytes = x.numel() * 4 + B * (F * (F - 1) // 2) * 4
-    k2_ops = B * (F * (F - 1) // 2) * 2 * D
+    k4_per_table = {"shape": f"per-table entry, int8 QR pair B={B} L={L} D={D}",
+                    "ms": _time_ms(torch, lambda: serve_path.fused_serve_pool(*k4_args), 200),
+                    "plain_ms": _time_ms(torch, lambda: ref.fused_serve_pool(*k4_args), 20),
+                    "bound_ms": _bound(*_k4_bound(rem, quo, mask))[0],
+                    "ms_single_f32_table": _time_ms(
+                        torch, lambda: serve_path.fused_serve_pool(rem, mask, w_rem), 200),
+                    "embedding_bag_ms_single_f32_table": _time_ms(
+                        torch, lambda: tf.embedding_bag(rem, w_rem, mode="sum",
+                                                        per_sample_weights=mask), 100)}
 
-    # K1 and K5 on the largest Kaggle table, N=256 Zipf ids
+    # K2 as the model calls it: z and the 26 features in, the top MLP's input out
+    x, z, feats = k2_inputs
+    i, j = torch.tril_indices(F, F, offset=-1, device="cuda")
+    pairs = F * (F - 1) // 2
+    k2_bytes = (z.numel() + feats.numel() + B * (D + pairs)) * 4
+    k2_ops = B * pairs * 2 * D
+    k2_extra = {
+        "shape": f"f32 z (B, D) and feats (B, {F - 1}, D) -> top_in (B, D + {pairs}), "
+                 f"B={B} F={F} D={D}",
+        "yardstick": "torch.cat + torch.bmm + triangle index + torch.cat (four calls)",
+        "yardstick_ms": _time_ms(torch, lambda: torch.cat(
+            [z, torch.bmm(xx := torch.cat([z[:, None], feats], 1), xx.transpose(1, 2))[:, i, j]],
+            -1), 100),
+        "stacked_x": {"ms": k2_fields["ms_stacked_x"],
+                      "plain_ms": _time_ms(torch, lambda: ref.dot_interaction(x), 100),
+                      "bmm_and_index_ms": _time_ms(
+                          torch, lambda: torch.bmm(x, x.transpose(1, 2))[:, i, j], 100)},
+        **{k: v for k, v in k2_fields.items() if k != "ms"}}
+
+    # K1 and K5 per-table entries on the largest Kaggle table, N=256 Zipf ids
     _, g_rem, g_quo, gw_rem, gw_quo, quant_args = qr_inputs
     k1_args = (g_rem, g_quo, gw_rem, gw_quo)
-    k1_ms = _time_ms(torch, lambda: qr_gather.qr_gather(*k1_args), 200)
-    k1_plain = _time_ms(torch, lambda: ref.qr_gather(*k1_args), 20)
-    k1_yard = _time_ms(torch, lambda: tf.embedding(g_rem, gw_rem) * tf.embedding(g_quo, gw_quo),
-                       200)
-    k1_bytes, k1_ops = _gather_bound(g_rem, g_quo, D * 4, 1)
+    k1_per_table = {
+        "shape": f"per-table entry, f32 QR pair of the {BIG_TABLE}-row table (c=4) D={D} "
+                 f"N={B} Zipf ids",
+        "ms": _time_ms(torch, lambda: qr_gather.qr_gather(*k1_args), 200),
+        "plain_ms": _time_ms(torch, lambda: ref.qr_gather(*k1_args), 20),
+        "bound_ms": _bound(*_gather_bound(g_rem, g_quo, D * 4, 1))[0],
+        "yardstick_ms": _time_ms(torch, lambda: tf.embedding(g_rem, gw_rem)
+                                 * tf.embedding(g_quo, gw_quo), 200)}
     # ... and at the reference kernel bench's shape (m=2048, q=16, D=128, N=512)
     bm, bq, bd = 2048, 16, 128
     b_ids = torch.randint(0, bm * bq, (512,), generator=gen, device="cuda")
@@ -877,25 +998,38 @@ def measure(torch, gen, k4_inputs, x, qr_inputs, bag_inputs, bench_bag, counts, 
               torch.randn((bq, bd), generator=gen, device="cuda"))
     b_n = b_ids.numel()
     b_bytes = 2 * b_n * 4 + (_distinct(b_args[0]) + _distinct(b_args[1])) * bd * 4 + b_n * bd * 4
-    k1_bench = {"shape": "f32 m=2048 q=16 D=128 N=512 uniform ids (kernels_bench)",
+    k1_bench = {"shape": "per-table entry, f32 m=2048 q=16 D=128 N=512 uniform ids "
+                         "(kernels_bench)",
                 "ms": _time_ms(torch, lambda: qr_gather.qr_gather(*b_args), 200),
                 "plain_ms": _time_ms(torch, lambda: ref.qr_gather(*b_args), 20),
                 "bound_ms": _bound(b_bytes, b_n * bd)[0],
                 "yardstick_ms": _time_ms(torch, lambda: tf.embedding(b_args[0], b_args[2])
                                          * tf.embedding(b_args[1], b_args[3]), 200)}
 
-    k5_ms = _time_ms(torch, lambda: qr_gather.qr_gather_quant(*quant_args), 200)
-    k5_plain = _time_ms(torch, lambda: ref.qr_gather_quant(*quant_args), 20)
     q_rem, q_quo, q_ra, q_qa, s_ra, z_ra, s_qa, z_qa = quant_args
 
-    def k5_library():
-        def rows(ids, q, scale, zp):
-            return ((tf.embedding(ids, q).float() - tf.embedding(ids, zp).float())
-                    * tf.embedding(ids, scale).float())
-        return rows(q_rem, q_ra, s_ra, z_ra) * rows(q_quo, q_qa, s_qa, z_qa)
+    def rows(ids, q, scale, zp):
+        return (tf.embedding(ids, q).float() - tf.embedding(ids, zp).float()) \
+            * tf.embedding(ids, scale).float()
 
-    k5_yard = _time_ms(torch, k5_library, 50)
-    k5_bytes, k5_ops = _gather_bound(q_rem, q_quo, D + 3, 5)
+    k5_per_table = {
+        "shape": f"per-table entry, int8 QR pair of the {BIG_TABLE}-row table (c=4) D={D} "
+                 f"N={B} Zipf ids",
+        "ms": _time_ms(torch, lambda: qr_gather.qr_gather_quant(*quant_args), 200),
+        "plain_ms": _time_ms(torch, lambda: ref.qr_gather_quant(*quant_args), 20),
+        "bound_ms": _bound(*_gather_bound(q_rem, q_quo, D + 3, 5))[0],
+        "yardstick_ms": _time_ms(torch, lambda: rows(q_rem, q_ra, s_ra, z_ra)
+                                 * rows(q_quo, q_qa, s_qa, z_qa), 50)}
+
+    # the grouped yardsticks: the library route per table on pre-split ids, stacked
+    _, _, tables, sparse, dense = grouped_inputs
+    split = [(sparse[:, t] % tab.m, sparse[:, t] // tab.m) for t, tab in enumerate(tables)]
+    k1_yard = _time_ms(torch, lambda: torch.stack(
+        [tf.embedding(r, tab.w_a) * tf.embedding(q, tab.w_b)
+         for (r, q), tab in zip(split, dense)], dim=1), 50)
+    k5_yard = _time_ms(torch, lambda: torch.stack(
+        [rows(r, tab.w_a, tab.scale_a, tab.zp_a) * rows(q, tab.w_b, tab.scale_b, tab.zp_b)
+         for (r, q), tab in zip(split, tables)], dim=1), 20)
 
     # K3 on the largest Kaggle table, B=256, L=4, fractional weights, op=add
     _, c_rem, c_quo, c_mask, cw_rem, cw_quo = bag_inputs
@@ -915,41 +1049,38 @@ def measure(torch, gen, k4_inputs, x, qr_inputs, bag_inputs, bench_bag, counts, 
                 "bound_ms": _bound(*_bag_bound(*e_args[:3], e_rem.shape[1]))[0],
                 "yardstick_ms": None}
 
-    def entry(name, source, replaces, ms, plain_ms, nbytes, ops, extra):
-        bound_ms, bound_by = _bound(nbytes, ops)
+    def entry(name, source, replaces, ms, plain_ms, bound_ms, bound_by, extra):
         by_path = {path: c[name] for path, c in counts.items() if c[name]}
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
                 "launches": sum(by_path.values()), "max_abs_err": errs[name], "ms": ms,
                 "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
                 "library_ms": None, "launches_by_path": by_path, **extra}
 
+    def grouped_entry(name, replaces, yardstick, yard_ms, per_table, extra=None):
+        g = grouped[name]
+        return entry(name, "src/repro_torch/csrc/grouped_lookup.cu", replaces, g["ms"],
+                     g["plain_ms"], g["bound_ms"], g["bound_by"],
+                     {"shape": f"grouped, {g['shape']}", "yardstick": yardstick,
+                      "yardstick_ms": yard_ms, "grouped": g, "per_table": per_table,
+                      **(extra or {})})
+
     return [
-        entry("fused_serve_pool", "src/repro_torch/csrc/grouped_lookup.cu",
-              "src/repro/kernels/serve_path.py:191", k4_ms, k4_plain, k4_bytes, k4_ops,
-              {"shape": f"per-table entry, int8 QR pair B={B} L={L} D={D}",
-               "yardstick": "F.embedding_bag(mode='sum', per_sample_weights=) on one "
-                            "dense f32 table, beside the kernel on that table",
-               "yardstick_ms": bag_ms, "ms_single_f32_table": k4_single,
-               "grouped": grouped["fused_serve_pool"]}),
+        grouped_entry("fused_serve_pool", "src/repro/kernels/serve_path.py:191",
+                      "no single call for an int8 pair; F.embedding_bag(mode='sum', "
+                      "per_sample_weights=) on one dense f32 table, beside the per-table entry "
+                      "on it (per_table)", None, k4_per_table),
         entry("dot_interaction", "src/repro_torch/csrc/dot_interaction.cu",
-              "src/repro/kernels/dot_interaction.py:52", k2_ms, k2_plain, k2_bytes, k2_ops,
-              {"shape": f"f32 B={B} F={F} D={D}",
-               "yardstick": "torch.bmm + triangle index (two calls)",
-               "yardstick_ms": bmm_ms}),
-        entry("qr_gather", "src/repro_torch/csrc/qr_gather.cu",
-              "src/repro/kernels/qr_gather.py:72", k1_ms, k1_plain, k1_bytes, k1_ops,
-              {"shape": f"f32 QR pair of the {BIG_TABLE}-row table (c=4) D={D} N={B} Zipf ids",
-               "yardstick": "no single call: two F.embedding calls + the multiply",
-               "yardstick_ms": k1_yard, "bench_shape": k1_bench}),
-        entry("qr_gather_quant", "src/repro_torch/csrc/grouped_lookup.cu",
-              "src/repro/kernels/qr_gather.py:132", k5_ms, k5_plain, k5_bytes, k5_ops,
-              {"shape": f"per-table entry, int8 QR pair of the {BIG_TABLE}-row table (c=4) "
-                        f"D={D} N={B} Zipf ids",
-               "yardstick": "no single call: six F.embedding calls (q, scale, zp of each "
-                            "table) + dequant + multiply",
-               "yardstick_ms": k5_yard, "grouped": grouped["qr_gather_quant"]}),
+              "src/repro/kernels/dot_interaction.py:52", k2_fields["ms"],
+              _time_ms(torch, lambda: ref.dot_interaction_concat(z, feats), 100),
+              *_bound(k2_bytes, k2_ops), k2_extra),
+        grouped_entry("qr_gather", "src/repro/kernels/qr_gather.py:72",
+                      "no single call: per table two F.embedding calls + the multiply, stacked",
+                      k1_yard, k1_per_table, {"bench_shape": k1_bench}),
+        grouped_entry("qr_gather_quant", "src/repro/kernels/qr_gather.py:132",
+                      "no single call: per table six F.embedding calls (q, scale, zp of each "
+                      "table) + dequant + multiply, stacked", k5_yard, k5_per_table),
         entry("qr_embedding_bag", "src/repro_torch/csrc/embedding_bag.cu",
-              "src/repro/kernels/embedding_bag.py:78", k3_ms, k3_plain, k3_bytes, k3_ops,
+              "src/repro/kernels/embedding_bag.py:78", k3_ms, k3_plain, *_bound(k3_bytes, k3_ops),
               {"shape": f"f32 QR pair of the {BIG_TABLE}-row table (c=4) B={B} L={L} D={D} "
                         "add, fractional weights",
                "yardstick": "no single call for a pair: two F.embedding_bag(mode='sum', "
@@ -971,7 +1102,7 @@ def main() -> int:
     kind = torch.cuda.get_device_name(0)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} on {kind}")
 
-    t = time.perf_counter()
+    t0 = t = time.perf_counter()
     logs = _build.build_all()
     print(f"[build] {len(logs)} kernels in {time.perf_counter() - t:.1f} s")
     for name, log in logs.items():
@@ -983,13 +1114,14 @@ def main() -> int:
     print("[K4] fused_serve_pool vs plain")
     k4_err, k4_inputs = check_serve_pool(torch, gen)
     print("[K2] dot_interaction vs plain")
-    k2_err, x = check_interaction(torch, gen)
+    k2_err, k2_inputs = check_interaction(torch, gen)
     print("[K1/K5] qr_gather and qr_gather_quant vs plain")
     k1_err, k5_err, qr_inputs = check_qr_gather(torch, gen)
-    print("[grouped] grouped K4 and K5 over the 26 Kaggle tables vs plain and per-table")
+    print("[grouped] grouped K4, K5 and K1 over the 26 Kaggle tables vs plain and per-table")
     grouped_errs, grouped_inputs = check_grouped(torch, gen)
     print("[K3] qr_embedding_bag vs plain, and the f32-accumulation audit")
     k3_err, bag_inputs = check_embedding_bag(torch, gen)
+    print(f"  ({time.perf_counter() - t0:.0f} s so far)")
     print("[serve] full-width DLRM-Criteo, int8 QR tables")
     counts = {}
     counts["serve"], engine, reqs = serve_full_width(torch)
@@ -1000,18 +1132,20 @@ def main() -> int:
     counts.update(eval_full_width(torch))
     print("[bag] ops.qr_bag_lookup, K3's own entry point")
     counts["bag"], bench_bag = drive_bag_path(torch, gen)
+    print(f"  ({time.perf_counter() - t0:.0f} s so far)")
     print("[time] CUDA events")
     print(f"  card: {card}")
     errs = {"fused_serve_pool": max(k4_err, grouped_errs["k4"]), "dot_interaction": k2_err,
-            "qr_gather": k1_err, "qr_gather_quant": max(k5_err, grouped_errs["k5"]),
-            "qr_embedding_bag": k3_err}
+            "qr_gather": max(k1_err, grouped_errs["k1"]),
+            "qr_gather_quant": max(k5_err, grouped_errs["k5"]), "qr_embedding_bag": k3_err}
     grouped = time_grouped(torch, grouped_inputs, grouped_errs)
-    kernels = measure(torch, gen, k4_inputs, x, qr_inputs, bag_inputs, bench_bag, counts, errs,
-                      grouped)
+    k2_fields = time_interaction(torch, k2_inputs)
+    kernels = measure(torch, gen, k4_inputs, k2_inputs, k2_fields, qr_inputs, grouped_inputs,
+                      bag_inputs, bench_bag, counts, errs, grouped)
     for k in kernels:
         if k["launches"] == 0:
             _fail(f"{k['name']} was launched on no path")
-    print(f"  card: {card}")
+    print(f"  card: {card}; {time.perf_counter() - t0:.0f} s in all")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))

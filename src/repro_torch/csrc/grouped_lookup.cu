@@ -1,25 +1,32 @@
 // Grouped embedding lookups over every table of a wave in one launch
-// (Hopper, sm_90a).  Two kernels from one template:
+// (Hopper, sm_90a).  Three kernels from one template:
 //
 //   K4, pooled (BAG = true), for each bag b and table t:
 //     rows   = dequant(gather(table t, split(idx[b, t, l])))   int8 widens in registers
 //     pooled = sum_l mask[b, t, l] * combine(rows)             f32, in l order
 //     out[b, t] = round(pooled) @ proj_t                       optional projection
-//   K5, one-hot (BAG = false), for each id i = idx[b, t]:
-//     out[b, t] = deq(q_rem[i % m_t]) op deq(q_quo[i / m_t])   f32
+//   K1 and K5, one-hot (BAG = false), for each id i = idx[b, t]:
+//     out[b, t] = W_rem[i % m_t] op W_quo[i / m_t]             K1: dense f32 / bf16 pair,
+//                                                              f32 combine, one rounding
+//                                                              to the table dtype
+//     out[b, t] = deq(q_rem[i % m_t]) op deq(q_quo[i / m_t])   K5: int8 pair, f32 out
 //
 // Replaces the Pallas TPU kernels repro/kernels/serve_path.py::fused_serve_pool
-// (K4) and repro/kernels/qr_gather.py::qr_gather_quant (K5).  The per-table
-// entries of both launch this kernel with one table and pre-split ids.
+// (K4), repro/kernels/qr_gather.py::qr_gather (K1) and
+// repro/kernels/qr_gather.py::qr_gather_quant (K5).  The per-table entries of
+// all three launch this kernel with one table and pre-split ids.
 //
 // Bound on the card: memory.  A full serving wave (B=256 bags of L=4 over
 // 26 int8 QR pairs at D=16) moves ~1.6 MB: ids, mask, each live row once
 // (16 bytes + 3 of scale and zero point) and the output, with ~2 flops per
-// byte.  At these sizes the floor is not bandwidth but one launch plus a
-// few dependent memory round trips (id -> row, scale, zp -> store).  The
-// TPU path, ported table by table, paid that floor 26 times per wave, plus
-// two device operations per table to split ids and one copy per table to
-// slice the mask.  Here the floor is paid once per wave:
+// byte.  A full f32 scoring batch (K1, B=256 ids over 26 f32 QR pairs at
+// D=16) moves ~1.3 MB: ids, two 64-byte rows per id and a 64-byte output
+// row, with 1 flop per element.  At these sizes the floor is not bandwidth
+// but one launch plus a few dependent memory round trips (id -> row ->
+// store).  The TPU path, ported table by table, paid that floor 26 times per
+// wave or batch, plus two device operations per table to split ids (and,
+// pooled, one copy per table to slice the mask).  Here the floor is paid
+// once per wave or batch:
 //   - the grid is (bag blocks, tables), so a block serves one table and its
 //     descriptor is uniform inside the block; all tables' descriptors ride
 //     in one __grid_constant__ kernel parameter (no host-to-device copy);
@@ -30,7 +37,8 @@
 //   - a thread issues the row, scale and zero-point loads of kSlots bag
 //     slots before any of their arithmetic, so a bag's rows are in flight
 //     together, and reads a row in loads of up to 16 bytes (one load for
-//     an int8 row at D=16) where width and alignment allow.
+//     an int8 row at D=16, four threads of one 16-byte load each for an
+//     f32 row) where width and alignment allow.
 // Slots with weight 0 (padding, empty bags) load no row and add nothing;
 // for finite tables that is the same sum as adding 0 * row.
 //
@@ -38,7 +46,8 @@
 // the bag sums in l order in an f32 register, so no FMA contraction changes
 // the rounding, and a group of tables gives the same bits as one launch per
 // table.  The pool dtype is f32 for int8 tables and the table dtype for
-// dense ones (a bf16 bag rounds once); the projection accumulates in f32.
+// dense ones (a bf16 bag, or a bf16 one-hot row, rounds once); the
+// projection accumulates in f32.
 //
 // Contract (the Python wrapper checks it): 1 <= T <= kMaxTables; every
 // pointer lies on one device; ids are int32 and in range; mask is f32 or
@@ -46,7 +55,8 @@
 // bf16 (rows, 1) scale and an int8 (rows, 1) zero point; proj is f32
 // (d_t, d_out); without proj d_t == d_out; out is contiguous (B, T, d_out)
 // and 16-byte aligned; vec_bytes divides d_t * sizeof(element) and every
-// row pointer of the table is aligned to it.
+// row pointer of the table is aligned to it; one-hot tables are QR pairs
+// without projection and no mask.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -265,15 +275,11 @@ template <bool BAG>
 __global__ void __launch_bounds__(kThreads) grouped_lookup_kernel(const __grid_constant__ Group g) {
   extern __shared__ float smem[];
   const Table& tab = g.tables[blockIdx.y];
-  if constexpr (BAG) {
-    switch (tab.type) {
-      case kF32: by_width<BAG, float>(g, tab, smem); break;
-      case kBF16: by_width<BAG, unsigned short>(g, tab, smem); break;
-      case kInt8: by_width<BAG, signed char>(g, tab, smem); break;
-      default: break;
-    }
-  } else {
-    by_width<BAG, signed char>(g, tab, smem);  // K5: int8 pairs only
+  switch (tab.type) {
+    case kF32: by_width<BAG, float>(g, tab, smem); break;
+    case kBF16: by_width<BAG, unsigned short>(g, tab, smem); break;
+    case kInt8: by_width<BAG, signed char>(g, tab, smem); break;
+    default: break;
   }
 }
 
@@ -289,8 +295,8 @@ extern "C" {
 // Launches one grouped lookup over T tables.  Per table t, ptrs[7t..7t+6]
 // are (w_a, w_b, scale_a, zp_a, scale_b, zp_b, proj) and ints[5t..5t+4]
 // are (m, d, type, op_mult, vec_bytes); absent operands are null.  bag = 1
-// is K4 (mask may be null: weight 1), bag = 0 is K5 (L = 1, no mask, f32
-// out).  Returns cudaGetLastError() after the launch (0 = success), or
+// is K4 (mask may be null: weight 1), bag = 0 is K1 / K5 (L = 1, no mask;
+// out_bf16 for bf16 pairs, else f32).  Returns cudaGetLastError() after the launch (0 = success), or
 // cudaErrorInvalidValue for arguments outside the contract it can see.
 int grouped_lookup(const void* const* ptrs, const int* ints, int T, const void* idx_a,
                    const void* idx_b, long long is_b, long long is_t, long long is_l,
@@ -298,7 +304,7 @@ int grouped_lookup(const void* const* ptrs, const int* ints, int T, const void* 
                    void* out, int B, int L, int d_out, int out_bf16, int bag,
                    int threads_per_bag, int smem, void* stream) {
   if (T < 1 || T > kMaxTables || B < 1 || threads_per_bag < 1 ||
-      kThreads % threads_per_bag != 0 || (!bag && (mask || out_bf16))) {
+      kThreads % threads_per_bag != 0 || (!bag && mask)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   Group g;
@@ -319,7 +325,7 @@ int grouped_lookup(const void* const* ptrs, const int* ints, int T, const void* 
     tab.type = n[2];
     tab.op_mult = n[3];
     tab.vec_bytes = n[4];
-    if (!valid_width(tab.type, tab.vec_bytes) || (!bag && tab.type != kInt8)) {
+    if (!valid_width(tab.type, tab.vec_bytes) || (!bag && (!tab.w[1] || tab.proj))) {
       return static_cast<int>(cudaErrorInvalidValue);
     }
   }

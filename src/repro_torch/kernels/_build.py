@@ -38,12 +38,8 @@ _SIGNATURES = {
         "grouped_lookup_error_string": ([_I], ctypes.c_char_p),
     },
     "dot_interaction": {
-        "dot_interaction": ([_P, _P, _I, _I, _I, _I, _P], _I),
+        "dot_interaction": ([_P, _L, _L, _P] + [_L] * 3 + [_P, _L] + [_I] * 7 + [_P], _I),
         "dot_interaction_error_string": ([_I], ctypes.c_char_p),
-    },
-    "qr_gather": {
-        "qr_gather": ([_P] * 5 + [_I] * 4 + [_P], _I),
-        "qr_gather_error_string": ([_I], ctypes.c_char_p),
     },
     "embedding_bag": {
         "qr_embedding_bag": ([_P] * 6 + [_I] * 5 + [_P], _I),

@@ -1,12 +1,14 @@
-"""Launch ``csrc/grouped_lookup.cu``: K4 ``fused_serve_pool`` and K5
-``qr_gather_quant`` over a group of tables in one launch.
+"""Launch ``csrc/grouped_lookup.cu``: K4 ``fused_serve_pool``, K1
+``qr_gather`` and K5 ``qr_gather_quant`` over a group of tables in one
+launch.
 
 The kernel wrappers (``serve_path.fused_serve_pool[_grouped]``,
-``qr_gather.qr_gather_quant[_grouped]``) call ``launch`` for CUDA
-tensors.  It checks every table of the group in one pass, packs one
-descriptor per table into the kernel's parameter, picks each table's load
-width and the threads per bag, and launches on the current stream.  It
-raises on what the kernel does not take; nothing falls back.
+``qr_gather.qr_gather[_grouped]``, ``qr_gather.qr_gather_quant[_grouped]``)
+call ``launch`` for CUDA tensors.  It checks every table of the group in
+one pass, packs one descriptor per table into the kernel's parameter,
+picks each table's load width and the threads per bag, and launches on
+the current stream.  It raises on what the kernel does not take; nothing
+falls back.
 """
 
 from __future__ import annotations
@@ -21,10 +23,13 @@ from .ref import GroupTable, pool_out_dtype
 __all__ = ["MAX_TABLES", "THREADS_PER_BAG", "launch"]
 
 MAX_TABLES = 40          # kMaxTables of csrc/grouped_lookup.cu
-# Threads per (bag, table): of 1 to 16, 4 (4-byte loads of an int8 row at
-# D=16) timed fastest for a full serving wave and scoring batch on the H100
-# (PERF.md, PR 13).  Wider rows get one thread per 16 bytes, up to a warp.
+# Threads per (bag, table) for rows of up to 64 bytes (D=16 in f32, bf16 or
+# int8): of 1 to 16, 4 timed fastest on the H100 for a full serving wave and
+# int8 scoring batch (4-byte loads of an int8 row) and for a full f32
+# scoring batch (16-byte loads; PERF.md, the threads-per-bag sweep).
+# Wider rows get one thread per 16 bytes, up to a warp.
 THREADS_PER_BAG = 4
+_NARROW_ROW = 64
 _BLOCK = 64              # kThreads
 _SMEM_MAX = 232448       # a block's shared memory on the H100
 _TYPES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
@@ -59,8 +64,8 @@ def _table_fault(tab: GroupTable, bag: bool, pre_split: bool):
         return f"dtype {w.dtype} not f32/bf16/int8"
     if quant != (w.dtype == torch.int8) or (tab.zp_a is not None) != quant:
         return "int8 tables take scale and zp, dense tables neither"
-    if not bag and not (quant and pair and tab.proj is None):
-        return "the one-hot kernel takes int8 QR pairs without projection"
+    if not bag and not (pair and tab.proj is None):
+        return "the one-hot kernel takes QR pairs (dense or int8) without projection"
     if not (tab.scale_b is not None) == (tab.zp_b is not None) == (quant and pair):
         return "an int8 pair's quotient table takes scale and zp, nothing else does"
     if pair and tab.op not in ("mult", "add"):
@@ -90,7 +95,8 @@ def launch(counter, name, idx, mask, tables, *, bag: bool, idx_b=None):
     ``bag=False``); ``mask``: ``(B, T, L)`` weights or None (weight 1);
     ``tables``: T ``GroupTable``s.  ``idx_b`` carries pre-split quotient
     ids alike ``idx`` (the per-table entries, whose pairs take ``m = 0``).
-    Returns ``(B, T, D)``: f32, or bf16 for unprojected dense bf16 tables.
+    Returns ``(B, T, D)``: f32, or bf16 for unprojected dense bf16 tables
+    (``ref.pool_out_dtype``).
     """
     _require(1 <= len(tables) <= MAX_TABLES, name,
              f"{len(tables)} tables; one launch takes 1..{MAX_TABLES}")
@@ -120,7 +126,8 @@ def launch(counter, name, idx, mask, tables, *, bag: bool, idx_b=None):
              f"{sorted(map(str, dtypes))}")
     d_out, out_dtype = widths[0], dtypes.pop()
     widest = max(tab.w_a.shape[1] * tab.w_a.element_size() for tab in tables)
-    tpb = max(THREADS_PER_BAG, min(32, _next_pow2(-(-widest // 16))))
+    tpb = THREADS_PER_BAG if widest <= _NARROW_ROW else \
+        max(THREADS_PER_BAG, min(32, _next_pow2(-(-widest // 16))))
     ptrs, ints, smem = [], [], 0
     keep = []   # converted projections: alive until the launch is queued
     for tab in tables:

@@ -15,13 +15,13 @@ import torch
 
 from ..core.compositional import is_quantized_table, table_rows
 from . import ref
-from .dot_interaction import dot_interaction
+from .dot_interaction import dot_interaction, dot_interaction_concat
 from .embedding_bag import qr_embedding_bag
-from .qr_gather import qr_gather, qr_gather_quant, qr_gather_quant_grouped
+from .qr_gather import qr_gather, qr_gather_grouped, qr_gather_quant, qr_gather_quant_grouped
 from .serve_path import fused_serve_pool, fused_serve_pool_grouped
 
 __all__ = ["qr_lookup", "qr_bag_lookup", "serve_bag_pool", "dlrm_interact",
-           "serve_bag_pool_grouped", "qr_lookup_grouped"]
+           "dlrm_interact_concat", "serve_bag_pool_grouped", "qr_lookup_grouped"]
 
 
 def _rows(table) -> int:
@@ -161,17 +161,35 @@ def serve_bag_pool_grouped(idx, mask, tables):
 
 
 def qr_lookup_grouped(idx, tables):
-    """One-hot QR lookup of every feature in one K5 launch: ``idx`` ``(B,
-    T)`` raw ids → f32 ``(B, T, D)``; ``tables`` as for
-    ``serve_bag_pool_grouped``.  Returns None, launching nothing, unless
-    every table is an int8 mult/add QR pair with no projection."""
+    """One-hot QR lookup of every feature in one launch: ``idx`` ``(B, T)``
+    raw ids → ``(B, T, D)``; ``tables`` as for ``serve_bag_pool_grouped``.
+    Every table an int8 mult/add QR pair: K5, f32 out.  Every table a dense
+    mult/add QR pair of one dtype (f32 or bf16): K1, out in that dtype.
+    Any other set (a full or hash table, a projection, a mixed pair, or a
+    mix of kinds or dtypes) returns None, launching nothing: the caller
+    keeps its per-table route."""
+    kinds = set()
     for w_a, w_b, _, op, proj in tables:
-        if not (w_b is not None and is_quantized_table(w_a) and is_quantized_table(w_b)
-                and op in ("mult", "add") and proj is None):
+        if w_b is None or op not in ("mult", "add") or proj is not None:
             return None
-    return qr_gather_quant_grouped(idx, [_group_table(*spec) for spec in tables])
+        kinds |= {"int8" if is_quantized_table(w) else w.dtype for w in (w_a, w_b)}
+    if kinds == {"int8"}:
+        lookup = qr_gather_quant_grouped
+    elif kinds in ({torch.float32}, {torch.bfloat16}):
+        lookup = qr_gather_grouped
+    else:
+        return None
+    return lookup(idx, [_group_table(*spec) for spec in tables])
 
 
 def dlrm_interact(x, *, use_kernel: bool = True):
     """DLRM pairwise-dot interaction ``(B, F, D) → (B, F(F-1)/2)``."""
     return dot_interaction(x) if use_kernel else ref.dot_interaction(x)
+
+
+def dlrm_interact_concat(z, feats, *, use_kernel: bool = True):
+    """The top MLP's input ``[z, tril(X·Xᵀ)]`` for ``X = [z; feats]``,
+    ``z (B, D)``, ``feats (B, T, D)`` → ``(B, D + F(F-1)/2)``: K2 reads
+    both in place and writes it whole."""
+    return (dot_interaction_concat(z, feats) if use_kernel
+            else ref.dot_interaction_concat(z, feats))

@@ -8,6 +8,7 @@ CPU tensors, the CPU tests hold it against the JAX package, and
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -15,7 +16,8 @@ import torch
 
 __all__ = ["qr_gather", "qr_gather_quant", "qr_embedding_bag", "fused_serve_pool",
            "dot_interaction", "pad_empty_wave", "GroupTable", "pool_out_dtype",
-           "fused_serve_pool_grouped", "qr_gather_quant_grouped"]
+           "fused_serve_pool_grouped", "qr_gather_grouped", "qr_gather_quant_grouped",
+           "dot_interaction_concat"]
 
 
 class GroupTable(NamedTuple):
@@ -150,6 +152,13 @@ def fused_serve_pool_grouped(idx, mask, tables):
     return torch.stack(feats, dim=1)
 
 
+def qr_gather_grouped(idx, tables):
+    """``qr_gather`` of every table: ``idx`` ``(B, T)`` raw ids, ``tables``
+    T dense QR-pair ``GroupTable``s of one dtype → ``(B, T, D)`` in it."""
+    return torch.stack([qr_gather(*_split_ids(idx[:, t], tab), tab.w_a, tab.w_b, op=tab.op)
+                        for t, tab in enumerate(tables)], dim=1)
+
+
 def qr_gather_quant_grouped(idx, tables):
     """``qr_gather_quant`` of every table: ``idx`` ``(B, T)`` raw ids,
     ``tables`` T int8 QR-pair ``GroupTable``s → f32 ``(B, T, D)``."""
@@ -161,12 +170,24 @@ def qr_gather_quant_grouped(idx, tables):
     return torch.stack(feats, dim=1)
 
 
+@functools.lru_cache(maxsize=None)
+def _tril(f: int, device: torch.device):
+    """``np.tril_indices(f, k=-1)`` as tensors on ``device``, made once."""
+    i, j = np.tril_indices(f, k=-1)
+    return torch.as_tensor(i, device=device), torch.as_tensor(j, device=device)
+
+
 def dot_interaction(x):
     """Packed strict lower triangle of ``X·Xᵀ`` per example, accumulated in
     f32, in ``np.tril_indices(F, k=-1)`` order, cast to ``x``'s dtype."""
     x32 = x.to(torch.float32)
     scores = torch.bmm(x32, x32.transpose(1, 2))
-    i, j = np.tril_indices(x.shape[1], k=-1)
-    i = torch.as_tensor(i, device=x.device)
-    j = torch.as_tensor(j, device=x.device)
+    i, j = _tril(x.shape[1], x.device)
     return scores[:, i, j].to(x.dtype)
+
+
+def dot_interaction_concat(z, feats):
+    """The top MLP's input ``[z, tril(X·Xᵀ)]`` for ``X = [z; feats]``:
+    ``z`` ``(B, D)`` and ``feats`` ``(B, T, D)`` of one dtype →
+    ``(B, D + F(F-1)/2)`` with ``F = T + 1``."""
+    return torch.cat([z, dot_interaction(torch.cat([z[:, None], feats], dim=1))], dim=-1)

@@ -113,10 +113,11 @@ def _qr2(mod) -> bool:
 
 def _embed_grouped(table_params, sparse_idx, modules, mask, proj):
     """The embed stage in one kernel launch — K4 over every table for
-    multi-hot ids, K5 for one-hot ids — as a ``(B, F, D)`` tensor, or None
-    where the per-table route stays: a table kind the fused kernels do not
-    take, or a set of tables they cannot serve together (``ops``' rules:
-    one-hot takes only int8 QR pairs)."""
+    multi-hot ids, K5 (int8) or K1 (dense) for one-hot ids — as a ``(B, F,
+    D)`` tensor, or None where the per-table route stays: a table kind the
+    fused kernels do not take, or a set of tables they cannot serve
+    together (``ops``' rules: one-hot takes only QR pairs, all int8 or all
+    dense of one dtype)."""
     specs = []
     for i, (mod, tp) in enumerate(zip(modules, table_params)):
         w = None if proj is None else proj.get(str(i))
@@ -139,9 +140,10 @@ def embed_features(table_params, sparse_idx, cfg, modules=None, mask=None, proj=
     ``mask (B, F, L)`` (masked slots contribute nothing, so an empty bag
     pools to the exact zero vector).  Tables may be dense or row-quantized.
     With ``cfg.use_kernel``, when every table is one the fused kernels take
-    (multi-hot: full and hash tables and mult/add QR pairs; one-hot: int8
-    mult/add QR pairs), all features go through one grouped launch (K4
-    multi-hot, K5 one-hot) and come back stacked as ``(B, F, D)``.
+    (multi-hot: full and hash tables and mult/add QR pairs; one-hot:
+    mult/add QR pairs, all int8 or all dense of one dtype), all features go
+    through one grouped launch (K4 multi-hot, K5 or K1 one-hot) and come
+    back stacked as ``(B, F, D)``.
     Otherwise each multi-hot full/hash table or mult/add QR pair goes
     through the fused serving kernel, and each one-hot mult/add QR pair
     through ``ops.qr_lookup`` (K1 dense, K5 int8), and the result is a list
@@ -194,13 +196,18 @@ def dlrm_forward_from_features(params, dense_x, feats, cfg: DLRMConfig):
     """Dense half of the model: bottom MLP + interaction + top MLP.
 
     ``feats``: stacked table features ``(B, F-1, D)`` or a list of ``(B, D)``.
+    With ``cfg.use_kernel`` the interaction kernel reads ``z`` and the
+    features in place and writes the top MLP's input itself.
     """
     z = _mlp_apply(params["bottom"], dense_x.to(cfg.pdtype))  # (B, D)
     if isinstance(feats, (list, tuple)):
         feats = torch.stack(feats, dim=1)
-    x = torch.cat([z[:, None, :], feats.to(z.dtype)], dim=1)
-    inter = ops.dlrm_interact(x) if cfg.use_kernel else _interact_plain(x)
-    top_in = torch.cat([z, inter], dim=-1)
+    feats = feats.to(z.dtype)
+    if cfg.use_kernel:
+        top_in = ops.dlrm_interact_concat(z, feats)
+    else:
+        x = torch.cat([z[:, None, :], feats], dim=1)
+        top_in = torch.cat([z, _interact_plain(x)], dim=-1)
     return _mlp_apply(params["top"], top_in, final_linear=True)[:, 0]
 
 

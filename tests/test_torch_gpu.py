@@ -27,7 +27,7 @@ from repro_torch.core import EmbeddingSpec
 from repro_torch.kernels import (dot_interaction, embedding_bag, grouped_lookup, ops, qr_gather,
                                  ref, serve_path)
 from repro_torch.launch import serve as launch_serve
-from repro_torch.models.dlrm import DLRMConfig, dlrm_init
+from repro_torch.models.dlrm import DLRMConfig, dlrm_forward, dlrm_init
 from repro_torch.serve.quantize import quantize_params, quantize_table
 from repro_torch.serve.recsys import RecsysEngine
 
@@ -103,6 +103,44 @@ def test_interaction_kernel_matches_plain(cuda, dtype):
         assert dot_interaction.dot_interaction.launches == before + 1
         assert got.dtype == want.dtype and got.shape == want.shape
         torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+def _interaction_cases(dtype, cuda):
+    """(name, z, feats) at the shapes the chip smoke holds K2 at: DLRM's
+    F=27, D=16 at B=256; ragged F (2, 33), D (24, 128) and B (1, 257);
+    z and feats as strided views of one buffer, and as transposed views
+    whose last dimension is not contiguous."""
+    rng = np.random.default_rng(int(dtype == torch.bfloat16))
+    cases = []
+    for b, f, d in ((256, 27, 16), (257, 2, 24), (1, 33, 128), (257, 33, 24), (3, 2, 128)):
+        x = torch.from_numpy(rng.normal(size=(b, f, d))).to(cuda, dtype)
+        cases.append((f"B={b} F={f} D={d}", x[:, 0].contiguous(), x[:, 1:].contiguous()))
+        cases.append((f"B={b} F={f} D={d} views", x[:, 0], x[:, 1:]))
+    xt = torch.from_numpy(rng.normal(size=(5, 16, 27))).to(cuda, dtype).transpose(1, 2)
+    cases.append(("B=5 F=27 D=16 transposed", xt[:, 0], xt[:, 1:]))
+    return cases
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("examples", [1, 2, 4, 8])
+def test_interaction_kernel_reads_z_and_feats_in_place(cuda, dtype, examples, monkeypatch):
+    """Both K2 entries at every examples-per-block setting: the top MLP's
+    input ``[z, triangle]`` from z and feats as given (strided and
+    transposed views included), and ``dot_interaction(x)`` on the stacked
+    x, each one launch, within tolerance of the plain versions, and the
+    z columns copied exactly."""
+    monkeypatch.setattr(dot_interaction, "EXAMPLES_PER_BLOCK", examples)
+    tol = TOL["f32" if dtype == torch.float32 else "bf16"]
+    for name, z, feats in _interaction_cases(dtype, cuda):
+        got = _launched_on(dot_interaction.dot_interaction,
+                                dot_interaction.dot_interaction_concat, z, feats)
+        want = ref.dot_interaction_concat(z, feats)
+        assert got.dtype == want.dtype and got.shape == want.shape, name
+        torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol, msg=name)
+        assert torch.equal(got[:, :z.shape[1]], z), name
+        x = torch.cat([z[:, None], feats], dim=1)
+        tri = _launched(dot_interaction.dot_interaction, x)
+        assert torch.equal(tri, got[:, z.shape[1]:]), name
 
 
 def test_ops_route_cuda_tensors_to_the_kernels(cuda):
@@ -263,7 +301,7 @@ def test_qr_ops_route_cuda_tensors_to_the_kernels(cuda):
 
 @pytest.mark.parametrize("quant", [None, "int8"])
 def test_one_hot_scoring_route_on_card(cuda, quant):
-    """api(cfg).loss_fn / predict with use_kernel: one K1 launch per table
+    """api(cfg).loss_fn / predict with use_kernel: one grouped K1 launch
     (f32) or one grouped K5 launch (int8), and one K2 per batch; logits and
     loss within 1e-4 of use_kernel=False."""
     sizes = (100, 500, 33, 10_000)
@@ -282,7 +320,7 @@ def test_one_hot_scoring_route_on_card(cuda, quant):
         k_before, k2_before = lookup.launches, dot_interaction.dot_interaction.launches
         loss, metrics = kernel_api.loss_fn(params, batch)
         torch.cuda.synchronize()
-        assert lookup.launches - k_before == (1 if quant else len(sizes))
+        assert lookup.launches - k_before == 1
         assert dot_interaction.dot_interaction.launches - k2_before == 1
         want_loss, want_metrics = plain_api.loss_fn(params, batch)
         torch.testing.assert_close(loss, want_loss, rtol=1e-4, atol=1e-4)
@@ -310,7 +348,7 @@ def _group(rng, sizes, d, mode, cuda, kinds=("qr", "qr", "hash", "full"), proj_t
     return tables
 
 
-def _launched_grouped(counter, fn, *args):
+def _launched_on(counter, fn, *args):
     before = counter.launches
     out = fn(*args)
     torch.cuda.synchronize()
@@ -347,7 +385,7 @@ def test_grouped_serve_pool_matches_plain_and_per_table(cuda, mode, threads_per_
             mask = torch.from_numpy((rng.random(idx.shape) > 0.3).astype(np.float32)).to(cuda)
             mask[-1] = 0.0                                  # a request of empty bags
             for mk in (mask, None):
-                got = _launched_grouped(serve_path.fused_serve_pool,
+                got = _launched_on(serve_path.fused_serve_pool,
                                         serve_path.fused_serve_pool_grouped, idx, mk, tables)
                 want = ref.fused_serve_pool_grouped(idx, mk, tables)
                 assert got.dtype == want.dtype and got.shape == want.shape
@@ -369,7 +407,7 @@ def test_grouped_qr_gather_quant_matches_plain_and_per_table(cuda, d):
     rng = np.random.default_rng(d)
     tables = _group(rng, sizes, d, "int8", cuda, kinds=("qr",))
     idx = _edge_ids(rng, sizes, 300, 1, cuda)[:, :, 0]
-    got = _launched_grouped(qr_gather.qr_gather_quant, qr_gather.qr_gather_quant_grouped,
+    got = _launched_on(qr_gather.qr_gather_quant, qr_gather.qr_gather_quant_grouped,
                             idx, tables)
     want = ref.qr_gather_quant_grouped(idx, tables)
     assert got.dtype == torch.float32 and got.shape == want.shape == (300, len(sizes), d)
@@ -378,6 +416,56 @@ def test_grouped_qr_gather_quant_matches_plain_and_per_table(cuda, d):
         one = qr_gather.qr_gather_quant(idx[:, t] % tab.m, idx[:, t] // tab.m, tab.w_a, tab.w_b,
                                         tab.scale_a, tab.zp_a, tab.scale_b, tab.zp_b, op=tab.op)
         assert torch.equal(one, got[:, t])
+
+
+@pytest.mark.parametrize("mode", ["f32", "bf16"])
+@pytest.mark.parametrize("threads_per_bag", [1, 2, 4, 8, 16])
+def test_grouped_qr_gather_matches_plain_and_per_table(cuda, mode, threads_per_bag,
+                                                      monkeypatch):
+    """Grouped K1 over ragged dense QR pairs (mult and add in turn, D=16
+    and 24), the edge ids of every table: one launch, within tolerance of
+    the plain version, in the table dtype, and bit-equal to T per-table
+    launches on the split ids."""
+    monkeypatch.setattr(grouped_lookup, "THREADS_PER_BAG", threads_per_bag)
+    sizes = (13, 50, 7, 200, 3, 1_000_003)
+    for d in (16, 24):
+        rng = np.random.default_rng(d + len(mode))
+        tables = _group(rng, sizes, d, mode, cuda, kinds=("qr",))
+        idx = _edge_ids(rng, sizes, 300, 1, cuda)[:, :, 0]
+        got = _launched_on(qr_gather.qr_gather, qr_gather.qr_gather_grouped, idx, tables)
+        want = ref.qr_gather_grouped(idx, tables)
+        assert got.dtype == tables[0].w_a.dtype and got.shape == want.shape == (300, 6, d)
+        tol = TOL[mode]
+        torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+        for t, tab in enumerate(tables):
+            one = qr_gather.qr_gather(idx[:, t] % tab.m, idx[:, t] // tab.m, tab.w_a, tab.w_b,
+                                      op=tab.op)
+            assert torch.equal(one, got[:, t])
+
+
+@pytest.mark.parametrize("quant", [None, "int8"])
+@pytest.mark.parametrize("one_hot", [True, False])
+def test_dlrm_forward_kernel_route_matches_plain(cuda, quant, one_hot):
+    """dlrm_forward with use_kernel (grouped lookup, then K2 writing the
+    top MLP's input) against use_kernel=False: logits within 1e-4."""
+    sizes = (100, 500, 33, 10_000)
+    cfg = DLRMConfig(table_sizes=sizes, emb_dim=16, bottom_mlp=(32, 16), top_mlp=(32,),
+                     embedding=EmbeddingSpec(kind="qr", num_collisions=4), use_kernel=True)
+    params = dlrm_init(cfg, torch.Generator(device=cuda).manual_seed(0), cuda)
+    if quant:
+        params = quantize_params(params, mode=quant)
+    rng = np.random.default_rng(1)
+    dense = torch.from_numpy(rng.normal(size=(97, 13)).astype(np.float32)).to(cuda)
+    idx = _edge_ids(rng, sizes, 97, 1 if one_hot else 4, cuda)
+    idx, mask = (idx[:, :, 0], None) if one_hot else (idx, (torch.rand(idx.shape, device=cuda)
+                                                           > 0.3).float())
+    k2 = dot_interaction.dot_interaction.launches
+    got = dlrm_forward(params, dense, idx, cfg, mask=mask)
+    torch.cuda.synchronize()
+    assert dot_interaction.dot_interaction.launches == k2 + 1
+    want = dlrm_forward(params, dense, idx, dataclasses.replace(cfg, use_kernel=False), mask=mask)
+    assert got.shape == (97,) and torch.isfinite(got).all()
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
 
 
 def test_grouped_wrapper_refuses_over_the_cap_on_the_card(cuda):

@@ -1,6 +1,7 @@
-"""The grouped lookups: K4 ``fused_serve_pool_grouped`` and K5
-``qr_gather_quant_grouped`` look up every table of a wave or batch in one
-launch, splitting raw ids by each table's ``m`` inside the kernel.
+"""The grouped lookups: K4 ``fused_serve_pool_grouped``, K1
+``qr_gather_grouped`` and K5 ``qr_gather_quant_grouped`` look up every
+table of a wave or batch in one launch, splitting raw ids by each table's
+``m`` inside the kernel.
 
 Their plain versions are held against the reference's per-table Pallas
 kernels in interpret mode, fed the ids split as the reference's ``ops``
@@ -22,6 +23,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro.kernels.qr_gather import qr_gather as jax_qr_gather
 from repro.kernels.qr_gather import qr_gather_quant as jax_qr_gather_quant
 from repro.kernels.serve_path import fused_serve_pool as jax_fused_serve_pool
 from repro.serve.quantize import quantize_table as jax_quantize_table
@@ -156,23 +158,58 @@ def test_grouped_quant_plain_matches_reference(op, d):
     torch.testing.assert_close(wrapped, got, rtol=0, atol=0)
 
 
+@pytest.mark.parametrize("mode", ["f32", "bf16"])
+@pytest.mark.parametrize("op", ["mult", "add"])
+@pytest.mark.parametrize("d", [16, 24])
+def test_grouped_qr_gather_plain_matches_reference(mode, op, d):
+    """Dense QR pairs of ragged sizes, one dtype: table by table equal to
+    the reference's K1 (interpret mode) on the ids split as its ``ops``
+    splits them, output in the table dtype."""
+    b = 16
+    rng = np.random.default_rng(11 + d + len(mode) + len(op))
+    group = _group(rng, d, mode, kinds=("qr",) * len(SIZES), ops_=(op,) * len(SIZES))
+    idx = _ids(rng, b, 1)[:, :, 0]
+    tables = [g[1] for g in group]
+    got = ref.qr_gather_grouped(torch.from_numpy(idx), tables)
+    assert got.dtype == (torch.bfloat16 if mode == "bf16" else torch.float32)
+    assert tuple(got.shape) == (b, len(SIZES), d)
+    for t, ((ja, jb, _, _, _, m, _, _), _) in enumerate(group):
+        want = jax_qr_gather(jnp.asarray(idx[:, t] % m), jnp.asarray(idx[:, t] // m), ja, jb,
+                             op=op, interpret=True)
+        assert str(got.dtype).split(".")[-1] == str(want.dtype)
+        np.testing.assert_allclose(_np(got[:, t]), _np(want), rtol=TOL[mode], atol=TOL[mode],
+                                   err_msg=f"table {t}")
+    wrapped = qr_gather.qr_gather_grouped(torch.from_numpy(idx), tables)
+    torch.testing.assert_close(wrapped, got, rtol=0, atol=0)
+    routed = ops.qr_lookup_grouped(torch.from_numpy(idx), [
+        (tab.w_a, tab.w_b, 0, tab.op, None) for tab in tables])
+    torch.testing.assert_close(routed, got, rtol=0, atol=0)
+
+
 # ------------------------------------------------- embed_features' routes
 
 
 def _model(kind, quant, threshold=0):
+    """``quant``: False (f32 tables), True (int8), "bf16" (bf16 parameters)
+    or "mixed" (the first feature's tables int8, the rest f32)."""
     cfg = tdlrm.DLRMConfig(table_sizes=SIZES, emb_dim=16, bottom_mlp=(32, 16), top_mlp=(32,),
                            embedding=EmbeddingSpec(kind=kind, num_collisions=4,
                                                    threshold=threshold),
-                           use_kernel=True)
+                           use_kernel=True,
+                           param_dtype="bfloat16" if quant == "bf16" else "float32")
     params = tdlrm.dlrm_init(cfg, torch.Generator().manual_seed(0), device="cpu")
-    return cfg, quantize_params(params, mode="int8") if quant else params
+    if quant == "mixed":
+        return cfg, quantize_params(params, mode="int8", patterns=(r"^tables/0/",))
+    return cfg, quantize_params(params, mode="int8") if quant is True else params
 
 
-ROUTES = [  # (embedding kind, threshold, int8, one-hot, grouped)
+ROUTES = [  # (embedding kind, threshold, tables, one-hot, grouped)
     ("qr", 0, True, False, True), ("qr", 20, False, False, True),    # QR + full tables
     ("hash", 0, True, False, True), ("full", 0, False, False, True),
     ("qr", 0, True, True, True),                                     # one-hot int8: K5
-    ("qr", 0, False, True, False),                                   # one-hot f32: K1 per table
+    ("qr", 0, False, True, True),                                    # one-hot f32: K1
+    ("qr", 0, "bf16", True, True),                                   # one-hot bf16: K1
+    ("qr", 0, "mixed", True, False),                                 # f32 and int8 pairs
     ("qr", 20, True, True, False),                                   # one-hot with a full table
 ]
 
@@ -203,7 +240,8 @@ def test_embed_features_grouped_route_equals_per_table_route(monkeypatch, kind, 
 def test_grouped_entries_refuse_sets_the_kernel_does_not_take():
     """ops' grouped entries return None, launching nothing, for a concat
     pair, a mixed dense+int8 pair, tables that pool to different dtypes,
-    and (one-hot) anything but int8 mult/add pairs."""
+    and (one-hot) anything but mult/add pairs all int8 or all dense of one
+    dtype."""
     rng = np.random.default_rng(2)
     w = torch.from_numpy(rng.normal(size=(8, 16)).astype(np.float32))
     q = quantize_params({"tables": [{"table": w}]}, mode="int8")["tables"][0]["table"]
@@ -216,10 +254,16 @@ def test_grouped_entries_refuse_sets_the_kernel_does_not_take():
     ]
     for specs in refused:
         assert ops.serve_bag_pool_grouped(idx, None, specs) is None
-    for specs in ([(w, w, 0, "mult", None)] * 2, [(q, q, 0, "concat", None)] * 2,
-                  [(q, q, 0, "mult", proj)] * 2, [(q, None, 0, "mult", None)] * 2):
+    for specs in ([(w, None, 0, "mult", None)] * 2, [(q, q, 0, "concat", None)] * 2,
+                  [(q, q, 0, "mult", proj)] * 2, [(q, None, 0, "mult", None)] * 2,
+                  [(w, w, 0, "mult", None), (q, q, 0, "mult", None)],
+                  [(w, w, 0, "mult", None), (w.bfloat16(), w.bfloat16(), 0, "mult", None)],
+                  [(q, w, 0, "mult", None)] * 2, [(w.double(), w.double(), 0, "add", None)] * 2):
         assert ops.qr_lookup_grouped(ids1, specs) is None
-    assert ops.qr_lookup_grouped(ids1, [(q, q, 0, "mult", None)] * 2).shape == (2, 2, 16)
+    assert ops.qr_lookup_grouped(ids1, [(q, q, 0, "mult", None)] * 2).dtype == torch.float32
+    for dense in (w, w.bfloat16()):
+        got = ops.qr_lookup_grouped(ids1, [(dense, dense, 0, "add", None)] * 2)
+        assert got.shape == (2, 2, 16) and got.dtype == dense.dtype
     assert ops.serve_bag_pool_grouped(idx, None, refused[2][:1] * 2).dtype == torch.bfloat16
 
 
@@ -245,6 +289,9 @@ def _bad_launches():
         "no tables": (torch.zeros((4, 0, 3), dtype=torch.int32), [], True),
         "ids vs tables": (idx, [dense], True),
         "one-hot dense": (one, [dense, dense], False),
+        "one-hot projected pair": (one, [pair._replace(proj=torch.eye(16))] * 2, False),
+        "one-hot mixed pair": (one, [pair._replace(w_b=f32, scale_b=None, zp_b=None)] * 2,
+                               False),
         "concat": (idx, [pair._replace(op="concat")] * 2, True),
         "pair without m": (idx, [pair._replace(m=0)] * 2, True),
         "int8 without zp": (idx, [pair._replace(zp_a=None)] * 2, True),
@@ -267,13 +314,17 @@ def test_launcher_refuses_what_the_kernel_does_not_take(what, monkeypatch):
 
 
 def test_launch_counts_go_to_the_per_table_counters():
-    """Both grouped entries count on their per-table kernel's counter; on
+    """The grouped entries count on their per-table kernel's counter; on
     the CPU nothing launches and nothing is counted."""
     rng = np.random.default_rng(4)
     tables = [g[1] for g in _group(rng, 16, "int8", kinds=("qr",) * 5, ops_=("mult",) * 5)]
-    before = serve_path.fused_serve_pool.launches, qr_gather.qr_gather_quant.launches
+    dense = [g[1] for g in _group(rng, 16, "f32", kinds=("qr",) * 5, ops_=("mult",) * 5)]
+    counters = (serve_path.fused_serve_pool, qr_gather.qr_gather_quant, qr_gather.qr_gather)
+    before = [c.launches for c in counters]
     serve_path.fused_serve_pool_grouped(torch.from_numpy(_ids(rng, 3, 2)), None, tables)
     qr_gather.qr_gather_quant_grouped(torch.from_numpy(_ids(rng, 3, 1)[:, :, 0]), tables)
-    assert (serve_path.fused_serve_pool.launches,
-            qr_gather.qr_gather_quant.launches) == before
-    assert not hasattr(serve_path.fused_serve_pool_grouped, "launches")
+    qr_gather.qr_gather_grouped(torch.from_numpy(_ids(rng, 3, 1)[:, :, 0]), dense)
+    assert [c.launches for c in counters] == before
+    for grouped in (serve_path.fused_serve_pool_grouped, qr_gather.qr_gather_quant_grouped,
+                    qr_gather.qr_gather_grouped):
+        assert not hasattr(grouped, "launches")

@@ -15,7 +15,7 @@ from pathlib import Path
 import pytest
 import torch
 
-from repro_torch.kernels import _build, embedding_bag, qr_gather, ref, serve_path
+from repro_torch.kernels import _build, dot_interaction, embedding_bag, qr_gather, ref, serve_path
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
@@ -70,6 +70,8 @@ def test_missing_toolkit_or_mixed_devices_raise(monkeypatch):
                                                     [ref.GroupTable(meta)]),
         lambda: qr_gather.qr_gather_quant_grouped(ids, [ref.GroupTable(
             meta.to(torch.int8), cpu.to(torch.int8), m=2)]),
+        lambda: qr_gather.qr_gather_grouped(ids, [ref.GroupTable(meta, cpu, m=2)]),
+        lambda: dot_interaction.dot_interaction_concat(cpu, meta[:, None]),
     ]
     for call in wrappers:
         with pytest.raises(ValueError, match="one CUDA device"):
@@ -83,8 +85,7 @@ def test_failed_build_raises(monkeypatch, tmp_path):
     fake.chmod(0o755)
     monkeypatch.setenv("PATH", str(tmp_path))
     monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
-    assert set(_build.SOURCES) == {"grouped_lookup", "dot_interaction", "qr_gather",
-                                   "embedding_bag"}
+    assert set(_build.SOURCES) == {"grouped_lookup", "dot_interaction", "embedding_bag"}
     with pytest.raises(RuntimeError, match="(?s)build failed.*unsupported gpu") as err:
         _build.build_all(_build.SOURCES)
     for name in _build.SOURCES:

@@ -1,8 +1,10 @@
-"""DLRM's pairwise dot interaction (K2): the port's plain version held
+"""DLRM's pairwise dot interaction (K2): the port's plain versions held
 against the reference's Pallas kernel (interpret mode) over the sweep of
 ``tests/test_kernels.py:49`` — ragged batches included, which the port
-takes without padding.  The CUDA kernel is held against the plain version
-in ``test_torch_gpu.py``.
+takes without padding — and the top MLP's input ``[z, triangle]`` that
+``dot_interaction_concat`` writes, against the reference's concatenation
+around its kernel.  The CUDA kernel is held against the plain versions in
+``test_torch_gpu.py``.
 
 Tolerances (``tests/test_kernels.py:12``): f32 1e-5 (another summation
 order over D), bf16 3e-2 (the packed outputs round once to bf16).
@@ -48,3 +50,48 @@ def test_packed_order_is_tril():
     i, j = np.tril_indices(4, k=-1)
     full = (x[0] @ x[0].T).numpy()
     np.testing.assert_array_equal(out.numpy(), full[i, j])
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("f", [2, 5, 27])
+def test_interact_concat_matches_reference(dtype, f):
+    """``[z, tril(X·Xᵀ)]`` for ``X = [z; feats]``: the reference builds X
+    and the top MLP's input with two concatenations around its kernel; the
+    port's plain version and ``ops.dlrm_interact_concat`` take z and the
+    features as they are."""
+    jdt, tol = DTYPES[dtype]
+    b, d = 6, 16
+    rng = np.random.default_rng(f)
+    z = jnp.asarray(rng.normal(size=(b, d)), jdt)
+    feats = jnp.asarray(rng.normal(size=(b, f - 1, d)), jdt)
+    x = jnp.concatenate([z[:, None], feats], axis=1)
+    want = jnp.concatenate([z, jax_dlrm_interact(x, use_kernel=True, interpret=True)], -1)
+    tz = params_from_jax(np.asarray(z), device="cpu")
+    tf = params_from_jax(np.asarray(feats), device="cpu")
+    got = ref.dot_interaction_concat(tz, tf)
+    assert tuple(got.shape) == (b, d + f * (f - 1) // 2) == want.shape
+    assert str(got.dtype).split(".")[-1] == str(want.dtype)
+    np.testing.assert_allclose(got.float().numpy(), np.asarray(want, np.float32), **tol)
+    torch.testing.assert_close(got[:, :d], tz, rtol=0, atol=0)     # z is copied exactly
+    for use_kernel in (True, False):
+        torch.testing.assert_close(ops.dlrm_interact_concat(tz, tf, use_kernel=use_kernel), got,
+                                   rtol=0, atol=0)
+    torch.testing.assert_close(dot_interaction.dot_interaction_concat(tz, tf), got,
+                               rtol=0, atol=0)
+    # strided views of one (B, F, D) buffer give the same input
+    tx = params_from_jax(np.asarray(x), device="cpu")
+    torch.testing.assert_close(ref.dot_interaction_concat(tx[:, 0], tx[:, 1:]), got,
+                               rtol=0, atol=0)
+
+
+def test_plain_triangle_indices_are_made_once_per_size_and_device():
+    """The plain version keeps its triangle indices per (F, device), so a
+    call copies no index array from the host."""
+    ref._tril.cache_clear()
+    for _ in range(3):
+        ref.dot_interaction(torch.ones((2, 7, 4)))
+    ref.dot_interaction(torch.ones((2, 5, 4)))
+    info = ref._tril.cache_info()
+    assert (info.misses, info.hits) == (2, 2)
+    i, j = ref._tril(7, torch.device("cpu"))
+    np.testing.assert_array_equal(np.stack([i.numpy(), j.numpy()]), np.tril_indices(7, k=-1))
