@@ -4,7 +4,7 @@
 Phases (any failure exits non-zero, and no result line is printed):
 
 1. print the card's name and power limit (``nvidia-smi``);
-2. build every CUDA kernel of the port from ``src/repro_torch/csrc`` (three
+2. build every CUDA kernel of the port from ``src/repro_torch/csrc`` (two
    sources, one ``nvcc`` each, started together) and print the compiler's
    register / shared-memory report;
 3. hold the fused serving kernel's per-table entry (K4,
@@ -31,10 +31,19 @@ Phases (any failure exits non-zero, and no result line is printed):
    K4 at B=256, L=4 in int8 (mult, add), f32 and bf16 with empty bags, and
    an all-empty (L=0) wave; grouped K5 at B=256 in int8 (mult, add);
    grouped K1 at B=256 in f32 and bf16 (mult, add);
-7. hold the QR embedding bag (K3, ``qr_embedding_bag``) against its plain
-   version on the largest table at B=256, L=4, D=16 (f32 and bf16,
-   fractional weights, empty bags), and run the f32-accumulation audit
-   (B=8, L=16, D=128, bf16) against an f32 oracle;
+7. hold the QR embedding bag (K3, ``qr_embedding_bag``, the grouped
+   kernel's dense pooled case) against its plain version at three shapes:
+   serving-like on the largest Kaggle table (QR c=4, B=256, L=4, D=16, f32
+   and bf16, mult and add, fractional weights, empty bags, raw ids with 0,
+   m-1, m and size-1), the reference kernel bench's (B=32, L=8, m=2048,
+   q=16, D=128) and the bandwidth shape (the largest table's QR pair at
+   D=128 f32, 16,384 bags of L=32, uniform ids over every category); check
+   that the raw-id route (``ops.qr_bag_lookup``) is bit-equal to the
+   pre-split entry, that ids and mask are read in place as strided views,
+   that empty bags and L=0 are exactly zero, and that a bf16 table's
+   weights round to bf16 before they multiply; run the f32-accumulation
+   audit (B=8, L=16, D=128, bf16) against an f32 oracle, with a bf16
+   running sum failing it;
 8. serve the full-width DLRM-Criteo (26 Kaggle tables, QR with 4
    collisions, D=16, int8 tables) through ``RecsysEngine`` over launcher-
    style requests with some empty bags; check that every request is scored
@@ -52,7 +61,9 @@ Phases (any failure exits non-zero, and no result line is printed):
    print BCE, accuracy, wall and device ms per batch, device operations,
    the device's busy share, table bytes and peak memory;
 10. drive K3's own entry point ``ops.qr_bag_lookup`` at the shape of the
-   reference's kernel bench and on the largest Kaggle table;
+   reference's kernel bench and on the largest Kaggle table (one K3 launch
+   each), and count its device operations per call with ``torch.profiler``
+   (exactly one);
 11. time each kernel, its plain version and a PyTorch yardstick with CUDA
    events, compute each kernel's bound from this run's inputs, and print
    the ``kernels`` JSON line.  The grouped kernels are timed at a full
@@ -60,7 +71,11 @@ Phases (any failure exits non-zero, and no result line is printed):
    (bag, table), beside the route each replaces (26 x (id split [+ mask
    copy] + per-table launch), stacked) and both routes' host enqueue time
    per call; K2 at 1, 2, 4 and 8 examples per block, beside the route it
-   replaces (cat + K2 + cat).
+   replaces (cat + K2 + cat); K3 at its three shapes beside its bound,
+   plain version and the two-``F.embedding_bag`` yardstick, with its
+   sweep of threads per bag for wide rows (8, 16, 32); and K1's per-table
+   entry at the kernel bench's D=128 on int32 ids, int64 ids read in place
+   and int64 ids cast first.
 
 Each of the paths in 8, 9 and 10 runs with every launch count set to 0
 just before it and read just after; launches made to compare a kernel
@@ -105,6 +120,11 @@ AUDIT_RTOL = 5e-3
 
 B, L, D, F = 256, 4, 16, 27
 BIG_TABLE = 10131227            # the largest Kaggle table
+BAG_BANDWIDTH = (16384, 32)     # K3's bandwidth shape: bags x slots
+# the (shape, table dtype, op) cases K3 is timed at
+BAG_CASES = (("bench", "f32", "mult"), ("bench", "f32", "add"), ("serving", "f32", "add"),
+             ("serving", "f32", "mult"), ("serving", "bf16", "add"),
+             ("bandwidth", "f32", "add"), ("bandwidth", "f32", "mult"))
 EVAL_STEPS = range(10_000, 10_012)
 
 
@@ -161,6 +181,36 @@ def _time_ms(torch, fn, iters: int) -> float:
     print(f"  (timing: one call waits on the device, so {ms:.6f} ms is back-to-back "
           f"calls with the host's time included)")
     return ms
+
+
+def _print_registers(source: str, log: str) -> None:
+    """The compiler's ``-Xptxas -v`` report of one build: each kernel's
+    registers (and spills, if any) on one line, by demangled name."""
+    entries, name, spill = [], None, ""
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            name, spill = m.group(1), ""
+        m = re.search(r"(\d+) bytes spill stores", line)
+        if m and int(m.group(1)):
+            spill = f", {m.group(1)} B spilled"
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            entries.append((name, m.group(1), spill))
+            name = None
+        if "error" in line.lower():
+            print(f"  {source}: {line.strip()}")
+    if not entries:
+        return
+    try:
+        names = subprocess.run(["c++filt"], input="\n".join(e[0] for e in entries),
+                               capture_output=True, text=True, timeout=60).stdout.splitlines()
+    except OSError:           # no demangler on the machine: the mangled names
+        names = [e[0] for e in entries]
+    shown = sorted((re.sub(r"^void |\(anonymous namespace\)::|\(.*\)$", "", n), regs, spill)
+                   for n, (_, regs, spill) in zip(names, entries))
+    print(f"  {source}, registers per kernel: "
+          + "; ".join(f"{n} {regs}{spill}" for n, regs, spill in shown))
 
 
 def _short_name(kernel: str) -> str:
@@ -445,42 +495,120 @@ def check_grouped(torch, gen):
     return errs, (idx, mask, group("int8"), sparse, group("f32"))
 
 
-def check_embedding_bag(torch, gen):
-    """K3 against its plain version on the largest Kaggle table, and the
-    f32-accumulation audit; returns the worst error and timing inputs."""
-    from repro_torch.kernels import embedding_bag, ref
-
+def bag_shapes(torch, gen):
+    """K3's three shapes as ``ops.qr_bag_lookup`` takes them (raw ids and a
+    mask, a dense f32 QR pair): the reference kernel bench's
+    (``benchmarks/kernels_bench.py:47-55``: B=32, L=8, m=2048, q=16, D=128,
+    every slot on, int32 ids as ``jax.random.randint`` draws them);
+    serving-like on the largest Kaggle table (QR c=4, B=256, L=4, D=16, Zipf
+    ids with 0, m-1, m and size-1, fractional weights, empty bags); and the
+    bandwidth shape (the same table's QR pair at D=128, 16,384 bags of
+    L=32, uniform ids over every category, every slot on: its 1.3 GB
+    remainder table is far above L2, so the rows come cold)."""
+    bm, bq, bd = 2048, 16, 128
+    bench = {"idx": torch.randint(0, bm * bq, (32, 8), generator=gen, device="cuda",
+                                  dtype=torch.int32),
+             "mask": torch.ones((32, 8), device="cuda"),
+             "w_rem": torch.randn((bm, bd), generator=gen, device="cuda"),
+             "w_quo": torch.randn((bq, bd), generator=gen, device="cuda")}
     m, w_rem, w_quo = _qr_pair(torch, gen, BIG_TABLE, D)
-    ids = _zipf_ids(torch, gen, (B, L), BIG_TABLE)
-    rem, quo = ids % m, ids // m
+    idx = _zipf_ids(torch, gen, (B, L), BIG_TABLE)
+    idx[:4, 0] = torch.tensor([0, m - 1, m, BIG_TABLE - 1], device="cuda")
     pick = torch.randint(0, 4, (B, L), generator=gen, device="cuda")
     mask = torch.tensor([0.0, 0.3, 1.0, 1.7], device="cuda")[pick]   # fractional weights
+    mask[:4, 0] = 1.0                                                # the edge ids are live
     mask[B - 8:] = 0.0                                               # empty bags
+    serving = {"idx": idx, "mask": mask, "w_rem": w_rem, "w_quo": w_quo}
+    _, w_rem, w_quo = _qr_pair(torch, gen, BIG_TABLE, bd)
+    wide = {"idx": torch.randint(0, BIG_TABLE, BAG_BANDWIDTH, generator=gen, device="cuda",
+                                 dtype=torch.int32),
+            "mask": torch.ones(BAG_BANDWIDTH, device="cuda"), "w_rem": w_rem, "w_quo": w_quo}
+    return {"bench": bench, "serving": serving, "bandwidth": wide}
+
+
+def _bag_case(shapes, shape, kind):
+    """(raw ids, mask, w_rem, w_quo, m) of one K3 shape in f32 or bf16."""
+    s = shapes[shape]
+    wr, wq = s["w_rem"], s["w_quo"]
+    if kind == "bf16":
+        wr, wq = wr.bfloat16(), wq.bfloat16()
+    return s["idx"], s["mask"], wr, wq, wr.shape[0]
+
+
+def check_embedding_bag(torch, shapes):
+    """K3 against its plain version at its three shapes (phase 7), the
+    raw-id route against the pre-split entry, ids and mask as strided
+    views, empty bags and L=0, the bf16 weight rounding, and the
+    f32-accumulation audit; returns the worst error."""
+    from repro_torch.kernels import embedding_bag, ops, ref
+
     worst = 0.0
-    for kind, (wr, wq) in (("f32", (w_rem, w_quo)), ("bf16", (w_rem.bfloat16(), w_quo.bfloat16()))):
-        for op in ("mult", "add"):
-            got = embedding_bag.qr_embedding_bag(rem, quo, mask, wr, wq, op=op)
-            want = ref.qr_embedding_bag(rem, quo, mask, wr, wq, op=op)
-            torch.cuda.synchronize()
-            worst = max(worst, _hold(torch, f"K3 {kind} {op} B={B} L={L}", kind, got, want))
-            if not (got[B - 8:] == 0).all():
-                _fail(f"K3 {kind} {op}: an empty bag is not exactly zero")
+    cases = [("serving", kind, op) for kind in ("f32", "bf16") for op in ("mult", "add")]
+    cases += [(shape, "f32", op) for shape in ("bench", "bandwidth") for op in ("mult", "add")]
+    for shape, kind, op in cases:
+        idx, mask, wr, wq, m = _bag_case(shapes, shape, kind)
+        b, length = idx.shape
+        rem, quo = idx % m, idx // m
+        got = ops.qr_bag_lookup(idx, mask, wr, wq, op=op)
+        name = f"K3 {shape} {kind} {op} B={b} L={length} D={wr.shape[1]}"
+        worst = max(worst, _hold(torch, name, kind, got,
+                                 ref.qr_embedding_bag(rem, quo, mask, wr, wq, op=op)))
+        if not torch.equal(got, embedding_bag.qr_embedding_bag(rem, quo, mask, wr, wq, op=op)):
+            _fail(f"{name}: the raw-id route differs from the pre-split entry")
+        empty = mask.sum(-1) == 0
+        if not (got[empty] == 0).all():
+            _fail(f"{name}: an empty bag is not exactly zero")
+        if shape != "serving":
+            continue
+        # ids and mask as strided views of wider buffers, read in place
+        wide_idx = torch.stack([idx, torch.zeros_like(idx)], dim=-1).reshape(b, 2 * length)
+        wide_mask = torch.stack([mask, torch.ones_like(mask)], dim=-1).reshape(b, 2 * length)
+        if not torch.equal(ops.qr_bag_lookup(wide_idx[:, ::2], wide_mask[:, ::2], wr, wq,
+                                             op=op), got):
+            _fail(f"{name}: strided ids and mask give other bits")
+        none = ops.qr_bag_lookup(idx[:, :0], mask[:, :0], wr, wq, op=op)
+        if none.shape != got.shape or not (none == 0).all():
+            _fail(f"{name}: L=0 does not pool to zeros")
+    torch.cuda.synchronize()
+    print("  raw-id route bit-equal to the pre-split entry; strided views read in place; "
+          "empty bags and L=0 exactly zero")
+
+    # a bf16 table's weights round to bf16 (0.3 -> 0.30078125) before they
+    # multiply: three slots of 0.3 on rows of 1.0 pool to 0.90234375, where
+    # the f32 weight would give 0.8984375
+    ones = torch.ones((4, 8), dtype=torch.bfloat16, device="cuda")
+    zeros = torch.zeros((1, 3), dtype=torch.int32, device="cuda")
+    third = torch.full((1, 3), 0.3, device="cuda")
+    for got in (embedding_bag.qr_embedding_bag(zeros, zeros, third, ones, ones),
+                ops.qr_bag_lookup(zeros, third, ones, ones)):
+        if not (got.float() == 0.90234375).all():
+            _fail(f"K3 bf16: weights not rounded to bf16 first ({got.float()[0, 0]:.8f})")
+    print("  bf16 weights round before they multiply: 3 x 0.3 on rows of 1.0 -> 0.90234375")
 
     # the audit: positive rows, so a bf16 running sum's error compounds
+    gen = torch.Generator(device="cuda").manual_seed(1)
     am, aq = 64, 8
     ar = (torch.randn((am, 128), generator=gen, device="cuda").abs() + 0.5).bfloat16()
     aw = (torch.randn((aq, 128), generator=gen, device="cuda").abs() + 0.5).bfloat16()
-    aidx = torch.randint(0, am * aq, (8, 16), generator=gen, device="cuda")
+    aidx = torch.randint(0, am * aq, (8, 16), generator=gen, device="cuda", dtype=torch.int32)
     ones = torch.ones((8, 16), device="cuda")
     for op in ("mult", "add"):
-        got = embedding_bag.qr_embedding_bag(aidx % am, aidx // am, ones, ar, aw, op=op)
+        got = ops.qr_bag_lookup(aidx, ones, ar, aw, op=op)
         a, b = ar.float()[aidx % am], aw.float()[aidx // am]
-        oracle = (a * b if op == "mult" else a + b).sum(dim=1)
+        rows = a * b if op == "mult" else a + b
+        oracle = rows.sum(dim=1)
+        running = torch.zeros((8, 128), dtype=torch.bfloat16, device="cuda")
+        for lane in range(16):
+            running = running + rows[:, lane].bfloat16()
         rel = float(((got.float() - oracle).abs() / oracle.abs()).max())
-        print(f"  K3 audit bf16 {op} B=8 L=16 D=128 max rel err {rel:.3e} (rtol {AUDIT_RTOL:.0e})")
+        control = float(((running.float() - oracle).abs() / oracle.abs()).max())
+        print(f"  K3 audit bf16 {op} B=8 L=16 D=128 max rel err {rel:.3e} (rtol {AUDIT_RTOL:.0e}; "
+              f"a bf16 running sum: {control:.3e})")
         if not rel <= AUDIT_RTOL:
             _fail(f"K3 fails the f32-accumulation audit ({op})")
-    return worst, (m, rem, quo, mask, w_rem, w_quo)
+        if control <= AUDIT_RTOL:
+            _fail(f"the audit does not reject a bf16 running sum ({op})")
+    return worst
 
 
 def serve_full_width(torch):
@@ -558,11 +686,13 @@ def _profile_device(run):
     """``run()`` under ``torch.profiler``: its result, the device's
     microseconds by short kernel name (every kernel and copy), and the
     count of device operations by short name."""
+    import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         out = run()
+        torch.cuda.synchronize()   # the last launch ends inside the window
     # device-side events only (kernels, copies): a CPU op's device time
     # would count its kernels twice
     on_device = [ev for ev in prof.key_averages() if ev.device_type == DeviceType.CUDA]
@@ -725,30 +855,42 @@ def eval_full_width(torch):
     return counts
 
 
-def drive_bag_path(torch, gen):
+def drive_bag_path(torch, shapes):
     """K3's own entry point, ``ops.qr_bag_lookup``: as the reference's
     kernel bench calls it (B=32, L=8, m=2048, q=16, D=128, every slot on)
-    and on the largest Kaggle table (B=256, L=4, D=16, fractional weights);
-    returns the launch counts and the bench shape's inputs."""
+    and on the largest Kaggle table (B=256, L=4, D=16, fractional weights),
+    one K3 launch each; then its device operations per call at both
+    shapes (``torch.profiler``: exactly one, the kernel).  Returns the
+    launch counts and the device operations per call by shape."""
     from repro_torch.kernels import ops
 
-    m, q, d = 2048, 16, 128
-    bench = (torch.randint(0, m * q, (32, 8), generator=gen, device="cuda"),
-             torch.ones((32, 8), device="cuda"),
-             torch.randn((m, d), generator=gen, device="cuda"),
-             torch.randn((q, d), generator=gen, device="cuda"))
-    _, big_rem, big_quo = _qr_pair(torch, gen, BIG_TABLE, D)
-    big = (_zipf_ids(torch, gen, (B, L), BIG_TABLE),
-           torch.rand((B, L), generator=gen, device="cuda"), big_rem, big_quo)
+    args = {name: _bag_case(shapes, name, "f32")[:4] for name in ("bench", "serving")}
     _zero_counts()
-    outs = [ops.qr_bag_lookup(*args) for args in (bench, big)]
+    outs = {name: ops.qr_bag_lookup(*a) for name, a in args.items()}
     counts = _read_counts()
     _check_counts("bag", counts, {"qr_embedding_bag": 2})
-    for name, args, out in (("bench B=32 L=8 D=128", bench, outs[0]),
-                            (f"Kaggle B={B} L={L} D={D}", big, outs[1])):
-        _hold(torch, f"ops.qr_bag_lookup {name}", "f32", out,
-              ops.qr_bag_lookup(*args, use_kernel=False))
-    return counts, bench
+    per_call = {}
+    for name, a in args.items():
+        _hold(torch, f"ops.qr_bag_lookup {name} B={a[0].shape[0]} L={a[0].shape[1]} "
+                     f"D={a[2].shape[1]}", "f32", outs[name],
+              ops.qr_bag_lookup(*a, use_kernel=False))
+        per_call[name] = _device_ops_per_call(torch, lambda: ops.qr_bag_lookup(*a))
+        print(f"  ops.qr_bag_lookup {name}: {per_call[name]['ops']:.1f} device operations per "
+              f"call {per_call[name]['by_name']}")
+        if per_call[name]["ops"] != 1:
+            _fail(f"ops.qr_bag_lookup {name}: {per_call[name]['ops']} device operations per "
+                  "call, expected the one K3 launch")
+    return counts, per_call
+
+
+def _device_ops_per_call(torch, fn, calls: int = 20):
+    """Device operations per ``fn()`` call by ``torch.profiler``, over
+    ``calls`` calls after one outside the window."""
+    fn()
+    torch.cuda.synchronize()
+    _, _, by_name = _profile_device(lambda: [fn() for _ in range(calls)])
+    return {"ops": sum(by_name.values()) / calls,
+            "by_name": {k: v / calls for k, v in by_name.items()}}
 
 
 def _k4_bound(rem, quo, mask):
@@ -777,13 +919,15 @@ def _gather_bound(rem, quo, row_bytes, ops_per_elem):
     return nbytes, n * D * ops_per_elem
 
 
-def _bag_bound(rem, quo, mask, d):
-    """K3 on f32 tables: ids and mask once, each distinct live row once,
-    the pooled output once; combine, weight and add per live element."""
+def _bag_bound(idx, mask, m, d, elem):
+    """K3 as ``ops.qr_bag_lookup`` calls it: the raw ids and the mask once,
+    each distinct live row of both tables once (``d`` elements of ``elem``
+    bytes), the pooled output once; combine, weight and add per element of
+    a live slot."""
     live = mask != 0
-    b = rem.shape[0]
-    nbytes = 3 * rem.numel() * 4 + (_distinct(rem, live) + _distinct(quo, live)) * d * 4 \
-        + b * d * 4
+    rows = _distinct(idx % m, live) + _distinct(idx // m, live)
+    nbytes = idx.numel() * idx.element_size() + mask.numel() * mask.element_size() \
+        + rows * d * elem + idx.shape[0] * d * elem
     return nbytes, int(live.sum()) * d * 3
 
 
@@ -931,13 +1075,73 @@ def time_interaction(torch, k2_inputs):
     return out
 
 
+def time_bag(torch, shapes):
+    """K3 at its three shapes through ``ops.qr_bag_lookup`` (raw ids, one
+    launch): device ms, the pre-split per-table entry, the plain version,
+    the bound from these inputs and its share, the yardstick (two
+    ``F.embedding_bag(mode="sum", per_sample_weights=)`` + add, at op=add),
+    host µs and device operations per call; and the sweep of threads per
+    bag (8, 16, 32) at the bandwidth and bench shapes.  Returns the fields
+    by case."""
+    import torch.nn.functional as tf
+
+    from repro_torch.kernels import embedding_bag, grouped_lookup, ops, ref
+
+    fields = {}
+    for shape, kind, op in BAG_CASES:
+        idx, mask, wr, wq, m = _bag_case(shapes, shape, kind)
+        rem, quo = idx % m, idx // m
+        weights = mask.to(wr.dtype)
+        iters = 50 if shape == "bandwidth" else 200
+
+        def k3(idx=idx, mask=mask, wr=wr, wq=wq, op=op):
+            return ops.qr_bag_lookup(idx, mask, wr, wq, op=op)
+
+        nbytes, n_ops = _bag_bound(idx, mask, m, wr.shape[1], wr.element_size())
+        bound_ms, bound_by = _bound(nbytes, n_ops)
+        f = {"shape": f"{kind} B={idx.shape[0]} L={idx.shape[1]} m={m} q={wq.shape[0]} "
+                      f"D={wr.shape[1]} {op}",
+             "ms": _time_ms(torch, k3, iters),
+             "per_table_ms": _time_ms(torch, lambda: embedding_bag.qr_embedding_bag(
+                 rem, quo, mask, wr, wq, op=op), iters),
+             "plain_ms": _time_ms(torch, lambda: ref.qr_embedding_bag(rem, quo, mask, wr, wq,
+                                                                      op=op), 20),
+             "bound_ms": bound_ms, "bound_by": bound_by, "bound_bytes": nbytes,
+             "bound_operations": n_ops,
+             "yardstick_ms": None if op != "add" else _time_ms(torch, lambda: (
+                 tf.embedding_bag(rem, wr, mode="sum", per_sample_weights=weights)
+                 + tf.embedding_bag(quo, wq, mode="sum", per_sample_weights=weights)), iters),
+             "host_us": _host_us(torch, k3, 200),
+             "device_ops_per_call": _device_ops_per_call(torch, k3)["ops"]}
+        f["share_of_bound"] = bound_ms / f["ms"]
+        fields[f"{shape} {kind} {op}"] = f
+        print(f"  K3 {shape} {f['shape']}: {f['ms']:.6f} ms, bound {bound_ms:.7f} ms "
+              f"({nbytes} B; {f['share_of_bound']:.3f} of it), per-table entry "
+              f"{f['per_table_ms']:.6f}, plain {f['plain_ms']:.6f}, yardstick "
+              f"{f['yardstick_ms']} ms; host {f['host_us']:.1f} us, "
+              f"{f['device_ops_per_call']} device operations per call")
+
+    kept = grouped_lookup.WIDE_THREADS_PER_BAG
+    for shape in ("bandwidth", "bench"):
+        idx, mask, wr, wq, _ = _bag_case(shapes, shape, "f32")
+        sweep = {}
+        for tpb in (8, 16, 32):
+            grouped_lookup.WIDE_THREADS_PER_BAG = tpb
+            sweep[tpb] = _time_ms(torch, lambda: ops.qr_bag_lookup(idx, mask, wr, wq, op="add"),
+                                  50 if shape == "bandwidth" else 200)
+        grouped_lookup.WIDE_THREADS_PER_BAG = kept
+        fields[f"{shape} f32 add"]["ms_by_threads_per_bag"] = sweep
+        print(f"  K3 {shape} f32 add by threads per bag (kept {kept}): {sweep}")
+    return fields
+
+
 def _bound(nbytes, ops):
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / F32_FLOPS_PER_S * 1e3
     return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
-def measure(torch, gen, k4_inputs, k2_inputs, k2_fields, qr_inputs, grouped_inputs, bag_inputs,
-            bench_bag, counts, errs, grouped):
+def measure(torch, gen, k4_inputs, k2_inputs, k2_fields, qr_inputs, grouped_inputs, bag,
+            counts, errs, grouped):
     """The ``kernels`` JSON entries: each kernel's time on the card at the
     main path's shapes (the grouped launch for K1, K4 and K5; K2 as the
     model calls it), its plain version's, its bound from these inputs, a
@@ -945,7 +1149,7 @@ def measure(torch, gen, k4_inputs, k2_inputs, k2_fields, qr_inputs, grouped_inpu
     entries and the kernel bench's shapes beside them."""
     import torch.nn.functional as tf
 
-    from repro_torch.kernels import dot_interaction, embedding_bag, qr_gather, ref, serve_path
+    from repro_torch.kernels import dot_interaction, qr_gather, ref, serve_path
 
     # per-table K4 on one int8 pair of the largest table; a dense f32 table,
     # where one PyTorch call (F.embedding_bag) computes the same function
@@ -991,20 +1195,33 @@ def measure(torch, gen, k4_inputs, k2_inputs, k2_fields, qr_inputs, grouped_inpu
         "bound_ms": _bound(*_gather_bound(g_rem, g_quo, D * 4, 1))[0],
         "yardstick_ms": _time_ms(torch, lambda: tf.embedding(g_rem, gw_rem)
                                  * tf.embedding(g_quo, gw_quo), 200)}
-    # ... and at the reference kernel bench's shape (m=2048, q=16, D=128, N=512)
+    # ... and at the reference kernel bench's shape (m=2048, q=16, D=128, N=512,
+    # int32 ids as jax.random.randint draws them), and on int64 ids
+    # (PyTorch's default, read in place, beside a cast to int32 and a launch
+    # on those)
     bm, bq, bd = 2048, 16, 128
-    b_ids = torch.randint(0, bm * bq, (512,), generator=gen, device="cuda")
+    b_ids = torch.randint(0, bm * bq, (512,), generator=gen, device="cuda", dtype=torch.int32)
     b_args = (b_ids % bm, b_ids // bm, torch.randn((bm, bd), generator=gen, device="cuda"),
               torch.randn((bq, bd), generator=gen, device="cuda"))
+    b_long = (b_args[0].long(), b_args[1].long(), *b_args[2:])
+    if not torch.equal(qr_gather.qr_gather(*b_long), qr_gather.qr_gather(*b_args)):
+        _fail("K1 bench: int64 ids give other bits than int32 ids")
     b_n = b_ids.numel()
     b_bytes = 2 * b_n * 4 + (_distinct(b_args[0]) + _distinct(b_args[1])) * bd * 4 + b_n * bd * 4
-    k1_bench = {"shape": "per-table entry, f32 m=2048 q=16 D=128 N=512 uniform ids "
+    k1_bench = {"shape": "per-table entry, f32 m=2048 q=16 D=128 N=512 uniform int32 ids "
                          "(kernels_bench)",
                 "ms": _time_ms(torch, lambda: qr_gather.qr_gather(*b_args), 200),
                 "plain_ms": _time_ms(torch, lambda: ref.qr_gather(*b_args), 20),
                 "bound_ms": _bound(b_bytes, b_n * bd)[0],
                 "yardstick_ms": _time_ms(torch, lambda: tf.embedding(b_args[0], b_args[2])
-                                         * tf.embedding(b_args[1], b_args[3]), 200)}
+                                         * tf.embedding(b_args[1], b_args[3]), 200),
+                "ms_int64_ids": _time_ms(torch, lambda: qr_gather.qr_gather(*b_long), 200),
+                "ms_cast_then_int32_launch": _time_ms(torch, lambda: qr_gather.qr_gather(
+                    b_long[0].to(torch.int32), b_long[1].to(torch.int32), *b_args[2:]), 200)}
+    print(f"  K1 per-table bench: {k1_bench['ms']:.6f} ms (plain {k1_bench['plain_ms']:.6f}, "
+          f"two F.embedding + multiply {k1_bench['yardstick_ms']:.6f}); int64 ids in place "
+          f"{k1_bench['ms_int64_ids']:.6f}; cast to int32 + launch "
+          f"{k1_bench['ms_cast_then_int32_launch']:.6f}")
 
     q_rem, q_quo, q_ra, q_qa, s_ra, z_ra, s_qa, z_qa = quant_args
 
@@ -1031,23 +1248,7 @@ def measure(torch, gen, k4_inputs, k2_inputs, k2_fields, qr_inputs, grouped_inpu
         [rows(r, tab.w_a, tab.scale_a, tab.zp_a) * rows(q, tab.w_b, tab.scale_b, tab.zp_b)
          for (r, q), tab in zip(split, tables)], dim=1), 20)
 
-    # K3 on the largest Kaggle table, B=256, L=4, fractional weights, op=add
-    _, c_rem, c_quo, c_mask, cw_rem, cw_quo = bag_inputs
-    k3_args = (c_rem, c_quo, c_mask, cw_rem, cw_quo)
-    k3_ms = _time_ms(torch, lambda: embedding_bag.qr_embedding_bag(*k3_args, op="add"), 200)
-    k3_plain = _time_ms(torch, lambda: ref.qr_embedding_bag(*k3_args, op="add"), 20)
-    k3_yard = _time_ms(torch, lambda: (
-        tf.embedding_bag(c_rem, cw_rem, mode="sum", per_sample_weights=c_mask)
-        + tf.embedding_bag(c_quo, cw_quo, mode="sum", per_sample_weights=c_mask)), 100)
-    k3_bytes, k3_ops = _bag_bound(c_rem, c_quo, c_mask, D)
-    # ... and at the reference kernel bench's shape (B=32, L=8, D=128, mult)
-    e_idx, e_mask, e_rem, e_quo = bench_bag
-    e_args = (e_idx % e_rem.shape[0], e_idx // e_rem.shape[0], e_mask, e_rem, e_quo)
-    k3_bench = {"shape": "f32 m=2048 q=16 B=32 L=8 D=128 mult, every slot on (kernels_bench)",
-                "ms": _time_ms(torch, lambda: embedding_bag.qr_embedding_bag(*e_args), 200),
-                "plain_ms": _time_ms(torch, lambda: ref.qr_embedding_bag(*e_args), 20),
-                "bound_ms": _bound(*_bag_bound(*e_args[:3], e_rem.shape[1]))[0],
-                "yardstick_ms": None}
+    k3 = bag["serving f32 add"]
 
     def entry(name, source, replaces, ms, plain_ms, bound_ms, bound_by, extra):
         by_path = {path: c[name] for path, c in counts.items() if c[name]}
@@ -1079,13 +1280,19 @@ def measure(torch, gen, k4_inputs, k2_inputs, k2_fields, qr_inputs, grouped_inpu
         grouped_entry("qr_gather_quant", "src/repro/kernels/qr_gather.py:132",
                       "no single call: per table six F.embedding calls (q, scale, zp of each "
                       "table) + dequant + multiply, stacked", k5_yard, k5_per_table),
-        entry("qr_embedding_bag", "src/repro_torch/csrc/embedding_bag.cu",
-              "src/repro/kernels/embedding_bag.py:78", k3_ms, k3_plain, *_bound(k3_bytes, k3_ops),
-              {"shape": f"f32 QR pair of the {BIG_TABLE}-row table (c=4) B={B} L={L} D={D} "
-                        "add, fractional weights",
+        entry("qr_embedding_bag", "src/repro_torch/csrc/grouped_lookup.cu",
+              "src/repro/kernels/embedding_bag.py:78", k3["ms"], k3["plain_ms"], k3["bound_ms"],
+              k3["bound_by"],
+              {"shape": f"ops.qr_bag_lookup (raw ids, one launch), f32 QR pair of the "
+                        f"{BIG_TABLE}-row table (c=4) B={B} L={L} D={D} add, fractional weights",
                "yardstick": "no single call for a pair: two F.embedding_bag(mode='sum', "
                             "per_sample_weights=) calls + an add",
-               "yardstick_ms": k3_yard, "bench_shape": k3_bench}),
+               "yardstick_ms": k3["yardstick_ms"], "serving_shape": k3,
+               "bench_shape": bag["bench f32 mult"], "bench_shape_add": bag["bench f32 add"],
+               "bandwidth_shape": bag["bandwidth f32 add"],
+               "bandwidth_shape_mult": bag["bandwidth f32 mult"],
+               "by_case": {k: v for k, v in bag.items() if not k.startswith(
+                   ("bench f32", "bandwidth f32", "serving f32 add"))}}),
     ]
 
 
@@ -1104,11 +1311,9 @@ def main() -> int:
 
     t0 = t = time.perf_counter()
     logs = _build.build_all()
-    print(f"[build] {len(logs)} kernels in {time.perf_counter() - t:.1f} s")
+    print(f"[build] {len(logs)} kernel sources in {time.perf_counter() - t:.1f} s")
     for name, log in logs.items():
-        for line in log.splitlines():
-            if "registers" in line or "error" in line.lower():
-                print(f"  {name}: {line.strip()}")
+        _print_registers(name, log)
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     print("[K4] fused_serve_pool vs plain")
@@ -1119,8 +1324,9 @@ def main() -> int:
     k1_err, k5_err, qr_inputs = check_qr_gather(torch, gen)
     print("[grouped] grouped K4, K5 and K1 over the 26 Kaggle tables vs plain and per-table")
     grouped_errs, grouped_inputs = check_grouped(torch, gen)
-    print("[K3] qr_embedding_bag vs plain, and the f32-accumulation audit")
-    k3_err, bag_inputs = check_embedding_bag(torch, gen)
+    print("[K3] qr_embedding_bag vs plain at three shapes, and the f32-accumulation audit")
+    shapes = bag_shapes(torch, gen)
+    k3_err = check_embedding_bag(torch, shapes)
     print(f"  ({time.perf_counter() - t0:.0f} s so far)")
     print("[serve] full-width DLRM-Criteo, int8 QR tables")
     counts = {}
@@ -1131,7 +1337,7 @@ def main() -> int:
     print("[eval] full-width one-hot DLRM-Criteo, 12 held-out batches of 256")
     counts.update(eval_full_width(torch))
     print("[bag] ops.qr_bag_lookup, K3's own entry point")
-    counts["bag"], bench_bag = drive_bag_path(torch, gen)
+    counts["bag"], bag_ops = drive_bag_path(torch, shapes)
     print(f"  ({time.perf_counter() - t0:.0f} s so far)")
     print("[time] CUDA events")
     print(f"  card: {card}")
@@ -1140,8 +1346,10 @@ def main() -> int:
             "qr_gather_quant": max(k5_err, grouped_errs["k5"]), "qr_embedding_bag": k3_err}
     grouped = time_grouped(torch, grouped_inputs, grouped_errs)
     k2_fields = time_interaction(torch, k2_inputs)
+    bag = time_bag(torch, shapes)
     kernels = measure(torch, gen, k4_inputs, k2_inputs, k2_fields, qr_inputs, grouped_inputs,
-                      bag_inputs, bench_bag, counts, errs, grouped)
+                      bag, counts, errs, grouped)
+    kernels[-1]["ops_qr_bag_lookup_device_ops_per_call"] = bag_ops
     for k in kernels:
         if k["launches"] == 0:
             _fail(f"{k['name']} was launched on no path")

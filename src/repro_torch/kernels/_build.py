@@ -33,17 +33,13 @@ _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # name -> {C symbol: (argtypes, restype)}
 _SIGNATURES = {
     "grouped_lookup": {
-        "grouped_lookup": ([_P, _P, _I, _P, _P] + [_L] * 3 + [_P] + [_L] * 3 + [_P]
-                           + [_I] * 7 + [_P], _I),
+        "grouped_lookup": ([_P, _P, _I, _P, _P, _I] + [_L] * 3 + [_P, _I] + [_L] * 3 + [_P]
+                           + [_I] * 8 + [_P], _I),
         "grouped_lookup_error_string": ([_I], ctypes.c_char_p),
     },
     "dot_interaction": {
         "dot_interaction": ([_P, _L, _L, _P] + [_L] * 3 + [_P, _L] + [_I] * 7 + [_P], _I),
         "dot_interaction_error_string": ([_I], ctypes.c_char_p),
-    },
-    "embedding_bag": {
-        "qr_embedding_bag": ([_P] * 6 + [_I] * 5 + [_P], _I),
-        "embedding_bag_error_string": ([_I], ctypes.c_char_p),
     },
 }
 SOURCES = tuple(_SIGNATURES)

@@ -2,69 +2,72 @@
 (w_rem[rem[b, l]] op w_quo[quo[b, l]])``, summed in f32, one rounding to
 the table dtype.
 
-Kernel: ``csrc/embedding_bag.cu`` (CUDA C++ for sm_90a), replacing the
-Pallas TPU kernel ``repro/kernels/embedding_bag.py::qr_embedding_bag``.
+Kernel: ``csrc/grouped_lookup.cu`` (CUDA C++ for sm_90a), its dense pooled
+case, replacing the Pallas TPU kernel
+``repro/kernels/embedding_bag.py::qr_embedding_bag``.  The per-table entry
+``qr_embedding_bag`` takes pre-split ids, and ``qr_embedding_bag_raw``
+(``ops.qr_bag_lookup``'s route) raw ids, which the kernel splits; both
+launch the kernel with one table.
 
-Bound on the card: memory.  A bag gathers 2L short scattered rows and
-writes one, with 3 f32 operations per element of a slot.  The design has
-a group of threads own one bag and loop over its slots in order with an
-f32 register accumulator, so each gathered row is read once and the bag
-rounds once.  As in the reference, the mask is cast to the table dtype
-before it weighs a row, so a fractional weight on a bf16 table multiplies
-as its bf16 rounding; the wrapper does that cast and the kernel reads the
-mask in the table dtype.
+Bound on the card: memory.  A bag gathers 2L scattered rows and writes
+one, with 3 f32 operations per element of a slot.  At D=128 f32 a row is
+512 bytes, and a bag of L=32 over a table far above L2 reads its rows
+cold: there the time is bandwidth, and the launcher keeps several rows of
+each bag in flight per thread in 16-byte loads.  As in the reference, the
+mask is rounded to the table dtype before it weighs a row, so a fractional
+weight on a bf16 table multiplies as its bf16 rounding; the kernel rounds
+it, reading an f32 or bf16 mask in place.  A mask of any other dtype is
+converted once to the table dtype here.
 
-For CPU tensors the wrapper returns the plain version
-(``kernels/ref.py``); for CUDA tensors it launches the kernel or raises.
-``qr_embedding_bag.launches`` counts launches.
+For CPU tensors the wrappers return the plain versions
+(``kernels/ref.py``); for CUDA tensors they launch the kernel or raise.
+``qr_embedding_bag.launches`` counts the launches of both entries.
 """
 
 from __future__ import annotations
 
 import torch
 
-from . import _build, ref
+from . import _build, grouped_lookup, ref
 
-__all__ = ["qr_embedding_bag"]
-
-_TABLE_TYPES = {torch.float32: 0, torch.bfloat16: 1}
+__all__ = ["qr_embedding_bag", "qr_embedding_bag_raw"]
 
 
-def _require(cond: bool, what: str) -> None:
-    if not cond:
-        raise ValueError(f"qr_embedding_bag: {what}")
+def _check_op(name, op):
+    if op not in ("mult", "add"):
+        raise ValueError(f"{name}: op={op!r}: the kernel combines with mult or add")
+
+
+def _weights(mask, table):
+    """The mask as the kernel reads it: f32 or bf16 in place, any other
+    dtype rounded once to the table dtype (the reference's rounding)."""
+    return mask if mask.dtype in (torch.float32, torch.bfloat16) else mask.to(table.dtype)
 
 
 def qr_embedding_bag(rem, quo, mask, w_rem, w_quo, *, op: str = "mult"):
     """``(B, L)`` remainder / quotient ids and mask into dense f32 or bf16
     ``(m, d)`` / ``(q, d)`` tables → ``(B, d)`` pooled bags in the table
     dtype.  ``L = 0`` pools to zeros."""
-    _require(op in ("mult", "add"), f"op={op!r}: the kernel combines with mult or add")
-    device = _build.launch_device(rem, quo, mask, w_rem, w_quo)
-    if device is None:
+    _check_op("qr_embedding_bag", op)
+    if _build.launch_device(rem, quo, mask, w_rem, w_quo) is None:
         return ref.qr_embedding_bag(rem, quo, mask, w_rem, w_quo, op=op)
-    _require(rem.dim() == 2 and rem.shape == quo.shape == mask.shape,
-             f"ids and mask are (B, L) and alike, got {tuple(rem.shape)}, "
-             f"{tuple(quo.shape)} and {tuple(mask.shape)}")
-    _require(w_rem.dim() == 2 and w_quo.dim() == 2 and w_rem.is_contiguous()
-             and w_quo.is_contiguous(), "tables are contiguous (rows, d)")
-    _require(w_rem.dtype == w_quo.dtype and w_rem.shape[1] == w_quo.shape[1],
-             "both tables of a pair share dtype and width")
-    _require(w_rem.dtype in _TABLE_TYPES, f"table dtype {w_rem.dtype} not f32/bf16")
-    rem = rem.to(torch.int32).contiguous()
-    quo = quo.to(torch.int32).contiguous()
-    mask = mask.to(w_rem.dtype).contiguous()      # the reference's rounding of the weights
-    (b, length), d = rem.shape, w_rem.shape[1]
-    out = torch.empty((b, d), dtype=w_rem.dtype, device=device)
-    if b == 0 or d == 0:
-        return out
-    code = _build.library("embedding_bag").qr_embedding_bag(
-        rem.data_ptr(), quo.data_ptr(), mask.data_ptr(), w_rem.data_ptr(), w_quo.data_ptr(),
-        out.data_ptr(), b, length, d, _TABLE_TYPES[w_rem.dtype], int(op == "mult"),
-        torch.cuda.current_stream(device).cuda_stream)
-    _build.check("embedding_bag", code, "qr_embedding_bag launch")
-    qr_embedding_bag.launches += 1
-    return out
+    return grouped_lookup.launch_bag_pair(qr_embedding_bag, "qr_embedding_bag", rem,
+                                          _weights(mask, w_rem), w_rem, w_quo, m=0, op=op,
+                                          idx_b=quo)
+
+
+def qr_embedding_bag_raw(idx, mask, w_rem, w_quo, *, op: str = "mult"):
+    """K3 on raw ids of one dense QR pair: ``(B, L)`` ids, non-negative and
+    below ``m * q``, split ``(i % m, i // m)`` inside the kernel by the
+    ``m`` rows of ``w_rem`` → ``(B, d)`` in the table dtype
+    (``ops.qr_bag_lookup``'s route: one launch, no device operation
+    before it)."""
+    _check_op("qr_embedding_bag_raw", op)
+    if _build.launch_device(idx, mask, w_rem, w_quo) is None:
+        return ref.qr_embedding_bag_raw(idx, mask, w_rem, w_quo, op=op)
+    return grouped_lookup.launch_bag_pair(qr_embedding_bag, "qr_embedding_bag_raw", idx,
+                                          _weights(mask, w_rem), w_rem, w_quo,
+                                          m=w_rem.shape[0], op=op)
 
 
 qr_embedding_bag.launches = 0

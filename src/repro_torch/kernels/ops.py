@@ -16,7 +16,7 @@ import torch
 from ..core.compositional import is_quantized_table, table_rows
 from . import ref
 from .dot_interaction import dot_interaction, dot_interaction_concat
-from .embedding_bag import qr_embedding_bag
+from .embedding_bag import qr_embedding_bag_raw
 from .qr_gather import qr_gather, qr_gather_grouped, qr_gather_quant, qr_gather_quant_grouped
 from .serve_path import fused_serve_pool, fused_serve_pool_grouped
 
@@ -103,17 +103,17 @@ def qr_bag_lookup(idx, mask, w_rem, w_quo, *, op: str = "mult", use_kernel: bool
     """Sum-pooled multi-hot QR lookup: ``idx``/``mask`` ``(B, L)`` → ``(B, d)``.
 
     A dense pair with ``mult``/``add`` goes through K3 (pooled in f32, one
-    rounding to the table dtype).  A quantized pair, on either side, pools
-    its dequantized rows in f32 and returns f32; ``concat`` pools in f32
-    and rounds once to the table dtype — plain tensor code on either
-    device, as the reference does.  ``use_kernel=False`` computes the same
-    function with the plain version.
+    rounding to the table dtype) in one launch: the raw ids and the mask
+    are read in place and the kernel splits the ids.  A quantized
+    pair, on either side, pools its dequantized rows in f32 and returns
+    f32; ``concat`` pools in f32 and rounds once to the table dtype — plain
+    tensor code on either device, as the reference does.
+    ``use_kernel=False`` computes the same function with the plain version.
     """
-    rem, quo = _split(idx, w_rem)
     if op == "concat" or is_quantized_table(w_rem) or is_quantized_table(w_quo):
-        return _plain_bag(w_rem, w_quo, rem, quo, mask, op)
-    bag = qr_embedding_bag if use_kernel else ref.qr_embedding_bag
-    return bag(rem, quo, mask, w_rem, w_quo, op=op)
+        return _plain_bag(w_rem, w_quo, *_split(idx, w_rem), mask, op)
+    bag = qr_embedding_bag_raw if use_kernel else ref.qr_embedding_bag_raw
+    return bag(idx, mask, w_rem, w_quo, op=op)
 
 
 def serve_bag_pool(idx, mask, w_a, w_b=None, *, op: str = "mult", proj=None,

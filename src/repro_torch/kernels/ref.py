@@ -17,7 +17,7 @@ import torch
 __all__ = ["qr_gather", "qr_gather_quant", "qr_embedding_bag", "fused_serve_pool",
            "dot_interaction", "pad_empty_wave", "GroupTable", "pool_out_dtype",
            "fused_serve_pool_grouped", "qr_gather_grouped", "qr_gather_quant_grouped",
-           "dot_interaction_concat"]
+           "qr_embedding_bag_raw", "dot_interaction_concat"]
 
 
 class GroupTable(NamedTuple):
@@ -150,6 +150,13 @@ def fused_serve_pool_grouped(idx, mask, tables):
         feats.append(fused_serve_pool(ia, mask[:, t], tab.w_a, ib, tab.w_b, tab.scale_a,
                                       tab.zp_a, tab.scale_b, tab.zp_b, tab.proj, op=tab.op))
     return torch.stack(feats, dim=1)
+
+
+def qr_embedding_bag_raw(idx, mask, w_rem, w_quo, *, op: str = "mult"):
+    """``qr_embedding_bag`` on one pair's raw ``(B, L)`` ids, split by the
+    ``m`` rows of ``w_rem``."""
+    m = w_rem.shape[0]
+    return qr_embedding_bag(idx % m, idx // m, mask, w_rem, w_quo, op=op)
 
 
 def qr_gather_grouped(idx, tables):

@@ -72,6 +72,35 @@ def test_qr_bag_matches_reference_kernel(mode, b, l, m, q, d, op, weights):
     torch.testing.assert_close(got_f32_mask, got, rtol=0, atol=0)
 
 
+@pytest.mark.parametrize("mode", ["f32", "bf16"])
+@pytest.mark.parametrize("op", ["mult", "add"])
+def test_raw_id_route_matches_reference_kernel(mode, op):
+    """The route ``ops.qr_bag_lookup`` takes for a dense pair: the raw ids
+    and the mask into ``qr_embedding_bag_raw``, which splits the ids
+    itself (no ``_split`` before it), against the reference's
+    ``qr_bag_lookup`` in interpret mode; edge ids 0, m-1, m and size-1,
+    fractional weights and an empty bag."""
+    rng = np.random.default_rng(21 + len(mode))
+    m, q, d, b, length = 29, 5, 64, 6, 7
+    size = m * q - 2
+    (jwr, jwq), (twr, twq) = _pair(rng, m, q, d, mode)
+    idx = rng.integers(0, size, size=(b, length)).astype(np.int32)
+    idx[:4, 0] = (0, m - 1, m, size - 1)
+    mask = rng.choice([0.0, 0.3, 1.0, 1.9], size=(b, length)).astype(np.float32)
+    mask[:4, 0] = 1.0
+    mask[-1] = 0.0
+    want = jops.qr_bag_lookup(jnp.asarray(idx), jnp.asarray(mask, JDT[mode]), jwr, jwq, op=op,
+                              interpret=True)
+    ti, tm = torch.from_numpy(idx), torch.from_numpy(mask)
+    got = ref.qr_embedding_bag_raw(ti, tm, twr, twq, op=op)
+    assert got.dtype == twr.dtype and tuple(got.shape) == want.shape == (b, d)
+    np.testing.assert_allclose(_np(got), _np(want), rtol=TOL[mode], atol=TOL[mode])
+    np.testing.assert_array_equal(_np(got)[-1], 0.0)
+    torch.testing.assert_close(ops.qr_bag_lookup(ti, tm, twr, twq, op=op), got, rtol=0, atol=0)
+    torch.testing.assert_close(embedding_bag.qr_embedding_bag_raw(ti, tm, twr, twq, op=op), got,
+                               rtol=0, atol=0)
+
+
 def test_bf16_weights_round_before_they_multiply():
     """Three slots of weight 0.3 on rows of 1.0: the weight rounds to bf16
     (0.30078125) first, so the bag is 0.90234375 — with the f32 weight it

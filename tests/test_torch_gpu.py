@@ -16,6 +16,7 @@ rtol 5e-3 against an f32 oracle (``tests/test_kernels.py:84-107``).
 """
 
 import dataclasses
+import functools
 
 import numpy as np
 import pytest
@@ -259,6 +260,9 @@ def test_embedding_bag_kernel_matches_plain(cuda, dtype):
 
 @pytest.mark.parametrize("op", ["mult", "add"])
 def test_embedding_bag_kernel_accumulates_f32_at_L16_D128(cuda, op):
+    """The audit, on both K3 entries: a bf16 bag at L=16, D=128 within
+    rtol 5e-3 of an f32 oracle; control: a bf16 running sum of the same
+    rows fails it."""
     rng = np.random.default_rng(10)
     m, q = 64, 8
     # positive rows: no cancellation, so a bf16 running sum's error compounds
@@ -266,10 +270,180 @@ def test_embedding_bag_kernel_accumulates_f32_at_L16_D128(cuda, op):
     wq = torch.from_numpy(np.abs(rng.normal(size=(q, 128))) + 0.5).to(cuda, torch.bfloat16)
     idx = torch.from_numpy(rng.integers(0, m * q, size=(8, 16))).to(cuda)
     mask = torch.ones((8, 16), device=cuda)
-    got = ops.qr_bag_lookup(idx, mask, wr, wq, op=op)
     a, b = wr.float()[idx % m], wq.float()[idx // m]
-    want = (a * b if op == "mult" else a + b).sum(dim=1)
-    torch.testing.assert_close(got.float(), want, rtol=5e-3, atol=0)
+    rows = a * b if op == "mult" else a + b
+    want = rows.sum(dim=1)
+    for got in (ops.qr_bag_lookup(idx, mask, wr, wq, op=op),
+                embedding_bag.qr_embedding_bag(idx % m, idx // m, mask, wr, wq, op=op)):
+        torch.testing.assert_close(got.float(), want, rtol=5e-3, atol=0)
+    running = torch.zeros((8, 128), dtype=torch.bfloat16, device=cuda)
+    for lane in range(16):
+        running = running + rows[:, lane].bfloat16()
+    with pytest.raises(AssertionError):
+        torch.testing.assert_close(running.float(), want, rtol=5e-3, atol=0)
+
+
+def test_embedding_bag_bf16_weights_round_before_they_multiply(cuda):
+    """Three slots of weight 0.3 on rows of 1.0 in a bf16 table: K3 rounds
+    the weight to bf16 (0.30078125) first, so the bag is 0.90234375 on
+    both entries; with the f32 weight it would round to 0.8984375, which is
+    what K4 (whose weights stay f32) gives on the same inputs."""
+    ones = torch.ones((4, 8), dtype=torch.bfloat16, device=cuda)
+    idx = torch.zeros((1, 3), dtype=torch.int32, device=cuda)
+    mask = torch.full((1, 3), 0.3, device=cuda)
+    for got in (embedding_bag.qr_embedding_bag(idx, idx, mask, ones, ones),
+                ops.qr_bag_lookup(idx, mask, ones, ones)):
+        assert got.dtype == torch.bfloat16 and (got.float() == 0.90234375).all()
+    k4 = serve_path.fused_serve_pool_grouped(idx[:, None], mask[:, None],
+                                             [ref.GroupTable(ones, ones, m=4)])
+    assert k4.dtype == torch.bfloat16 and (k4.float() == 0.8984375).all()
+
+
+def _spy_launches(monkeypatch):
+    """Record the arguments of every grouped-kernel launch."""
+    calls = []
+    real = grouped_lookup._build.library
+
+    class Spy:
+        def __init__(self, lib):
+            self._lib = lib
+
+        def grouped_lookup(self, *args):
+            calls.append(args)
+            return self._lib.grouped_lookup(*args)
+
+    monkeypatch.setattr(grouped_lookup._build, "library",
+                        lambda name: Spy(real(name)) if name == "grouped_lookup" else real(name))
+    return calls
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("id_dtype", [torch.int32, torch.int64])
+def test_embedding_bag_raw_ids_read_in_place(cuda, dtype, id_dtype, monkeypatch):
+    """ops.qr_bag_lookup on a dense pair: one K3 launch on the raw ids, the
+    ids and the mask read in place through their strides (strided views of
+    wider buffers; the kernel gets their own pointers), the edge ids 0,
+    m-1, m and size-1, bit-equal to the pre-split per-table entry and
+    within tolerance of the plain version; empty bags and L = 0 are zero."""
+    calls = _spy_launches(monkeypatch)
+    rng = np.random.default_rng(7)
+    m, q, d, b, length = 1000, 7, 128, 37, 9
+    size = m * q - 3
+    w_rem = torch.from_numpy(rng.normal(size=(m, d)).astype(np.float32)).to(cuda, dtype)
+    w_quo = torch.from_numpy(rng.normal(size=(q, d)).astype(np.float32)).to(cuda, dtype)
+    ids = rng.integers(0, size, size=(b, 2 * length))
+    ids[:4, 0] = (0, m - 1, m, size - 1)
+    weights = rng.choice([0.0, 0.3, 1.0, 1.7], size=(b, 2 * length)).astype(np.float32)
+    weights[:4, 0] = 1.0
+    weights[-1] = 0.0                                               # an empty bag
+    idx = torch.from_numpy(ids).to(cuda, id_dtype)[:, ::2]
+    mask = torch.from_numpy(weights).to(cuda)[:, ::2]
+    assert not idx.is_contiguous() and not mask.is_contiguous()
+    tol = TOL["f32" if dtype == torch.float32 else "bf16"]
+    for op in ("mult", "add"):
+        del calls[:]
+        lookup = functools.partial(ops.qr_bag_lookup, w_rem=w_rem, w_quo=w_quo, op=op)
+        got = _launched_on(embedding_bag.qr_embedding_bag, lookup, idx, mask)
+        args = calls[0]
+        assert len(calls) == 1 and args[3] == idx.data_ptr() and args[9] == mask.data_ptr()
+        assert got.dtype == dtype and got.shape == (b, d)
+        pre_split = embedding_bag.qr_embedding_bag(idx % m, idx // m, mask, w_rem, w_quo, op=op)
+        assert torch.equal(got, pre_split)
+        want = ref.qr_embedding_bag(idx % m, idx // m, mask, w_rem, w_quo, op=op)
+        torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+        assert (got[-1] == 0).all()
+        empty = _launched_on(embedding_bag.qr_embedding_bag, lookup, idx[:, :0], mask[:, :0])
+        assert empty.shape == (b, d) and (empty == 0).all()
+
+
+@pytest.mark.parametrize("wide_threads", [8, 16, 32])
+def test_embedding_bag_matches_plain_and_per_table_at_any_threads_per_bag(cuda, wide_threads,
+                                                                          monkeypatch):
+    """K3's raw-id route (``ops.qr_bag_lookup``) over dense QR pairs of
+    ragged sizes (mult and add in turn) at D=128 and D=16, f32 and bf16, L
+    in {0, 1, 5, 32}, edge ids, fractional weights and empty bags, ids and
+    mask read as strided views: one launch each, within tolerance of the
+    plain version and bit-equal to the pre-split per-table entry, whatever
+    the threads per bag for wide rows."""
+    monkeypatch.setattr(grouped_lookup, "WIDE_THREADS_PER_BAG", wide_threads)
+    sizes = (13, 50, 7, 1_000_003)
+    for mode in ("f32", "bf16"):
+        for d in (128, 16):
+            for length in (0, 1, 5, 32):
+                rng = np.random.default_rng(d + length + len(mode))
+                tables = _group(rng, sizes, d, mode, cuda, kinds=("qr",))
+                idx = _edge_ids(rng, sizes, 19, length, cuda)
+                mask = torch.from_numpy(rng.choice([0.0, 0.3, 1.0, 1.7], size=idx.shape)
+                                        .astype(np.float32)).to(cuda)
+                mask[-1] = 0.0                              # a request of empty bags
+                for t, tab in enumerate(tables):
+                    ids, weights = idx[:, t], mask[:, t]
+                    lookup = functools.partial(ops.qr_bag_lookup, w_rem=tab.w_a, w_quo=tab.w_b,
+                                               op=tab.op)
+                    got = _launched_on(embedding_bag.qr_embedding_bag, lookup, ids, weights)
+                    want = ref.qr_embedding_bag_raw(ids, weights, tab.w_a, tab.w_b, op=tab.op)
+                    assert got.dtype == want.dtype == tab.w_a.dtype
+                    assert got.shape == want.shape == (19, d)
+                    torch.testing.assert_close(got.float(), want.float(), rtol=TOL[mode],
+                                               atol=TOL[mode])
+                    assert (got[-1] == 0).all()
+                    one = embedding_bag.qr_embedding_bag(ids % tab.m, ids // tab.m, weights,
+                                                         tab.w_a, tab.w_b, op=tab.op)
+                    assert torch.equal(one, got)
+
+
+def test_grouped_mixed_group_matches_per_table(cuda):
+    """A K4 group that mixes storage types (an int8 QR pair, a full f32
+    table, and a projected bf16 pair at D=16 or an f32 pair at D=128) runs
+    the kernel that switches per table: within tolerance of the plain
+    version and bit-equal to one launch per table, each of which runs its
+    own one-case kernel."""
+    rng = np.random.default_rng(13)
+    for d in (16, 128):
+        q8 = _tables(rng, 40, 5, d, "int8", cuda)
+        f32 = _tables(rng, 30, 1, d, "f32", cuda)
+        tables = [ref.GroupTable(q8["w_a"], q8["w_b"], q8["scale_a"], q8["zp_a"], q8["scale_b"],
+                                 q8["zp_b"], 40),
+                  ref.GroupTable(f32["w_a"])]
+        if d == 16:
+            bf = _tables(rng, 8, 3, d, "bf16", cuda)
+            proj = torch.from_numpy(0.25 * rng.normal(size=(d, d)).astype(np.float32)).to(cuda)
+            tables.append(ref.GroupTable(bf["w_a"], bf["w_b"], m=8, op="add", proj=proj))
+        else:
+            pair = _tables(rng, 8, 3, d, "f32", cuda)
+            tables.append(ref.GroupTable(pair["w_a"], pair["w_b"], m=8, op="add"))
+        idx = _edge_ids(rng, (200, 30, 24), 21, 6, cuda)
+        mask = torch.from_numpy(rng.choice([0.0, 0.5, 1.0], size=idx.shape)
+                                .astype(np.float32)).to(cuda)
+        got = _launched_on(serve_path.fused_serve_pool, serve_path.fused_serve_pool_grouped,
+                           idx, mask, tables)
+        want = ref.fused_serve_pool_grouped(idx, mask, tables)
+        assert got.dtype == want.dtype == torch.float32 and got.shape == want.shape
+        torch.testing.assert_close(got, want, rtol=TOL["f32"], atol=TOL["f32"])
+        for t, tab in enumerate(tables):
+            one = serve_path.fused_serve_pool_grouped(idx[:, t:t + 1], mask[:, t:t + 1], [tab])
+            assert torch.equal(one[:, 0], got[:, t])
+
+
+def test_embedding_bag_refuses_what_k3_does_not_take(cuda):
+    """Both K3 entries refuse an int8 pair, tables of two dtypes or widths
+    and a strided table, and an op other than mult or add."""
+    rng = np.random.default_rng(12)
+    t = _tables(rng, 12, 4, 16, "int8", cuda)
+    idx = torch.zeros((2, 3), dtype=torch.int32, device=cuda)
+    mask = torch.ones((2, 3), device=cuda)
+    w = torch.randn((12, 16), device=cuda)
+    refused = [(t["w_a"], t["w_b"]), (w, w.bfloat16()), (w, w[:4, :8].contiguous()),
+               (w, torch.randn((16, 12), device=cuda).t())]
+    for w_rem, w_quo in refused:
+        with pytest.raises(ValueError, match="K3"):
+            embedding_bag.qr_embedding_bag_raw(idx, mask, w_rem, w_quo)
+        with pytest.raises(ValueError, match="K3"):
+            embedding_bag.qr_embedding_bag(idx, idx, mask, w_rem, w_quo)
+    for entry in (lambda: embedding_bag.qr_embedding_bag_raw(idx, mask, w, w, op="concat"),
+                  lambda: embedding_bag.qr_embedding_bag(idx, idx, mask, w, w, op="concat")):
+        with pytest.raises(ValueError, match="mult or add"):
+            entry()
 
 
 def test_qr_ops_route_cuda_tensors_to_the_kernels(cuda):

@@ -29,7 +29,7 @@ from repro.kernels.serve_path import fused_serve_pool as jax_fused_serve_pool
 from repro.serve.quantize import quantize_table as jax_quantize_table
 from repro_torch.convert import params_from_jax
 from repro_torch.core import EmbeddingSpec
-from repro_torch.kernels import grouped_lookup, ops, qr_gather, ref, serve_path
+from repro_torch.kernels import embedding_bag, grouped_lookup, ops, qr_gather, ref, serve_path
 from repro_torch.models import dlrm as tdlrm
 from repro_torch.serve.quantize import quantize_params
 
@@ -311,6 +311,44 @@ def test_launcher_refuses_what_the_kernel_does_not_take(what, monkeypatch):
     with pytest.raises(ValueError):
         grouped_lookup.launch(serve_path.fused_serve_pool, "grouped", idx, None, tables,
                               bag=bag)
+
+
+def _bad_bag_pairs():
+    """Launches K3's one-pair entry must refuse: (idx, mask, w_a, w_b, m, idx_b)."""
+    f32 = torch.zeros((8, 16))
+    ids, mask = torch.zeros((4, 3), dtype=torch.int32), torch.ones((4, 3))
+    q = quantize_params({"tables": [{"table": f32}]}, mode="int8")["tables"][0]["table"]["q"]
+    return {
+        "ids not (B, L)": (ids[:, :, None], mask[:, :, None], f32, f32, 8, None),
+        "mask shape": (ids, mask[:, :2], f32, f32, 8, None),
+        "int8 pair": (ids, mask, q, q, 8, None),
+        "mixed dtypes": (ids, mask, f32, f32.bfloat16(), 8, None),
+        "single table": (ids, mask, f32, None, 8, None),
+        "widths differ": (ids, mask, f32, torch.zeros((2, 8)), 8, None),
+        "strided table": (ids, mask, f32.t(), f32.t(), 8, None),
+        "raw ids without m": (ids, mask, f32, f32, 0, None),
+        "pre-split ids with m": (ids, mask, f32, f32, 8, ids),
+        "pre-split ids differ": (ids, mask, f32, f32, 0, ids[:, :2]),
+    }
+
+
+@pytest.mark.parametrize("what", list(_bad_bag_pairs()))
+def test_launcher_refuses_k3_tables_that_are_not_dense_pairs(what, monkeypatch):
+    """K3's launch (``launch_bag_pair``) takes one dense f32 / bf16 QR pair
+    and (B, L) ids and mask alike, and keeps only the checks that case
+    needs; the refusal comes before anything is built."""
+    idx, mask, w_a, w_b, m, idx_b = _bad_bag_pairs()[what]
+
+    def no_build(name):
+        raise AssertionError("the checks must refuse before any build")
+
+    monkeypatch.setattr(grouped_lookup._build, "library", no_build)
+    with pytest.raises(ValueError, match="k3"):
+        grouped_lookup.launch_bag_pair(embedding_bag.qr_embedding_bag, "k3", idx, mask, w_a,
+                                       w_b, m=m, op="mult", idx_b=idx_b)
+    with pytest.raises(ValueError, match="mult or add"):
+        grouped_lookup.launch_bag_pair(embedding_bag.qr_embedding_bag, "k3", *_bad_bag_pairs()[
+            "raw ids without m"][:4], m=8, op="concat")
 
 
 def test_launch_counts_go_to_the_per_table_counters():

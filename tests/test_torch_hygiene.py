@@ -66,6 +66,7 @@ def test_missing_toolkit_or_mixed_devices_raise(monkeypatch):
         lambda: qr_gather.qr_gather_quant(ids[:, 0], ids[:, 0], meta.to(torch.int8),
                                           cpu.to(torch.int8), None, None, None, None),
         lambda: embedding_bag.qr_embedding_bag(ids, ids, torch.ones((2, 1)), cpu, meta),
+        lambda: embedding_bag.qr_embedding_bag_raw(ids, torch.ones((2, 1)), meta, cpu),
         lambda: serve_path.fused_serve_pool_grouped(ids[:, :, None], None,
                                                     [ref.GroupTable(meta)]),
         lambda: qr_gather.qr_gather_quant_grouped(ids, [ref.GroupTable(
@@ -85,7 +86,7 @@ def test_failed_build_raises(monkeypatch, tmp_path):
     fake.chmod(0o755)
     monkeypatch.setenv("PATH", str(tmp_path))
     monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
-    assert set(_build.SOURCES) == {"grouped_lookup", "dot_interaction", "embedding_bag"}
+    assert set(_build.SOURCES) == {"grouped_lookup", "dot_interaction"}
     with pytest.raises(RuntimeError, match="(?s)build failed.*unsupported gpu") as err:
         _build.build_all(_build.SOURCES)
     for name in _build.SOURCES:
