@@ -60,11 +60,25 @@ Phases (any failure exits non-zero, and no result line is printed):
    counts, finite logits, and logits and loss against ``use_kernel=False``;
    print BCE, accuracy, wall and device ms per batch, device operations,
    the device's busy share, table bytes and peak memory;
-10. drive K3's own entry point ``ops.qr_bag_lookup`` at the shape of the
+10. train the full-width DLRM-Criteo (plain path, as the reference trains)
+   with the paper's Adagrad (1e-2) at B=256 for 200 steps through
+   ``Trainer``: finite losses, the mean of the last 10 below step 0's; one
+   step's loss and gradients on the card against the CPU's on the same
+   parameters and batch; wall and device ms per step, device operations,
+   the top device operations, the busy share, the optimizer pass against
+   its bytes bound, peak memory, checkpoint save and restore seconds; then
+   score the 12 held-out batches with the trained tables through one
+   grouped K1 and one K2 per batch (f32) and through K5 and K2 (int8),
+   against ``use_kernel=False``; check that each CUDA wrapper raises under
+   grad mode for an operand that requires grad; and, at the reduced
+   config with ``torch.use_deterministic_algorithms(True)``, that a
+   Trainer killed at step 15 and resumed from its step-10 checkpoint ends
+   bit-equal to an uninterrupted run;
+11. drive K3's own entry point ``ops.qr_bag_lookup`` at the shape of the
    reference's kernel bench and on the largest Kaggle table (one K3 launch
    each), and count its device operations per call with ``torch.profiler``
    (exactly one);
-11. time each kernel, its plain version and a PyTorch yardstick with CUDA
+12. time each kernel, its plain version and a PyTorch yardstick with CUDA
    events, compute each kernel's bound from this run's inputs, and print
    the ``kernels`` JSON line.  The grouped kernels are timed at a full
    26-table wave (K4) and batch (K1 in f32, K5) at 1 to 16 threads per
@@ -77,7 +91,7 @@ Phases (any failure exits non-zero, and no result line is printed):
    entry at the kernel bench's D=128 on int32 ids, int64 ids read in place
    and int64 ids cast first.
 
-Each of the paths in 8, 9 and 10 runs with every launch count set to 0
+Each of the paths in 8 to 11 runs with every launch count set to 0
 just before it and read just after; launches made to compare a kernel
 with its plain version count nowhere.  Peak device memory is printed as
 the process's peak and as the peak above what the phase found allocated
@@ -91,6 +105,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import math
 import os
 import re
 import subprocess
@@ -99,6 +114,9 @@ import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
+# cuBLAS reads this when it makes its first handle: [train]'s restart check
+# runs with torch.use_deterministic_algorithms(True), which needs it
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 
 # Published H100 SXM peaks (NVIDIA data sheet): HBM3 rate, and f32 outside
 # the tensor cores — every kernel here does f32 arithmetic on CUDA cores.
@@ -126,6 +144,13 @@ BAG_CASES = (("bench", "f32", "mult"), ("bench", "f32", "add"), ("serving", "f32
              ("serving", "f32", "mult"), ("serving", "bf16", "add"),
              ("bandwidth", "f32", "add"), ("bandwidth", "f32", "mult"))
 EVAL_STEPS = range(10_000, 10_012)
+TRAIN_STEPS = 200               # Adagrad steps through Trainer at full width
+TRAIN_TIMED = (5, 30)           # [train]'s timing: warm-up steps, then timed steps
+# one full-width step's loss and gradients, card vs CPU on the same
+# parameters and batch: f32 sums in another order through two MLPs (cuBLAS
+# vs the CPU's GEMMs), the interaction and the index backward (atomics on
+# the card); each leaf's max |diff| within GRAD_TOL of its largest |g|
+GRAD_TOL = 1e-4
 
 
 def _fail(msg: str):
@@ -691,11 +716,15 @@ def _profile_device(run):
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        # a marker kernel first: the trace can miss the window's first launch
+        torch.cuda._sleep(1000)
+        torch.cuda.synchronize()
         out = run()
         torch.cuda.synchronize()   # the last launch ends inside the window
     # device-side events only (kernels, copies): a CPU op's device time
     # would count its kernels twice
-    on_device = [ev for ev in prof.key_averages() if ev.device_type == DeviceType.CUDA]
+    on_device = [ev for ev in prof.key_averages() if ev.device_type == DeviceType.CUDA
+                 and "spin_kernel" not in ev.key]
     dev, counts = {}, {}
     for ev in on_device:
         name = _short_name(ev.key)
@@ -852,6 +881,292 @@ def eval_full_width(torch):
     del params                                   # the int8 run holds only int8 tables
     counts["eval_int8"] = _eval_run(torch, api, plain, qparams, batches, "int8",
                                     "qr_gather_quant", 1, table_bytes(qparams), base)
+    return counts
+
+
+def _grads_vs_cpu(torch, api_cpu, api_card, shape):
+    """One full-width step's loss and gradients on the card against the CPU:
+    parameters and a batch drawn on the CPU, copies moved to the card.
+    Returns the loss difference and the worst leaf's max |diff| over its
+    largest |g|."""
+    from repro_torch import tree
+    from repro_torch.train.loop import value_and_grad
+
+    params = api_cpu.init(torch.Generator().manual_seed(7))
+    batch = api_cpu.batch_fn(0, shape)
+    (loss, _), grads = value_and_grad(api_cpu.loss_fn)(params, batch)
+    on_card = tree.tree_map(lambda x: x.to("cuda"), params)
+    del params
+    (card_loss, _), card_grads = value_and_grad(api_card.loss_fn)(
+        on_card, {k: v.to("cuda") for k, v in batch.items()})
+    worst, where = 0.0, ""
+    for (path, g), cg in zip(tree.flatten_with_path(grads), tree.leaves(card_grads)):
+        scale = float(g.abs().max())
+        rel = float((cg.cpu() - g).abs().max()) / scale if scale else float(cg.abs().max())
+        if rel > worst:
+            worst, where = rel, "/".join(map(str, path))
+    loss_diff = abs(float(card_loss) - float(loss))
+    print(f"  one full-width step, card vs CPU: loss {float(card_loss):.7f} vs {float(loss):.7f} "
+          f"(|diff| {loss_diff:.3e}); worst gradient leaf {where}: max |diff| {worst:.3e} of its "
+          f"largest |g| (tol {GRAD_TOL:.0e})")
+    if not (loss_diff <= GRAD_TOL * max(1.0, abs(float(loss))) and worst <= GRAD_TOL):
+        _fail("a full-width step's loss or gradients on the card disagree with the CPU's")
+    return loss_diff, worst
+
+
+def _refusals_under_grad(torch):
+    """Every CUDA wrapper, and a backward through ``use_kernel=True``,
+    raises under grad mode with an operand that requires grad."""
+    from repro_torch.kernels import dot_interaction, embedding_bag, qr_gather, ref, serve_path
+    from repro_torch.serve.quantize import quantize_table
+
+    w = torch.randn((12, D), device="cuda", requires_grad=True)
+    wq = torch.randn((4, D), device="cuda")
+    qa, qb = quantize_table(w.detach()), quantize_table(wq)
+    scale = qa["scale"].clone().requires_grad_(True)
+    quant = (qa["q"], qb["q"], scale, qa["zp"], qb["scale"], qb["zp"])
+    rem = torch.zeros((5,), dtype=torch.int32, device="cuda")
+    ids, mask = torch.zeros((5, 3), dtype=torch.int32, device="cuda"), torch.ones((5, 3),
+                                                                                device="cuda")
+    z, feats = torch.randn((5, D), device="cuda", requires_grad=True), torch.randn((5, 3, D),
+                                                                                 device="cuda")
+    calls = {
+        "fused_serve_pool": lambda: serve_path.fused_serve_pool(ids, mask, w, ids, wq),
+        "fused_serve_pool_grouped": lambda: serve_path.fused_serve_pool_grouped(
+            ids[:, None], mask[:, None], [ref.GroupTable(w, wq, m=12)]),
+        "qr_gather": lambda: qr_gather.qr_gather(rem, rem, w, wq),
+        "qr_gather_grouped": lambda: qr_gather.qr_gather_grouped(
+            ids[:, :1], [ref.GroupTable(w, wq, m=12)]),
+        "qr_gather_quant": lambda: qr_gather.qr_gather_quant(rem, rem, *quant),
+        "qr_gather_quant_grouped": lambda: qr_gather.qr_gather_quant_grouped(
+            ids[:, :1], [ref.GroupTable(*quant, m=12)]),
+        "qr_embedding_bag": lambda: embedding_bag.qr_embedding_bag(ids, ids, mask, w, wq),
+        "qr_embedding_bag_raw": lambda: embedding_bag.qr_embedding_bag_raw(ids, mask, w, wq),
+        "dot_interaction": lambda: dot_interaction.dot_interaction(
+            torch.cat([z[:, None], feats], dim=1)),
+        "dot_interaction_concat": lambda: dot_interaction.dot_interaction_concat(z, feats),
+    }
+    for name, call in calls.items():
+        try:
+            call()
+        except RuntimeError as e:
+            if "requires grad" not in str(e):
+                raise
+        else:
+            _fail(f"{name} returned an output with no graph for an operand that requires grad")
+    print(f"  under grad mode, each of the {len(calls)} CUDA wrappers raises for an operand "
+          "that requires grad")
+
+
+def _restart_bitwise(torch):
+    """[train]'s kill-and-restart at the reduced config with deterministic
+    algorithms: a Trainer killed at step 15 and resumed from its step-10
+    checkpoint (under ``build/``) ends with the same bits, and logs the same
+    losses, as an uninterrupted run.  Returns the steps compared."""
+    import shutil
+    import tempfile
+
+    from repro_torch import tree
+    from repro_torch.configs import dlrm_criteo
+    from repro_torch.configs.common import Shape
+    from repro_torch.train.loop import (SimulatedFailure, TrainConfig, Trainer, init_state,
+                                        make_train_step)
+
+    api = dlrm_criteo.api(dlrm_criteo.config(reduced=True))
+    shape = Shape("train", 1, B, "train")
+    kept = torch.are_deterministic_algorithms_enabled()
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    ckdir = tempfile.mkdtemp(prefix="smoke_restart_", dir=os.path.join(ROOT, "build"))
+    torch.use_deterministic_algorithms(True)
+    try:
+        state0 = init_state(api.init(torch.Generator(device="cuda").manual_seed(1)),
+                            api.optimizer)
+        step = make_train_step(api.loss_fn, api.optimizer)
+        tc = TrainConfig(num_steps=20, ckpt_every=10, ckpt_dir=ckdir, log_every=1)
+
+        def batch_at(s):
+            return api.batch_fn(s, shape)
+
+        tr = Trainer(step, tc, batch_at=batch_at)
+        try:
+            tr.run(state0, fail_at_step=15)
+            _fail("the injected failure did not stop the run")
+        except SimulatedFailure:
+            tr.checkpointer.wait()
+        tr2 = Trainer(step, tc, batch_at=batch_at)
+        resumed = tr2.resume_or(state0)
+        if int(resumed["step"]) != 10:
+            _fail(f"resumed at step {int(resumed['step'])}, expected 10")
+        final_resumed, hist_resumed = tr2.run(resumed)
+        final_direct, hist_direct = Trainer(step, TrainConfig(num_steps=20, log_every=1),
+                                            batch_at=batch_at).run(state0)
+    finally:
+        torch.use_deterministic_algorithms(kept)
+        shutil.rmtree(ckdir, ignore_errors=True)
+    same = all(torch.equal(a, b) for a, b in zip(tree.leaves(final_resumed),
+                                                 tree.leaves(final_direct)))
+    same_losses = hist_resumed == [h for h in hist_direct if h[0] >= 10]
+    print(f"  reduced config, killed at 15, resumed from 10: final state bit-equal {same}, "
+          f"losses of steps 10-19 bit-equal {same_losses}")
+    if not (same and same_losses):
+        _fail("the restarted run does not replay the uninterrupted one bit for bit")
+    return 20
+
+
+def _ckpt_seconds(torch, state):
+    """Seconds to save the full-width train state and to restore it onto
+    the card, under ``build/``; the restored state must equal the saved one."""
+    import shutil
+    import tempfile
+
+    from repro_torch import tree
+    from repro_torch.ckpt import checkpoint as ckpt
+
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    ckdir = tempfile.mkdtemp(prefix="smoke_ckpt_", dir=os.path.join(ROOT, "build"))
+    try:
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        path = ckpt.save(ckdir, int(state["step"]), state)
+        save_s = time.perf_counter() - t
+        nbytes = sum(os.path.getsize(os.path.join(path, f)) for f in os.listdir(path))
+        t = time.perf_counter()
+        restored, _ = ckpt.restore(ckdir, int(state["step"]), state)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t
+    finally:
+        shutil.rmtree(ckdir, ignore_errors=True)
+    if not all(a.device == b.device and torch.equal(a, b)
+               for a, b in zip(tree.leaves(restored), tree.leaves(state))):
+        _fail("the restored checkpoint differs from the saved state")
+    print(f"  checkpoint of the full train state ({nbytes} B): save {save_s:.3f} s, restore "
+          f"onto the card {restore_s:.3f} s (sha256 verified), equal")
+    return save_s, restore_s, nbytes
+
+
+def train_full_width(torch, card):
+    """The [train] phase: train the full-width DLRM-Criteo with the paper's
+    Adagrad through ``Trainer``, hold one step's gradients against the CPU,
+    time the step and the optimizer pass, checkpoint, score the trained
+    tables through the kernels, check the refusals under grad and the
+    bit-exact restart.  Returns the scoring runs' launch counts."""
+    from repro_torch import tree
+    from repro_torch.configs import dlrm_criteo
+    from repro_torch.configs.common import Shape
+    from repro_torch.serve.quantize import quantize_params, table_bytes
+    from repro_torch.train.loop import (TrainConfig, Trainer, init_state, make_train_step,
+                                        value_and_grad)
+
+    cfg = dlrm_criteo.config(reduced=False)          # use_kernel=False: training is plain
+    api = dlrm_criteo.api(cfg)
+    shape = Shape("train", 1, B, "train")
+    grad_check = _grads_vs_cpu(torch, dlrm_criteo.api(cfg, device="cpu"), api, shape)
+
+    base = torch.cuda.memory_allocated()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    state = init_state(api.init(torch.Generator(device="cuda").manual_seed(0)), api.optimizer)
+    step_fn = make_train_step(api.loss_fn, api.optimizer)
+    trainer = Trainer(step_fn, TrainConfig(num_steps=TRAIN_STEPS, log_every=1),
+                      batch_at=lambda s: api.batch_fn(s, shape))
+    state, history = trainer.run(state)
+    run_s = time.perf_counter() - t
+    peak = torch.cuda.max_memory_allocated()
+    losses = [loss for _, loss in history]
+    n_elems = sum(p.numel() for p in tree.leaves(state["params"]))
+    tail = sum(losses[-10:]) / 10
+    print(f"  {TRAIN_STEPS} Adagrad(1e-2) steps at B={B}, {n_elems} parameters "
+          f"({table_bytes(state['params'])} B of f32 tables), in {run_s:.2f} s with init: loss "
+          f"{losses[0]:.5f} at step 0, {tail:.5f} over the last 10 | peak memory {peak} B "
+          f"({peak - base} B above the phase's start) | straggler events "
+          f"{len(trainer.straggler_events)}")
+    if len(losses) != TRAIN_STEPS or not all(math.isfinite(x) for x in losses):
+        _fail("training losses are not all finite")
+    if not tail < losses[0]:
+        _fail(f"the loss did not fall: last 10 steps {tail:.5f} vs step 0 {losses[0]:.5f}")
+
+    # the step's wall time (host clock around step + synchronize, as Trainer
+    # times it) and its device time, operations and top operations
+    warm, timed = TRAIN_TIMED
+    batches = [api.batch_fn(s, shape) for s in range(TRAIN_STEPS, TRAIN_STEPS + warm + timed)]
+    walls = []
+    for batch in batches:
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        state, _ = step_fn(state, batch)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t)
+    wall_ms = sorted(walls[warm:])[timed // 2] * 1e3
+    held = {"state": state}
+
+    def steps():
+        for batch in batches[:warm]:
+            held["state"], _ = step_fn(held["state"], batch)
+
+    _, dev, ops_by_name = _profile_device(steps)
+    state = held["state"]
+    device_ms = sum(dev.values()) / warm / 1e3
+
+    # the optimizer pass alone on this step's gradients: Adagrad reads g,
+    # acc and p and writes acc and p for every element of every leaf; and
+    # the peak memory of the gradients and of the optimizer pass apart
+    torch.cuda.synchronize()
+    held_bytes = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    _, grads = value_and_grad(api.loss_fn)(state["params"], batches[0])
+    torch.cuda.synchronize()
+    grad_peak = torch.cuda.max_memory_allocated() - held_bytes
+    torch.cuda.reset_peak_memory_stats()
+    api.optimizer.update(grads, state["opt"], state["params"], state["step"])
+    torch.cuda.synchronize()
+    opt_peak = torch.cuda.max_memory_allocated() - held_bytes
+    opt_ms = _time_ms(torch, lambda: api.optimizer.update(grads, state["opt"], state["params"],
+                                                          state["step"]), 10)
+    opt_bound_ms, opt_bound_by = _bound(5 * 4 * n_elems, 7 * n_elems)
+    del grads
+    prof = {"card": card, "steps": TRAIN_STEPS, "batch_size": B, "parameters": n_elems,
+            "loss_step_0": losses[0], "loss_last_10": tail, "loss_every_10": losses[::10],
+            "wall_ms_per_step_median": wall_ms, "device_ms_per_step": device_ms,
+            "device_ops_per_step": sum(ops_by_name.values()) / warm,
+            "device_busy_share": device_ms / wall_ms,
+            "top_device_ms_per_step": _top_ms(dev, warm, k=10),
+            "optimizer_ms": opt_ms, "optimizer_bound_ms": opt_bound_ms,
+            "optimizer_bound_by": opt_bound_by, "optimizer_share_of_bound": opt_bound_ms / opt_ms,
+            "peak_memory_bytes": peak, "peak_above_phase_start_bytes": peak - base,
+            "state_bytes": held_bytes - base, "grads_peak_above_state_bytes": grad_peak,
+            "optimizer_peak_above_state_bytes": opt_peak,
+            "grad_check_loss_diff": grad_check[0], "grad_check_worst_rel": grad_check[1]}
+    print(f"  card: {card}")
+    print(f"  per step: wall {wall_ms:.3f} ms (median of {timed} after {warm} warm-up), device "
+          f"{device_ms:.3f} ms (busy {prof['device_busy_share']:.3f}), "
+          f"{prof['device_ops_per_step']:.1f} device operations; optimizer pass {opt_ms:.3f} ms, "
+          f"bound {opt_bound_ms:.4f} ms ({opt_bound_by}, {5 * 4 * n_elems} B; "
+          f"{prof['optimizer_share_of_bound']:.3f} of it)")
+    print(f"  top device ms per step: {prof['top_device_ms_per_step']}")
+    print(f"  memory: train state {held_bytes - base} B; peak above it: gradients {grad_peak} B, "
+          f"the optimizer pass on them {opt_peak} B")
+    prof["ckpt_save_s"], prof["ckpt_restore_s"], prof["ckpt_bytes"] = _ckpt_seconds(torch, state)
+
+    # held-out scoring of the trained tables through the kernels, f32 (K1 +
+    # K2 per batch) then int8 (K5 + K2)
+    kcfg = dataclasses.replace(cfg, use_kernel=True)
+    kapi, plain = dlrm_criteo.api(kcfg), dlrm_criteo.api(cfg)
+    params = state["params"]
+    del state, held, batches
+    eval_batches = [kapi.batch_fn(step, shape) for step in EVAL_STEPS]
+    counts = {"train_eval_f32": _eval_run(torch, kapi, plain, params, eval_batches,
+                                          "trained f32", "qr_gather", 1, table_bytes(params),
+                                          torch.cuda.memory_allocated())}
+    qparams = quantize_params(params, mode="int8")
+    del params
+    counts["train_eval_int8"] = _eval_run(torch, kapi, plain, qparams, eval_batches,
+                                          "trained int8", "qr_gather_quant", 1,
+                                          table_bytes(qparams), torch.cuda.memory_allocated())
+    del qparams
+    _refusals_under_grad(torch)
+    prof["restart_steps_bit_equal"] = _restart_bitwise(torch)
+    print(json.dumps({"train_profile": prof}))
     return counts
 
 
@@ -1336,6 +1651,9 @@ def main() -> int:
     del engine
     print("[eval] full-width one-hot DLRM-Criteo, 12 held-out batches of 256")
     counts.update(eval_full_width(torch))
+    print("[train] full-width DLRM-Criteo, Adagrad, then the trained tables through the kernels")
+    counts.update(train_full_width(torch, card))
+    print(f"  ({time.perf_counter() - t0:.0f} s so far)")
     print("[bag] ops.qr_bag_lookup, K3's own entry point")
     counts["bag"], bag_ops = drive_bag_path(torch, shapes)
     print(f"  ({time.perf_counter() - t0:.0f} s so far)")

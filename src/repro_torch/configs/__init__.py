@@ -1,8 +1,8 @@
 """Architecture registry: ``--arch <id>`` resolves here."""
 
-from . import dlrm_criteo
+from . import dcn_criteo, dlrm_criteo
 
-ARCHS = {m.ARCH: m for m in (dlrm_criteo,)}
+ARCHS = {m.ARCH: m for m in (dlrm_criteo, dcn_criteo)}
 
 
 def get_arch(name: str):

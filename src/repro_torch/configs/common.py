@@ -1,10 +1,7 @@
 """Shared config helpers for the port's architectures: the ``ModelApi``
-adapter a config's ``api(cfg)`` returns, the ``Shape`` its batch function
-takes, and the embedding spec builder.
-
-``ModelApi`` holds the fields the port uses so far (scoring held-out
-batches); the optimizer and the training batch structure arrive with the
-training slice.
+adapter a config's ``api(cfg)`` returns, the ``Shape`` its batch functions
+take, the training batch's structure as ``meta`` tensors (``sds``, the
+reference's ``jax.ShapeDtypeStruct``), and ``embedding_spec``.
 """
 
 from __future__ import annotations
@@ -12,9 +9,11 @@ from __future__ import annotations
 import dataclasses
 from typing import Any, Callable
 
+import torch
+
 from ..core import EmbeddingSpec, factory
 
-__all__ = ["Shape", "ModelApi", "embedding_spec"]
+__all__ = ["Shape", "ModelApi", "embedding_spec", "resolve_plan", "sds"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -31,10 +30,24 @@ class ModelApi:
     cfg: Any
     init: Callable                      # torch.Generator -> params
     loss_fn: Callable                   # (params, batch) -> (loss, metrics)
+    optimizer: Any                      # repro_torch Optimizer
+    train_batch: Callable               # (shape: Shape) -> batch of meta tensors
     batch_fn: Callable                  # (step, shape) -> batch of tensors
     predict: Callable                   # (params, batch) -> scores
+
+
+def sds(shape, dtype) -> torch.Tensor:
+    """A shape and dtype with no storage: a tensor on the ``meta`` device."""
+    return torch.empty(tuple(shape), dtype=dtype, device="meta")
 
 
 def embedding_spec(embedding: str, num_collisions: int = 4) -> EmbeddingSpec:
     kind = embedding if embedding in factory.KINDS else "qr"
     return EmbeddingSpec(kind=kind, num_collisions=num_collisions, op="mult")
+
+
+def resolve_plan(plan, table_sizes):
+    """A memory plan ready to serve as a config's ``embedding``: waits for
+    the planner's port."""
+    raise NotImplementedError("memory plans need the planner "
+                              "(ROADMAP, modules to port: item 13)")

@@ -1,9 +1,12 @@
-"""Carry a parameter tree from the JAX package into the port.
+"""Carry parameter trees and train states between the JAX package and the port.
 
 The caller hands over the tree with every leaf as a numpy array
 (``jax.tree.map(np.asarray, params)``); dicts, lists and tuples keep their
 structure, so dense, bf16 and int8-quantized tables (``{"q", "scale",
-"zp"}``) all map one-to-one onto the port's layout.
+"zp"}``) all map one-to-one onto the port's layout.  A train state
+(``{"params", "opt", "step"}``) carries its optimizer-state list (one dict
+per parameter leaf, in leaf order, as both packages keep it) and its
+int32 step the same way.
 """
 
 from __future__ import annotations
@@ -11,12 +14,14 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-__all__ = ["params_from_jax"]
+__all__ = ["params_from_jax", "state_from_jax", "state_to_numpy"]
 
 
 def _tensor(arr, device):
-    arr = np.ascontiguousarray(arr)
-    if not arr.flags.writeable:  # arrays handed out by jax are read-only
+    arr = np.asarray(arr)
+    # arrays handed out by jax are read-only; copy() keeps a 0-d array 0-d,
+    # where np.ascontiguousarray would make it 1-d
+    if not (arr.flags.c_contiguous and arr.flags.writeable):
         arr = arr.copy()
     if arr.dtype.name == "bfloat16":
         # numpy's bf16 (ml_dtypes) is not a dtype torch.from_numpy takes:
@@ -34,3 +39,24 @@ def params_from_jax(tree, device="cuda"):
     if isinstance(tree, (list, tuple)):
         return type(tree)(params_from_jax(v, device) for v in tree)
     return _tensor(tree, device)
+
+
+def state_from_jax(state, device="cuda"):
+    """A JAX train state ``{"params", "opt", "step"}`` (numpy leaves) as the
+    port's, on ``device``: the step a 0-d int32 tensor."""
+    if set(state) != {"params", "opt", "step"}:
+        raise ValueError(f"a train state holds params, opt and step, got {sorted(state)}")
+    return {"params": params_from_jax(state["params"], device),
+            "opt": params_from_jax(list(state["opt"]), device),
+            "step": _tensor(np.asarray(state["step"], dtype=np.int32), device)}
+
+
+def state_to_numpy(tree):
+    """The same tree with every tensor as a numpy array on the host; bf16
+    leaves widen exactly to f32 (numpy has no bf16 of its own)."""
+    if isinstance(tree, dict):
+        return {k: state_to_numpy(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(state_to_numpy(v) for v in tree)
+    t = tree.detach().cpu()
+    return (t.float() if t.dtype == torch.bfloat16 else t).numpy()

@@ -9,7 +9,9 @@ started together).  Every pointer and the stream cross as
 ``ctypes.c_void_p``; every launch entry returns ``cudaGetLastError()``.
 
 Nothing here runs at import time, and nothing falls back: a missing
-``nvcc`` or a failed build raises.
+``nvcc`` or a failed build raises.  The kernels have no backward, so a
+launch that autograd would have to differentiate raises too
+(``refuse_grad``).
 """
 
 from __future__ import annotations
@@ -22,7 +24,10 @@ import subprocess
 import threading
 from pathlib import Path
 
-__all__ = ["SOURCES", "BUILD_DIR", "build_all", "library", "check", "launch_device"]
+import torch
+
+__all__ = ["SOURCES", "BUILD_DIR", "build_all", "library", "check", "launch_device",
+           "refuse_grad"]
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
@@ -125,3 +130,15 @@ def launch_device(*tensors):
     if len(devices) != 1 or next(iter(devices)).type != "cuda":
         raise ValueError(f"kernel operands must share one CUDA device, got {sorted(map(str, devices))}")
     return next(iter(devices))
+
+
+def refuse_grad(name: str, tensors) -> None:
+    """Raise when grad mode is on and a tensor of ``tensors`` (an iterable,
+    read only in grad mode; None entries skipped) requires grad: a kernel's
+    output carries no autograd graph, so a backward through it would leave
+    its operands without gradients.  Train through the plain path
+    (``use_kernel=False``), or call under ``torch.no_grad()``."""
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors):
+        raise RuntimeError(f"{name}: an operand requires grad, and the CUDA kernel has no "
+                           "backward; train with use_kernel=False or call under "
+                           "torch.no_grad()")

@@ -40,6 +40,7 @@ _SMEM_MAX = 232448       # a block's shared memory on the H100
 def _launch(name, z, feats, out, z_cols):
     """Check ``z (B, D)`` and ``feats (B, T, D)``, launch the kernel into
     ``out`` (rows of ``z_cols`` z columns, then the packed pairs)."""
+    _build.refuse_grad(name, (z, feats))
     device = z.device
     if z.dtype not in (torch.float32, torch.bfloat16) or feats.dtype != z.dtype:
         raise ValueError(f"{name}: z and feats are f32 or bf16 alike, got {z.dtype} and "

@@ -17,6 +17,7 @@ what the kernel does not take, and nothing falls back.
 from __future__ import annotations
 
 import array
+import itertools
 
 import torch
 
@@ -118,8 +119,11 @@ def launch(counter, name, idx, mask, tables, *, bag: bool, idx_b=None):
     carries pre-split quotient ids alike ``idx`` (the per-table entries,
     whose pairs take ``m = 0``).  Returns
     ``(B, T, D)``: f32, or bf16 for unprojected dense bf16 tables
-    (``ref.pool_out_dtype``).
+    (``ref.pool_out_dtype``).  Raises under grad mode when an operand
+    requires grad (``_build.refuse_grad``): the kernel has no backward.
     """
+    _build.refuse_grad(name, itertools.chain((mask,), itertools.chain.from_iterable(
+        tab.tensors() for tab in tables)))
     _require(1 <= len(tables) <= MAX_TABLES, name,
              lambda: f"{len(tables)} tables; one launch takes 1..{MAX_TABLES}")
     _require(idx.dim() == (3 if bag else 2) and idx.shape[1] == len(tables), name,
@@ -186,6 +190,7 @@ def launch_bag_pair(counter, name, idx, mask, w_a, w_b, *, m: int, op: str, idx_
     split by ``m > 0``, or pre-split with ``idx_b`` and ``m = 0``) and mask
     are read in place through their strides.  Returns ``(B, d)`` in the
     table dtype."""
+    _build.refuse_grad(name, (mask, w_a, w_b))
     _require(idx.dim() == 2 and mask.shape == idx.shape, name,
              lambda: f"ids {tuple(idx.shape)} and mask {tuple(mask.shape)} are not one (B, L)")
     if idx.dtype not in _IDS:

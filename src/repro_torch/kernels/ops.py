@@ -15,6 +15,7 @@ import torch
 
 from ..core.compositional import is_quantized_table, table_rows
 from . import ref
+from .grouped_lookup import MAX_TABLES
 from .dot_interaction import dot_interaction, dot_interaction_concat
 from .embedding_bag import qr_embedding_bag_raw
 from .qr_gather import qr_gather, qr_gather_grouped, qr_gather_quant, qr_gather_quant_grouped
@@ -139,6 +140,19 @@ def serve_bag_pool(idx, mask, w_a, w_b=None, *, op: str = "mult", proj=None,
     return pool(idx_a, mask, qa, idx_b, qb, sa, za, sb, zb, proj, op=op)
 
 
+def _chunked(lookup, idx, mask, group):
+    """``lookup`` over ``group`` in launches of at most ``MAX_TABLES``
+    tables (the kernel's cap), each on its slice of the table axis; the
+    slices' ``(B, t, D)`` results join on that axis.  Split the same way on
+    every device, so the plain versions run the same slices."""
+    if len(group) <= MAX_TABLES:
+        return lookup(idx, mask, group)
+    return torch.cat([lookup(idx[:, s:s + MAX_TABLES],
+                             None if mask is None else mask[:, s:s + MAX_TABLES],
+                             group[s:s + MAX_TABLES])
+                      for s in range(0, len(group), MAX_TABLES)], dim=1)
+
+
 def serve_bag_pool_grouped(idx, mask, tables):
     """Serving pooled lookup of every feature in one kernel launch:
     ``idx``/``mask`` ``(B, T, L)`` raw ids and weights (``mask=None``:
@@ -150,14 +164,15 @@ def serve_bag_pool_grouped(idx, mask, tables):
     or, with ``m = 0``, takes them as given (a full table).  Returns None,
     launching nothing, unless the fused kernel takes every table
     (``serve_bag_pool``'s rule) and they all pool to one dtype: the caller
-    then keeps its per-table route.
+    then keeps its per-table route.  More tables than one launch takes
+    (``MAX_TABLES``) go in several launches.
     """
     if not all(_fusable(w_a, w_b, op) for w_a, w_b, _, op, _ in tables):
         return None
     group = [_group_table(*spec) for spec in tables]
     if len({ref.pool_out_dtype(t) for t in group}) != 1:
         return None
-    return fused_serve_pool_grouped(idx, mask, group)
+    return _chunked(fused_serve_pool_grouped, idx, mask, group)
 
 
 def qr_lookup_grouped(idx, tables):
@@ -167,7 +182,8 @@ def qr_lookup_grouped(idx, tables):
     mult/add QR pair of one dtype (f32 or bf16): K1, out in that dtype.
     Any other set (a full or hash table, a projection, a mixed pair, or a
     mix of kinds or dtypes) returns None, launching nothing: the caller
-    keeps its per-table route."""
+    keeps its per-table route.  More tables than one launch takes
+    (``MAX_TABLES``) go in several launches."""
     kinds = set()
     for w_a, w_b, _, op, proj in tables:
         if w_b is None or op not in ("mult", "add") or proj is not None:
@@ -179,7 +195,8 @@ def qr_lookup_grouped(idx, tables):
         lookup = qr_gather_grouped
     else:
         return None
-    return lookup(idx, [_group_table(*spec) for spec in tables])
+    return _chunked(lambda ids, _, group: lookup(ids, group), idx, None,
+                    [_group_table(*spec) for spec in tables])
 
 
 def dlrm_interact(x, *, use_kernel: bool = True):

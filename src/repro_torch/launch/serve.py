@@ -90,6 +90,9 @@ def main(argv=None):
     mod = get_arch(args.arch)
     if getattr(mod, "FAMILY", "lm") != "rec":
         raise SystemExit(f"{args.arch}: only rec-family archs are ported")
+    if args.arch != "dlrm-criteo":
+        raise SystemExit(f"{args.arch}: RecsysEngine serves DLRM only so far (ROADMAP, "
+                         "modules to port: item 12)")
     return _serve_rec(mod, args)
 
 

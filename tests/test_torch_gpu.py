@@ -17,6 +17,7 @@ rtol 5e-3 against an f32 oracle (``tests/test_kernels.py:84-107``).
 
 import dataclasses
 import functools
+import os
 
 import numpy as np
 import pytest
@@ -35,6 +36,10 @@ from repro_torch.serve.recsys import RecsysEngine
 TOL = {"f32": 1e-5, "int8": 1e-5, "bf16": 3e-2}
 
 pytestmark = pytest.mark.gpu
+
+# cuBLAS reads this when it makes its first handle, so before any test runs:
+# the deterministic restart test needs it (and checks for it).
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 
 
 @pytest.fixture
@@ -653,3 +658,163 @@ def test_grouped_wrapper_refuses_over_the_cap_on_the_card(cuda):
         serve_path.fused_serve_pool_grouped(
             torch.zeros((2, 2, 1), dtype=torch.int32, device=cuda), None,
             [ref.GroupTable(w), ref.GroupTable(w.bfloat16())])
+
+
+# ------------------------------------------- over the cap, grad mode, training
+
+
+@pytest.mark.parametrize("one_hot", [True, False])
+def test_grouped_entries_split_more_tables_than_one_launch_takes_on_the_card(cuda, one_hot):
+    """41 QR pairs through ops' grouped entries: two launches (40 + 1
+    tables), the same values as the per-table route, f32 and int8."""
+    rng = np.random.default_rng(12)
+    n = grouped_lookup.MAX_TABLES + 1
+    sizes = [int(s) for s in rng.integers(5, 3000, size=n)]
+    idx = _edge_ids(rng, sizes, 33, 1 if one_hot else 3, cuda)
+    mask = (torch.rand(idx.shape, device=cuda) > 0.3).float()
+    for mode in ("f32", "int8"):
+        pairs = []
+        for size in sizes:
+            t = _tables(rng, -(-size // 4), 4, 16, mode, cuda)
+            if mode == "int8":
+                pairs.append(({"q": t["w_a"], "scale": t["scale_a"], "zp": t["zp_a"]},
+                              {"q": t["w_b"], "scale": t["scale_b"], "zp": t["zp_b"]}))
+            else:
+                pairs.append((t["w_a"], t["w_b"]))
+        specs = [(a, b, 0, "mult", None) for a, b in pairs]
+        counter = (qr_gather.qr_gather_quant if mode == "int8" else qr_gather.qr_gather) \
+            if one_hot else serve_path.fused_serve_pool
+        before = counter.launches
+        if one_hot:
+            got = ops.qr_lookup_grouped(idx[:, :, 0], specs)
+            want = torch.stack([ops.qr_lookup(idx[:, t, 0], a, b, use_kernel=False)
+                                for t, (a, b) in enumerate(pairs)], dim=1)
+        else:
+            got = ops.serve_bag_pool_grouped(idx, mask, specs)
+            want = torch.stack([ops.serve_bag_pool(idx[:, t], mask[:, t], a, b,
+                                                   use_kernel=False)
+                                for t, (a, b) in enumerate(pairs)], dim=1)
+        torch.cuda.synchronize()
+        assert counter.launches == before + 2
+        assert got.shape == (33, n, 16)
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+
+
+def _grad_cases(cuda):
+    """(wrapper, call) for every CUDA wrapper, each with a table, mask or
+    interaction operand that requires grad."""
+    rng = np.random.default_rng(13)
+    w = torch.randn((12, 16), device=cuda, requires_grad=True)
+    wq = torch.randn((4, 16), device=cuda)
+    t = _tables(rng, 12, 4, 16, "int8", cuda)
+    scale = t["scale_a"].clone().requires_grad_(True)
+    rem = torch.zeros((5,), dtype=torch.int32, device=cuda)
+    ids, mask = torch.zeros((5, 3), dtype=torch.int32, device=cuda), torch.ones((5, 3),
+                                                                             device=cuda)
+    z = torch.randn((5, 16), device=cuda, requires_grad=True)
+    feats = torch.randn((5, 3, 16), device=cuda)
+    quant = (t["w_a"], t["w_b"], scale, t["zp_a"], t["scale_b"], t["zp_b"])
+    return {
+        "fused_serve_pool": lambda: serve_path.fused_serve_pool(ids, mask, w, ids, wq),
+        "fused_serve_pool_grouped": lambda: serve_path.fused_serve_pool_grouped(
+            ids[:, None], mask[:, None].clone().requires_grad_(True),
+            [ref.GroupTable(w.detach())]),
+        "qr_gather": lambda: qr_gather.qr_gather(rem, rem, w, wq),
+        "qr_gather_grouped": lambda: qr_gather.qr_gather_grouped(
+            ids[:, :1], [ref.GroupTable(w, wq, m=12)]),
+        "qr_gather_quant": lambda: qr_gather.qr_gather_quant(rem, rem, *quant),
+        "qr_gather_quant_grouped": lambda: qr_gather.qr_gather_quant_grouped(
+            ids[:, :1], [ref.GroupTable(*quant, m=12)]),
+        "qr_embedding_bag": lambda: embedding_bag.qr_embedding_bag(ids, ids, mask, w, wq),
+        "qr_embedding_bag_raw": lambda: embedding_bag.qr_embedding_bag_raw(ids, mask, w, wq),
+        "dot_interaction": lambda: dot_interaction.dot_interaction(
+            torch.cat([z[:, None], feats], dim=1)),
+        "dot_interaction_concat": lambda: dot_interaction.dot_interaction_concat(z, feats),
+    }
+
+
+@pytest.mark.parametrize("wrapper", [
+    "fused_serve_pool", "fused_serve_pool_grouped", "qr_gather", "qr_gather_grouped",
+    "qr_gather_quant", "qr_gather_quant_grouped", "qr_embedding_bag", "qr_embedding_bag_raw",
+    "dot_interaction", "dot_interaction_concat"])
+def test_cuda_wrapper_raises_under_grad(cuda, wrapper):
+    """The kernels have no backward: with grad mode on and an operand that
+    requires grad, each CUDA wrapper raises instead of returning an output
+    with no graph; under torch.no_grad() the same call launches."""
+    call = _grad_cases(cuda)[wrapper]
+    with pytest.raises(RuntimeError, match="requires grad"):
+        call()
+    with torch.no_grad():
+        out = call()
+    torch.cuda.synchronize()
+    assert torch.isfinite(out.float()).all()
+
+
+def _small_train(cuda, device):
+    sizes = (100, 500, 33, 10_000)
+    cfg = dataclasses.replace(dlrm_criteo.config(reduced=True), table_sizes=sizes,
+                              bottom_mlp=(32, 16), top_mlp=(32,))
+    return cfg, dlrm_criteo.api(cfg, device=device)
+
+
+def test_training_through_the_kernels_raises_and_the_plain_path_trains(cuda):
+    """value_and_grad through use_kernel=True raises on the card (K1's
+    launch sees tables that require grad); through the plain path the card's
+    loss and gradients equal the CPU's on the same parameters and batch
+    (f32 1e-5 relative to each leaf's largest gradient)."""
+    from repro_torch import tree
+    from repro_torch.train.loop import value_and_grad
+
+    cfg, cpu_api = _small_train(cuda, "cpu")
+    params = cpu_api.init(torch.Generator().manual_seed(0))
+    batch = cpu_api.batch_fn(3, Shape("t", 1, 64, "train"))
+    on_card = tree.tree_map(lambda x: x.to(cuda), params)
+    card_batch = {k: v.to(cuda) for k, v in batch.items()}
+    kcfg = dataclasses.replace(cfg, use_kernel=True)
+    with pytest.raises(RuntimeError, match="requires grad"):
+        value_and_grad(dlrm_criteo.api(kcfg).loss_fn)(on_card, card_batch)
+    (loss, _), grads = value_and_grad(cpu_api.loss_fn)(params, batch)
+    (card_loss, _), card_grads = value_and_grad(dlrm_criteo.api(cfg).loss_fn)(on_card,
+                                                                             card_batch)
+    torch.testing.assert_close(card_loss.cpu(), loss, rtol=1e-5, atol=1e-6)
+    for g, cg in zip(tree.leaves(grads), tree.leaves(card_grads)):
+        scale = max(1.0, float(g.abs().max()))
+        torch.testing.assert_close(cg.cpu(), g, rtol=0, atol=1e-5 * scale)
+
+
+def test_restart_replays_bit_for_bit_with_deterministic_algorithms(cuda, tmp_path):
+    """A killed and resumed Trainer on the card ends with the same bits as
+    an uninterrupted run, with torch.use_deterministic_algorithms(True)
+    (the gathers' backward accumulates with atomics otherwise).  cuBLAS
+    needs CUBLAS_WORKSPACE_CONFIG set before its first call (this module
+    sets it when imported, unless the caller set another value: then the
+    test skips)."""
+    from repro_torch import tree
+    from repro_torch.train.loop import (SimulatedFailure, TrainConfig, Trainer, init_state,
+                                        make_train_step)
+
+    if os.environ.get("CUBLAS_WORKSPACE_CONFIG") not in (":4096:8", ":16:8"):
+        pytest.skip("needs CUBLAS_WORKSPACE_CONFIG=:4096:8 (or :16:8) before cuBLAS starts")
+    _, api = _small_train(cuda, cuda)
+    shape = Shape("t", 1, 64, "train")
+    kept = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True)
+    try:
+        state0 = init_state(api.init(torch.Generator(device=cuda).manual_seed(1)),
+                            api.optimizer)
+        tc = TrainConfig(num_steps=12, ckpt_every=6, ckpt_dir=str(tmp_path), log_every=3)
+        step = make_train_step(api.loss_fn, api.optimizer)
+        tr = Trainer(step, tc, batch_at=lambda s: api.batch_fn(s, shape))
+        with pytest.raises(SimulatedFailure):
+            tr.run(state0, fail_at_step=9)
+        tr.checkpointer.wait()
+        tr2 = Trainer(step, tc, batch_at=lambda s: api.batch_fn(s, shape))
+        resumed = tr2.resume_or(state0)
+        assert int(resumed["step"]) == 6 and resumed["params"]["top"][0]["w"].is_cuda
+        final_resumed, _ = tr2.run(resumed)
+        final_direct, _ = Trainer(step, TrainConfig(num_steps=12),
+                                  batch_at=lambda s: api.batch_fn(s, shape)).run(state0)
+        for a, b in zip(tree.leaves(final_resumed), tree.leaves(final_direct)):
+            assert torch.equal(a, b)
+    finally:
+        torch.use_deterministic_algorithms(kept)

@@ -29,7 +29,8 @@ from repro.kernels.serve_path import fused_serve_pool as jax_fused_serve_pool
 from repro.serve.quantize import quantize_table as jax_quantize_table
 from repro_torch.convert import params_from_jax
 from repro_torch.core import EmbeddingSpec
-from repro_torch.kernels import embedding_bag, grouped_lookup, ops, qr_gather, ref, serve_path
+from repro_torch.kernels import (dot_interaction, embedding_bag, grouped_lookup, ops, qr_gather,
+                                 ref, serve_path)
 from repro_torch.models import dlrm as tdlrm
 from repro_torch.serve.quantize import quantize_params
 
@@ -366,3 +367,75 @@ def test_launch_counts_go_to_the_per_table_counters():
     for grouped in (serve_path.fused_serve_pool_grouped, qr_gather.qr_gather_quant_grouped,
                     qr_gather.qr_gather_grouped):
         assert not hasattr(grouped, "launches")
+
+
+# ------------------------------------------------ over the cap, and grad mode
+
+
+@pytest.mark.parametrize("one_hot", [True, False])
+def test_grouped_entries_split_more_tables_than_one_launch_takes(one_hot):
+    """41 tables (one over ``MAX_TABLES``) go through ``ops``' grouped
+    entries in launches of at most 40, split the same way on every
+    device: the result equals the per-table route, f32 and int8."""
+    rng = np.random.default_rng(11)
+    n = grouped_lookup.MAX_TABLES + 1
+    sizes = rng.integers(5, 300, size=n)
+    dense = [(torch.from_numpy(rng.normal(size=(-(-int(s) // 4), 16)).astype(np.float32)),
+              torch.from_numpy(rng.normal(size=(4, 16)).astype(np.float32))) for s in sizes]
+    length = 1 if one_hot else 3
+    idx = torch.from_numpy(np.stack([rng.integers(0, s, size=(9, length)) for s in sizes],
+                                    axis=1).astype(np.int32))
+    mask = torch.from_numpy((rng.random(idx.shape) > 0.3).astype(np.float32))
+    for quant in (False, True):
+        pairs = [quantize_params({"tables": [{"table_0": a, "table_1": b}]},
+                                 mode="int8")["tables"][0] if quant else
+                 {"table_0": a, "table_1": b} for a, b in dense]
+        specs = [(p["table_0"], p["table_1"], 0, "mult", None) for p in pairs]
+        if one_hot:
+            got = ops.qr_lookup_grouped(idx[:, :, 0], specs)
+            want = torch.stack([ops.qr_lookup(idx[:, t, 0], p["table_0"], p["table_1"],
+                                              use_kernel=False) for t, p in enumerate(pairs)],
+                               dim=1)
+        else:
+            got = ops.serve_bag_pool_grouped(idx, mask, specs)
+            want = torch.stack([ops.serve_bag_pool(idx[:, t], mask[:, t], p["table_0"],
+                                                   p["table_1"], use_kernel=False)
+                                for t, p in enumerate(pairs)], dim=1)
+        assert got.shape == (9, n, 16)
+        torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+def test_launch_points_refuse_operands_that_require_grad(monkeypatch):
+    """The kernels have no backward: each launch point raises when grad
+    mode is on and an operand requires grad, before anything is built, and
+    goes on to the launch under ``torch.no_grad()``."""
+    calls = []
+
+    def no_build(name):
+        calls.append(name)
+        raise LookupError("reached the build")
+
+    monkeypatch.setattr(grouped_lookup._build, "library", no_build)
+    w = torch.randn((8, 16), requires_grad=True)
+    ids = torch.zeros((4, 2), dtype=torch.int32)
+    z, feats = torch.randn((4, 16), requires_grad=True), torch.randn((4, 3, 16))
+    launches = {
+        "grouped": lambda: grouped_lookup.launch(qr_gather.qr_gather, "grouped", ids, None,
+                                                 [ref.GroupTable(w, w.detach(), m=8)] * 2,
+                                                 bag=False),
+        "grouped mask": lambda: grouped_lookup.launch(
+            serve_path.fused_serve_pool, "grouped", ids[:, :, None],
+            torch.ones((4, 2, 1), requires_grad=True), [ref.GroupTable(w.detach())] * 2,
+            bag=True),
+        "bag pair": lambda: grouped_lookup.launch_bag_pair(
+            embedding_bag.qr_embedding_bag, "k3", ids, torch.ones((4, 2)), w.detach(), w,
+            m=8, op="mult"),
+        "interaction": lambda: dot_interaction._launch(
+            "k2", z, feats, torch.empty((4, 16 + 6)), 16),
+    }
+    for launch in launches.values():
+        with pytest.raises(RuntimeError, match="requires grad"):
+            launch()
+        with torch.no_grad(), pytest.raises(LookupError):
+            launch()
+    assert calls == ["grouped_lookup"] * 3 + ["dot_interaction"]

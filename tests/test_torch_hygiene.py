@@ -41,7 +41,10 @@ def test_port_files_import_no_jax_and_no_reference(path):
 def test_serving_stack_import_leaves_jax_out():
     code = ("import sys, repro_torch.serve.recsys, repro_torch.launch.serve, "
             "repro_torch.convert, repro_torch.configs.dlrm_criteo, repro_torch.data.criteo, "
-            "repro_torch.kernels.qr_gather, repro_torch.kernels.embedding_bag; "
+            "repro_torch.kernels.qr_gather, repro_torch.kernels.embedding_bag, "
+            "repro_torch.train.loop, repro_torch.optim.optimizers, "
+            "repro_torch.ckpt.checkpoint, repro_torch.models.dcn, "
+            "repro_torch.configs.dcn_criteo, repro_torch.data.loader; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'repro')); "
             "assert not bad, bad")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
