@@ -78,7 +78,26 @@ Phases (any failure exits non-zero, and no result line is printed):
    reference's kernel bench and on the largest Kaggle table (one K3 launch
    each), and count its device operations per call with ``torch.profiler``
    (exactly one);
-12. time each kernel, its plain version and a PyTorch yardstick with CUDA
+12. run the paper's §5 experiment (``repro_torch.benchmarks.paper_tables``)
+   on the card for ``PAPER_ROWS``: fig4's six rows (DLRM and DCN x full,
+   hash, QR mult) and QR add, concat, feature mode, threshold 2,000 and
+   the path-based table at hidden 16, each trained 400 steps at B=256 on
+   parameters and batches drawn on the CPU and copied; per row (a) the
+   losses are finite and the mean of the last 10 is below step 0's, (b)
+   the held-out scoring with the kernels equals the plain path within
+   1e-4 with 12 K2 and the row's K1 launches (``run_row`` raises
+   otherwise; DCN rows run no kernel), (c) the first 5 steps equal the
+   same steps on the machine's CPU: from each of the CPU's first 5 states,
+   on the same batch, the card's loss within rtol 1e-5 and its gradients
+   within 1e-4 of each leaf's largest |g| (the free-running trajectories,
+   card vs CPU and card vs a second card run, are printed), and (d) the
+   held-out BCE lies within the row's tolerance of
+   ``src/repro_torch/benchmarks/reference_rows.json`` (the reference's
+   rows from ``tools/paper_tables_reference.py``); then train
+   ``fig4/dlrm/qr_mult`` 400 steps on the machine's CPU and print its
+   held-out |Δ| from the card, and profile one DLRM and one DCN row's
+   step (device ms, device operations, busy share);
+13. time each kernel, its plain version and a PyTorch yardstick with CUDA
    events, compute each kernel's bound from this run's inputs, and print
    the ``kernels`` JSON line.  The grouped kernels are timed at a full
    26-table wave (K4) and batch (K1 in f32, K5) at 1 to 16 threads per
@@ -91,7 +110,7 @@ Phases (any failure exits non-zero, and no result line is printed):
    entry at the kernel bench's D=128 on int32 ids, int64 ids read in place
    and int64 ids cast first.
 
-Each of the paths in 8 to 11 runs with every launch count set to 0
+Each of the paths in 8 to 12 runs with every launch count set to 0
 just before it and read just after; launches made to compare a kernel
 with its plain version count nowhere.  Peak device memory is printed as
 the process's peak and as the peak above what the phase found allocated
@@ -151,6 +170,22 @@ TRAIN_TIMED = (5, 30)           # [train]'s timing: warm-up steps, then timed st
 # vs the CPU's GEMMs), the interaction and the index backward (atomics on
 # the card); each leaf's max |diff| within GRAD_TOL of its largest |g|
 GRAD_TOL = 1e-4
+# [paper]: rows of paper_tables trained on the card at 400 steps (fig4's six
+# and one of each other kind); each row's first PAPER_CPU_STEPS steps on the
+# machine's CPU, with the card's step from each of those states on the same
+# batch: loss within rtol PAPER_CPU_RTOL, gradients within GRAD_TOL of each
+# leaf's largest |g| (free-running trajectories split within these steps:
+# the first Adagrad / Adam step is -lr·g/(|g|+eps), so an element whose g is
+# roundoff-sized moves by up to 2·lr either way, and a loss of ~20 after it
+# turns that into 7e-5 relative by step 2 in feature mode); the row also
+# trained 400 steps on the machine's CPU; the rows profiled
+PAPER_ROWS = ("fig4/dlrm/full", "fig4/dlrm/hash", "fig4/dlrm/qr_mult", "fig4/dcn/full",
+              "fig4/dcn/hash", "fig4/dcn/qr_mult", "fig5/dlrm/add/c4", "fig5/dlrm/concat/c4",
+              "fig5/dlrm/feature/c4", "fig6/dlrm/qr_mult/thr2000", "table1/dlrm/path/h16")
+PAPER_CPU_STEPS = 5
+PAPER_CPU_RTOL = 1e-5
+PAPER_FULL_CPU = "fig4/dlrm/qr_mult"
+PAPER_PROFILED = ("fig4/dlrm/qr_mult", "fig4/dcn/qr_mult")
 
 
 def _fail(msg: str):
@@ -165,47 +200,10 @@ def _card_line() -> str:
 
 
 def _time_ms(torch, fn, iters: int) -> float:
-    """Device time of one ``fn()`` call: CUDA events around ``iters`` calls
-    queued behind a sleep kernel long enough for the host to enqueue them
-    all, so the host's launch cost stays off the device's clock.  When the
-    host could not enqueue them within the sleep — the launch queue fills
-    with calls of many kernels (plain versions, yardsticks, replaced
-    routes) — it halves ``iters`` and measures again.  A call that waits on
-    the device itself cannot be queued ahead at all: it is timed back to
-    back, host included, and said so."""
-    fn()
-    torch.cuda.synchronize()
-    t = time.perf_counter()
-    for _ in range(5):
-        fn()
-    torch.cuda.synchronize()
-    per_call_s = (time.perf_counter() - t) / 5
-    n = iters
-    while True:
-        ahead_s = max(0.1, 3 * n * per_call_s)
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        torch.cuda._sleep(int(ahead_s * 2e9))  # cycles: at most 2 GHz on an H100
-        t = time.perf_counter()
-        start.record()
-        for _ in range(n):
-            fn()
-        end.record()
-        enqueued_s = time.perf_counter() - t
-        torch.cuda.synchronize()
-        if enqueued_s <= 0.9 * ahead_s:
-            return start.elapsed_time(end) / n
-        if n == 1:
-            break
-        n //= 2
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    ms = start.elapsed_time(end) / iters
-    print(f"  (timing: one call waits on the device, so {ms:.6f} ms is back-to-back "
-          f"calls with the host's time included)")
-    return ms
+    """Device time of one ``fn()`` call (``repro_torch.benchmarks.timing``)."""
+    from repro_torch.benchmarks.timing import device_ms
+
+    return device_ms(fn, iters)
 
 
 def _print_registers(source: str, log: str) -> None:
@@ -263,13 +261,9 @@ def _zipf_ids(torch, gen, shape, size):
 def _kernels():
     """Every kernel wrapper of the port by its kernel's name; each carries
     its launch count."""
-    from repro_torch.kernels import dot_interaction, embedding_bag, qr_gather, serve_path
+    from repro_torch.kernels import launch_counters
 
-    return {"fused_serve_pool": serve_path.fused_serve_pool,
-            "dot_interaction": dot_interaction.dot_interaction,
-            "qr_gather": qr_gather.qr_gather,
-            "qr_gather_quant": qr_gather.qr_gather_quant,
-            "qr_embedding_bag": embedding_bag.qr_embedding_bag}
+    return launch_counters()
 
 
 def _zero_counts():
@@ -1170,6 +1164,156 @@ def train_full_width(torch, card):
     return counts
 
 
+def _paper_device_profile(torch, pt, spec, warm=3, steps=5):
+    """Device ms and device operations per training step of one
+    ``paper_tables`` row (``torch.profiler``, ``steps`` steps after
+    ``warm``, each step's batch drawn on the CPU and copied as the row's
+    loop does), and the top device operations."""
+    from repro_torch.train.loop import init_state, make_train_step
+
+    _, api, params = pt.setup(pt.MODULES[spec.net], **spec.kw)
+    held = {"state": init_state(pt.to_device(params, "cuda"), api.optimizer)}
+    step_fn = make_train_step(api.loss_fn, api.optimizer)
+
+    def run(lo, hi):
+        for s in range(lo, hi):
+            held["state"], _ = step_fn(held["state"], pt.to_device(api.batch_fn(s, pt.SHAPE),
+                                                                   "cuda"))
+
+    run(0, warm)
+    torch.cuda.synchronize()
+    _, dev, ops_by_name = _profile_device(lambda: run(warm, warm + steps))
+    return sum(dev.values()) / steps / 1e3, sum(ops_by_name.values()) / steps, \
+        _top_ms(dev, steps, k=6)
+
+
+def _first_steps_vs_cpu(torch, pt, mod, spec, card_losses):
+    """[paper]'s check (c): the row's first ``PAPER_CPU_STEPS`` steps on
+    the machine's CPU and, from each of those states on the same batch,
+    the card's loss (within rtol ``PAPER_CPU_RTOL`` of the CPU's) and
+    gradients (each leaf within ``GRAD_TOL`` of its largest |g|).  Also
+    measures, unchecked, how far the free-running first steps split: the
+    card's ``card_losses`` against the CPU's, and a second card run
+    against the first."""
+    from repro_torch import tree
+    from repro_torch.train.loop import init_state, make_train_step, value_and_grad
+
+    _, api, params = pt.setup(mod, **spec.kw)
+    grads_of = value_and_grad(api.loss_fn)
+    step_fn = make_train_step(api.loss_fn, api.optimizer)
+    state = init_state(params, api.optimizer)
+    cpu_losses, loss_rel, grad_rel = [], 0.0, 0.0
+    for s in range(PAPER_CPU_STEPS):
+        batch = api.batch_fn(s, pt.SHAPE)
+        (loss, _), grads = grads_of(state["params"], batch)
+        (card_loss, _), card_grads = grads_of(pt.to_device(state["params"], "cuda"),
+                                              pt.to_device(batch, "cuda"))
+        loss_rel = max(loss_rel, abs(float(card_loss) - float(loss)) / abs(float(loss)))
+        for g, cg in zip(tree.leaves(grads), tree.leaves(card_grads)):
+            scale = float(g.abs().max())
+            diff = float((cg.cpu() - g).abs().max())
+            grad_rel = max(grad_rel, diff / scale if scale else diff)
+        cpu_losses.append(float(loss))
+        state, _ = step_fn(state, batch)
+    if not (loss_rel <= PAPER_CPU_RTOL and grad_rel <= GRAD_TOL):
+        _fail(f"{spec.name}: from the CPU's first {PAPER_CPU_STEPS} states the card's loss is "
+              f"{loss_rel:.3e} relative (tol {PAPER_CPU_RTOL:.0e}) and its worst gradient leaf "
+              f"{grad_rel:.3e} of its largest |g| (tol {GRAD_TOL:.0e}) from the CPU's")
+    again = pt.train(api.loss_fn, api.optimizer, params, lambda s: api.batch_fn(s, pt.SHAPE),
+                     PAPER_CPU_STEPS, "cuda").losses
+
+    def rel(xs, ys):
+        return max(abs(x - y) / abs(y) for x, y in zip(xs, ys))
+
+    return {"loss_rel": loss_rel, "grad_rel": grad_rel, "cpu_losses": cpu_losses,
+            "free_vs_cpu_rel": rel(card_losses, cpu_losses),
+            "free_vs_card_rel": rel(again, card_losses)}
+
+
+def paper_rows(torch, card):
+    """The [paper] phase: ``PAPER_ROWS`` of ``paper_tables`` on the card at
+    the reference's 400 steps, each held to (a) a finite, falling training
+    loss, (b) kernel scoring equal to plain with the expected launches
+    (``run_row`` raises otherwise), (c) its first ``PAPER_CPU_STEPS``
+    steps equal to the CPU's (``_first_steps_vs_cpu``), and (d) its held-out BCE
+    within its tolerance of ``reference_rows.json``; then
+    ``PAPER_FULL_CPU`` trained on the CPU too, and the device profile of
+    ``PAPER_PROFILED``.  Returns the path's launch counts."""
+    from repro_torch.benchmarks import paper_tables as pt
+
+    with open(os.path.join(ROOT, "src", "repro_torch", "benchmarks", "reference_rows.json")) as f:
+        ref = json.load(f)
+    if ref["steps"] != pt.TRAIN_STEPS:
+        _fail(f"reference rows are of {ref['steps']} steps, paper_tables trains "
+              f"{pt.TRAIN_STEPS} (REPRO_BENCH_STEPS)")
+    specs = {s.name: s for s in pt.row_specs()}
+    out, expected = {}, {}
+    _zero_counts()
+    t = time.perf_counter()
+    for name in PAPER_ROWS:
+        spec = specs[name]
+        mod = pt.MODULES[spec.net]
+        r = pt.run_row(mod, device="cuda", **spec.kw)
+        losses = r.train_losses
+        tail = sum(losses[-10:]) / 10
+        if len(losses) != pt.TRAIN_STEPS or not all(math.isfinite(x) for x in losses):
+            _fail(f"{name}: training losses are not all finite")
+        if not tail < losses[0]:
+            _fail(f"{name}: the loss did not fall: last 10 {tail:.5f} vs step 0 {losses[0]:.5f}")
+        if r.kernel is not None:
+            for k, v in r.kernel["expected_launches"].items():
+                expected[k] = expected.get(k, 0) + v
+        first = _first_steps_vs_cpu(torch, pt, mod, spec, losses[:PAPER_CPU_STEPS])
+        want = ref["rows"][name]
+        gap = abs(r.loss - want["loss"])
+        if r.params != want["params"]:
+            _fail(f"{name}: {r.params} parameters, the reference {want['params']}")
+        out[name] = {"heldout_bce": r.loss, "heldout_acc": r.acc, "params": r.params,
+                     "us_per_step": r.us_per_step, "batch_share": r.batch_share,
+                     "loss_step_0": losses[0], "loss_last_10": tail,
+                     "first_steps": first, "reference_bce": want["loss"],
+                     "abs_dbce_vs_reference": gap, "tol": want["tol"], "kernel": r.kernel}
+        k = r.kernel
+        print(f"  {name}: held-out BCE {r.loss:.6f} acc {r.acc:.5f} | reference {want['loss']:.6f}"
+              f" |Δ| {gap:.6f} (tol {want['tol']:.4f}) | {r.us_per_step:.1f} us/step "
+              f"(batch draw + copy {r.batch_share:.3f}) | loss {losses[0]:.5f} -> {tail:.5f} | "
+              f"first {PAPER_CPU_STEPS} steps from the CPU's states: loss {first['loss_rel']:.2e}, "
+              f"gradients {first['grad_rel']:.2e} (free-running: vs CPU "
+              f"{first['free_vs_cpu_rel']:.2e}, vs a second card run "
+              f"{first['free_vs_card_rel']:.2e}) | "
+              + ("no kernel (DCNConfig has no use_kernel)" if k is None else
+                 f"kernels: BCE |Δ| {k['abs_dbce']:.2e}, max |Δlogit| {k['max_abs_dlogit']:.2e}, "
+                 f"launches {k['launches']}"), flush=True)
+        if not gap <= want["tol"]:
+            _fail(f"{name}: held-out BCE {r.loss:.6f} is {gap:.6f} from the reference's "
+                  f"{want['loss']:.6f} (tol {want['tol']})")
+    run_s = time.perf_counter() - t
+    counts = _read_counts()
+    _check_counts("paper", counts, expected)
+
+    spec = specs[PAPER_FULL_CPU]
+    cpu = pt.run_row(pt.MODULES[spec.net], device="cpu", **spec.kw)
+    full_cpu = {"row": PAPER_FULL_CPU, "cpu_heldout_bce": cpu.loss, "cpu_us_per_step":
+                cpu.us_per_step, "abs_dbce_card_vs_cpu": abs(cpu.loss - out[PAPER_FULL_CPU][
+                    "heldout_bce"])}
+    print(f"  {PAPER_FULL_CPU}, {pt.TRAIN_STEPS} steps on the machine's CPU: held-out BCE "
+          f"{cpu.loss:.6f}, card {out[PAPER_FULL_CPU]['heldout_bce']:.6f}, |Δ| "
+          f"{full_cpu['abs_dbce_card_vs_cpu']:.6f}")
+    profiles = {}
+    for name in PAPER_PROFILED:
+        device_ms, ops, top = _paper_device_profile(torch, pt, specs[name])
+        wall_ms = out[name]["us_per_step"] / 1e3
+        profiles[name] = {"wall_ms_per_step": wall_ms, "device_ms_per_step": device_ms,
+                          "device_ops_per_step": ops, "device_busy_share": device_ms / wall_ms,
+                          "top_device_ms_per_step": top}
+        print(f"  {name} per step: wall {wall_ms:.3f} ms, device {device_ms:.3f} ms (busy "
+              f"{device_ms / wall_ms:.3f}), {ops:.1f} device operations; top {top}")
+    print(f"  card: {card}; {len(PAPER_ROWS)} rows in {run_s:.1f} s")
+    print(json.dumps({"paper_profile": {"card": card, "steps": pt.TRAIN_STEPS, "rows": out,
+                                        "full_cpu": full_cpu, "profiles": profiles}}))
+    return counts
+
+
 def drive_bag_path(torch, shapes):
     """K3's own entry point, ``ops.qr_bag_lookup``: as the reference's
     kernel bench calls it (B=32, L=8, m=2048, q=16, D=128, every slot on)
@@ -1656,6 +1800,9 @@ def main() -> int:
     print(f"  ({time.perf_counter() - t0:.0f} s so far)")
     print("[bag] ops.qr_bag_lookup, K3's own entry point")
     counts["bag"], bag_ops = drive_bag_path(torch, shapes)
+    print(f"  ({time.perf_counter() - t0:.0f} s so far)")
+    print("[paper] paper_tables rows trained on the card, held against the CPU and the reference")
+    counts["paper"] = paper_rows(torch, card)
     print(f"  ({time.perf_counter() - t0:.0f} s so far)")
     print("[time] CUDA events")
     print(f"  card: {card}")

@@ -818,3 +818,71 @@ def test_restart_replays_bit_for_bit_with_deterministic_algorithms(cuda, tmp_pat
             assert torch.equal(a, b)
     finally:
         torch.use_deterministic_algorithms(kept)
+
+
+@pytest.mark.parametrize("kw, k1_per_batch", [(dict(embedding="qr"), 1),
+                                              (dict(embedding="qr", op="add",
+                                                    num_collisions=60), 1),
+                                              (dict(embedding="qr", threshold=200), 6)])
+def test_paper_tables_row_scores_through_the_kernels_on_the_card(cuda, kw, k1_per_batch):
+    """``paper_tables.run_row`` on the card at a few steps: finite losses,
+    kernel-route scoring equal to plain with one K2 per held-out batch and
+    one grouped K1 per batch (every table a QR pair) or one per QR pair
+    and batch (a threshold of 200 keeps 4 of the 10 tables full)."""
+    from repro_torch.benchmarks import paper_tables as pt
+
+    r = pt.run_row(dlrm_criteo, steps=3, device=cuda, **kw)
+    assert len(r.train_losses) == 3 and all(np.isfinite(r.train_losses))
+    k = r.kernel
+    assert k["launches"] == {"qr_gather": 12 * k1_per_batch, "dot_interaction": 12}
+    assert k["launches"] == pt.expected_launches(dlrm_criteo.config(reduced=True, **kw), 12)
+    assert k["abs_dbce"] <= pt.SCORE_TOL and k["max_abs_dlogit"] <= pt.SCORE_TOL
+
+
+def test_paper_tables_train_eval_on_the_card_follows_the_cpu(cuda):
+    """``_train_eval`` on the card returns the reference's tuple, and the
+    card's first steps follow the CPU's on the same CPU-drawn stream."""
+    from repro_torch.benchmarks import paper_tables as pt
+    from repro_torch.configs import dcn_criteo
+
+    loss, acc, n, us = pt._train_eval(dcn_criteo, embedding="hash", steps=3, device=cuda)
+    assert np.isfinite(loss) and 0 <= acc <= 1 and n > 0 and us > 0
+    _, api, params = pt.setup(dlrm_criteo, embedding="qr")
+
+    def batch_at(s):
+        return api.batch_fn(s, pt.SHAPE)
+
+    card = pt.train(api.loss_fn, api.optimizer, params, batch_at, 3, cuda)
+    cpu = pt.train(api.loss_fn, api.optimizer, params, batch_at, 3, "cpu")
+    np.testing.assert_allclose(card.losses, cpu.losses, rtol=1e-5)
+
+
+def test_kernel_bench_on_the_card(cuda):
+    from repro_torch.benchmarks import kernels_bench
+
+    rows = kernels_bench.rows(device=cuda)
+    assert [r[0] for r in rows] == [f"kernel/{k}/{v}" for k in ("qr_gather", "qr_bag",
+                                                               "dot_interact")
+                                    for v in ("ref_torch", "cuda")]
+    for name, us, derived in rows:
+        assert us > 0
+        if name.endswith("/cuda"):
+            assert float(derived.split("max_abs_err=")[1]) <= 1e-4
+
+
+def test_examples_run_on_the_card(cuda, tmp_path, capsys):
+    from repro_torch.examples import quickstart, train_dlrm_criteo
+
+    quickstart.main(["--device", "cpu"])
+    cpu = capsys.readouterr().out.splitlines()
+    quickstart.main(["--device", "cuda"])
+    card = capsys.readouterr().out.splitlines()
+    assert card[:3] == cpu[:3] and card[-1] == "quickstart OK"
+    assert abs(float(card[3].split("loss=")[1].split()[0])
+               - float(cpu[3].split("loss=")[1].split()[0])) <= 2e-4
+    argv = ["--device", "cuda", "--batch", "32", "--collisions", "60",
+            "--ckpt-dir", str(tmp_path)]
+    train_dlrm_criteo.main(argv + ["--steps", "3"])
+    capsys.readouterr()
+    train_dlrm_criteo.main(argv + ["--steps", "5"])
+    assert capsys.readouterr().out.splitlines()[1] == "resumed from step 3"

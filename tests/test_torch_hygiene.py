@@ -44,7 +44,10 @@ def test_serving_stack_import_leaves_jax_out():
             "repro_torch.kernels.qr_gather, repro_torch.kernels.embedding_bag, "
             "repro_torch.train.loop, repro_torch.optim.optimizers, "
             "repro_torch.ckpt.checkpoint, repro_torch.models.dcn, "
-            "repro_torch.configs.dcn_criteo, repro_torch.data.loader; "
+            "repro_torch.configs.dcn_criteo, repro_torch.data.loader, "
+            "repro_torch.benchmarks.run, repro_torch.benchmarks.paper_tables, "
+            "repro_torch.benchmarks.kernels_bench, repro_torch.examples.quickstart, "
+            "repro_torch.examples.train_dlrm_criteo; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'repro')); "
             "assert not bad, bad")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
