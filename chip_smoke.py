@@ -52,7 +52,21 @@ Phases (any failure exits non-zero, and no result line is printed):
    engine with ``use_kernel=False``; print p50/p99/QPS, peak memory and
    table bytes; profile a full wave, with its device operations and any id
    split, copy or concatenation kernels left;
-9. score 12 held-out batches of 256 (steps 10,000-10,011, the reference's
+9. serve the same requests from the hot-row cache (``DeviceHotRowCache``,
+   ``[cache]``): at full width, cache off and with the launcher's 4,096
+   rows (a wave's unique keys exceed them: admission refused, the wave
+   served in-graph through K4) and 1 << 20 rows (the working set fits: a
+   64 MiB slab), each a warm pass, a timed pass and a profiled pass of
+   1,024 requests — branch counts, hits, misses, evictions, rejections,
+   slab bytes, device ms and operations per wave, host ms per wave by
+   stage, p50/p99/QPS, and scores within 1e-4 of the cache-off kernel
+   engine (and of the plain engine on a sample); then on the reduced
+   config (77,339 canonical rows: the speculative slot-map probe) against
+   cache off, a 2-row cache (every admission refused, scores equal to
+   cache off), ``swap_plan`` from c=4 to c=2 (the residency dropped, the
+   scores after it equal a fresh engine's) and the DCN from the cache; one
+   K2 per dense stage and K4 exactly on the waves the tables served;
+10. score 12 held-out batches of 256 (steps 10,000-10,011, the reference's
    ``paper_tables`` evaluation) with the full-width one-hot DLRM-Criteo
    through ``api(cfg).batch_fn`` / ``loss_fn`` / ``predict``, once with
    f32 tables (one grouped K1 per batch, and K2) and once after int8
@@ -60,7 +74,7 @@ Phases (any failure exits non-zero, and no result line is printed):
    counts, finite logits, and logits and loss against ``use_kernel=False``;
    print BCE, accuracy, wall and device ms per batch, device operations,
    the device's busy share, table bytes and peak memory;
-10. train the full-width DLRM-Criteo (plain path, as the reference trains)
+11. train the full-width DLRM-Criteo (plain path, as the reference trains)
    with the paper's Adagrad (1e-2) at B=256 for 200 steps through
    ``Trainer``: finite losses, the mean of the last 10 below step 0's; one
    step's loss and gradients on the card against the CPU's on the same
@@ -74,11 +88,11 @@ Phases (any failure exits non-zero, and no result line is printed):
    config with ``torch.use_deterministic_algorithms(True)``, that a
    Trainer killed at step 15 and resumed from its step-10 checkpoint ends
    bit-equal to an uninterrupted run;
-11. drive K3's own entry point ``ops.qr_bag_lookup`` at the shape of the
+12. drive K3's own entry point ``ops.qr_bag_lookup`` at the shape of the
    reference's kernel bench and on the largest Kaggle table (one K3 launch
    each), and count its device operations per call with ``torch.profiler``
    (exactly one);
-12. run the paper's §5 experiment (``repro_torch.benchmarks.paper_tables``)
+13. run the paper's §5 experiment (``repro_torch.benchmarks.paper_tables``)
    on the card for ``PAPER_ROWS``: fig4's six rows (DLRM and DCN x full,
    hash, QR mult) and QR add, concat, feature mode, threshold 2,000 and
    the path-based table at hidden 16, each trained 400 steps at B=256 on
@@ -97,7 +111,7 @@ Phases (any failure exits non-zero, and no result line is printed):
    ``fig4/dlrm/qr_mult`` 400 steps on the machine's CPU and print its
    held-out |Δ| from the card, and profile one DLRM and one DCN row's
    step (device ms, device operations, busy share);
-13. time each kernel, its plain version and a PyTorch yardstick with CUDA
+14. time each kernel, its plain version and a PyTorch yardstick with CUDA
    events, compute each kernel's bound from this run's inputs, and print
    the ``kernels`` JSON line.  The grouped kernels are timed at a full
    26-table wave (K4) and batch (K1 in f32, K5) at 1 to 16 threads per
@@ -110,7 +124,7 @@ Phases (any failure exits non-zero, and no result line is printed):
    entry at the kernel bench's D=128 on int32 ids, int64 ids read in place
    and int64 ids cast first.
 
-Each of the paths in 8 to 12 runs with every launch count set to 0
+Each of the paths in 8 to 13 runs with every launch count set to 0
 just before it and read just after; launches made to compare a kernel
 with its plain version count nowhere.  Peak device memory is printed as
 the process's peak and as the peak above what the phase found allocated
@@ -790,6 +804,285 @@ def profile_waves(torch, engine, reqs):
           f"({out['cat_ops_per_wave']:.1f} concatenations), "
           f"split/copy kernels left: {out['split_or_copy_ms_per_wave'] or 'none'}")
     print(json.dumps({"wave_profile": out}))
+
+
+# [cache]: the launcher's default rows (a full wave's unique keys exceed them,
+# so admission is refused and the wave is served in-graph) and rows that
+# hold the working set (a 64 MiB f32 slab at D=16)
+CACHE_CAPACITIES = (4096, 1 << 20)
+CACHE_STAGES = ("submit", "pad", "probe", "unique_lookup", "miss_rows", "put_many_flush",
+                "slab", "embed", "dense", "gc")
+
+
+def _serve_all(engine, reqs):
+    """Every request through ``engine``; their scores in request order."""
+    import numpy as np
+
+    uids = [engine.submit(dense, bags) for dense, bags in reqs]
+    done = engine.run_until_drained()
+    return np.array([done[u].score for u in uids], dtype=np.float64)
+
+
+def _time_stages(engine, acc):
+    """Accumulate the host seconds of the engine's stages into ``acc`` while
+    it serves, and of Python's garbage collector (``gc``, inside whichever
+    stage it interrupts); returns the function that takes the timers off."""
+    import gc
+
+    started = []
+
+    def on_gc(phase, info):
+        if phase == "start":
+            started.append(time.perf_counter())
+        elif started:
+            acc["gc"] = acc.get("gc", 0.0) + time.perf_counter() - started.pop()
+    gc.callbacks.append(on_gc)
+    targets = [(engine, "submit", "submit"), (engine, "_pad_wave", "pad"),
+               (engine, "_embed_device_fast", "probe"),
+               (engine, "_embed_device", "exact"),
+               (engine, "_compute_miss_rows", "miss_rows"), (engine, "_slab_fwd", "slab"),
+               (engine, "_embed_fwd", "embed"), (engine, "_dense_fwd", "dense")]
+    if engine.cache is not None:
+        targets.append((engine.cache, "put_many", "put_many_flush"))
+    for obj, name, key in targets:
+        def timed(*args, _fn=getattr(obj, name), _key=key, **kwargs):
+            t = time.perf_counter()
+            try:
+                return _fn(*args, **kwargs)
+            finally:
+                acc[_key] = acc.get(_key, 0.0) + time.perf_counter() - t
+        setattr(obj, name, timed)
+
+    def untime():
+        gc.callbacks.remove(on_gc)
+        for obj, name, _ in targets:
+            delattr(obj, name)
+    return untime
+
+
+def _host_ms_per_wave(acc, waves):
+    """Host ms per wave by stage; ``submit`` is the requests' intake (the
+    id checks), ``probe`` the speculative slot-map
+    probe (its slab pool included), ``unique_lookup`` the exact path less
+    what it calls (its ``np.unique`` and ``lookup_many``, the slot arrays),
+    and ``embed`` the in-graph embed of a refused admission (the cache-off
+    engine's whole embed stage)."""
+    inner = sum(acc.get(k, 0.0) for k in ("miss_rows", "put_many_flush", "slab"))
+    exact = acc.get("exact", 0.0)
+    stages = dict(acc, unique_lookup=max(0.0, exact - inner - (acc.get("embed", 0.0)
+                                                                if exact else 0.0)))
+    return {k: stages.get(k, 0.0) / waves * 1e3 for k in CACHE_STAGES}
+
+
+def _cache_counts(m):
+    """Launches a cache run must show: one K2 per dense stage (a wave, plus
+    a wave whose fast probe missed and was recomputed) and one grouped K4
+    per wave the tables served (cache off, or admission refused)."""
+    paths = m.get("cache_paths")
+    if paths is None:
+        return {"fused_serve_pool": m["waves"], "dot_interaction": m["waves"]}
+    return {"fused_serve_pool": paths["ingraph"],
+            "dot_interaction": m["waves"] + paths["probe_missed"]}
+
+
+def _add_counts(total, counts):
+    for name, n in counts.items():
+        total[name] = total.get(name, 0) + n
+
+
+def _cache_lane(torch, cfg, params, reqs, cap, total, label, profile=True):
+    """One engine (``cap`` rows of device cache, or none) over ``reqs``: a
+    warm pass, then a timed pass with host stage timers, each with the
+    launch counts zeroed just before and checked just after, then a
+    profiled pass of the first 1,024 requests.  Returns the timed pass's
+    scores, metrics and the lane's numbers."""
+    from repro_torch.serve.cache import DeviceHotRowCache
+    from repro_torch.serve.recsys import RecsysEngine
+
+    cache = DeviceHotRowCache(capacity_rows=cap) if cap else None
+    engine = RecsysEngine(cfg, params, max_batch=256, batching="continuous", cache=cache)
+    _zero_counts()
+    _serve_all(engine, reqs)
+    counts = _read_counts()
+    _check_counts(f"cache {label} warm", counts, _cache_counts(engine.metrics()))
+    _add_counts(total, counts)
+    engine.reset_metrics()
+    acc = {}
+    untime = _time_stages(engine, acc)
+    torch.cuda.synchronize()
+    _zero_counts()
+    t = time.perf_counter()
+    scores = _serve_all(engine, reqs)
+    wall = time.perf_counter() - t
+    counts = _read_counts()
+    untime()
+    m = engine.metrics()
+    _check_counts(f"cache {label} timed", counts, _cache_counts(m))
+    _add_counts(total, counts)
+    out = {"capacity_rows": cap, "requests": len(reqs), "waves": m["waves"],
+           "wall_ms_per_wave": wall / m["waves"] * 1e3, "p50_ms": m["p50_ms"],
+           "p99_ms": m["p99_ms"], "qps": m["qps"], "buckets": m["buckets"],
+           "host_ms_per_wave": _host_ms_per_wave(acc, m["waves"]),
+           "paths": m.get("cache_paths"), "stats": m.get("cache"),
+           "slab_bytes": sum(s.numel() * s.element_size() for s in cache._slabs.values())
+           if cache is not None else 0}
+    if profile:
+        engine.reset_metrics()
+        _zero_counts()
+        (_, pm), dev, ops_by_name = _profile_device(
+            lambda: (_serve_all(engine, reqs[:1024]), engine.metrics()))
+        counts = _read_counts()
+        _check_counts(f"cache {label} profiled", counts, _cache_counts(pm))
+        _add_counts(total, counts)
+        out["device_ms_per_wave"] = sum(dev.values()) / pm["waves"] / 1e3
+        out["device_ops_per_wave"] = sum(ops_by_name.values()) / pm["waves"]
+        out["top_device_ms_per_wave"] = _top_ms(dev, pm["waves"], k=5)
+    return scores, m, out
+
+
+def _lane_line(name, out):
+    host = ", ".join(f"{k} {v:.3f}" for k, v in out["host_ms_per_wave"].items() if v)
+    s = out["stats"]
+    cache = "" if s is None else (
+        f" | paths {out['paths']} | hits {s['hits']} misses {s['misses']} evictions "
+        f"{s['evictions']} rejections {s['rejections']} (hit rate {s['hit_rate']:.3f}), slab "
+        f"{out['slab_bytes']} B")
+    dev = "" if "device_ms_per_wave" not in out else (
+        f", device {out['device_ms_per_wave']:.3f} ms in {out['device_ops_per_wave']:.1f} "
+        f"operations per wave")
+    print(f"  {name}: {out['waves']} waves, wall {out['wall_ms_per_wave']:.3f} ms per wave"
+          f"{dev} | p50 {out['p50_ms']:.3f} p99 {out['p99_ms']:.3f} ms qps {out['qps']:.1f}"
+          f"{cache}\n    host ms per wave: {host}")
+
+
+def _reduced_int8(torch, seed, **kw):
+    """The reduced DLRM-Criteo (kernels on) with random int8 tables."""
+    from repro_torch.configs import dlrm_criteo
+    from repro_torch.models.dlrm import dlrm_init
+    from repro_torch.serve.quantize import quantize_params
+
+    cfg = dataclasses.replace(dlrm_criteo.config(reduced=True, **kw), use_kernel=True)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    return cfg, quantize_params(dlrm_init(cfg, gen, "cuda"), mode="int8")
+
+
+def _hold_scores(name, got, want, tol=SCORE_TOL):
+    import numpy as np
+
+    diff = float(abs(got - want).max())
+    print(f"  {name}: max |score diff| {diff:.3e} (tol {tol:.0e})")
+    if not (np.isfinite(got).all() and diff <= tol):
+        _fail(f"{name}: scores disagree")
+    return diff
+
+
+def cache_paths(torch, engine, reqs, card):
+    """Serve from the hot-row cache on the card (phase 9 of the module
+    docstring); returns the phase's launch counts."""
+    import numpy as np
+
+    from repro_torch.configs import dcn_criteo
+    from repro_torch.launch.serve import request_stream
+    from repro_torch.serve.cache import DeviceHotRowCache
+    from repro_torch.serve.quantize import quantize_params
+    from repro_torch.serve.recsys import RecsysEngine
+
+    total = {name: 0 for name in _kernels()}
+    cfg, params = engine.cfg, engine.params
+    t0 = time.perf_counter()
+    lanes = {}
+    off, _, lanes["off"] = _cache_lane(torch, cfg, params, reqs, 0, total, "off")
+    _lane_line("full width, cache off", lanes["off"])
+    plain = RecsysEngine(dataclasses.replace(cfg, use_kernel=False), params, max_batch=256)
+    sample = list(range(0, len(reqs), 7))
+    plain_scores = _serve_all(plain, [reqs[k] for k in sample])
+    del plain
+    out = {"card": card, "full_width": lanes}
+    for cap in CACHE_CAPACITIES:
+        on, m, lanes[cap] = _cache_lane(torch, cfg, params, reqs, cap, total, f"{cap} rows")
+        _lane_line(f"full width, {cap} rows", lanes[cap])
+        lanes[cap]["max_abs_vs_off"] = _hold_scores(
+            f"{cap} rows vs the cache-off kernel engine", on, off)
+        lanes[cap]["max_abs_vs_plain"] = _hold_scores(
+            f"{cap} rows vs the plain cache-off engine ({len(sample)} requests)",
+            on[sample], plain_scores)
+        if cap == CACHE_CAPACITIES[0] and not m["cache_paths"]["ingraph"]:
+            _fail(f"{cap} rows: no wave was served in-graph")
+        if cap == CACHE_CAPACITIES[-1] and not (
+                m["cache"]["hit_rate"] > 0 and m["cache_paths"]["exact"] + m["cache_paths"]["fast"]):
+            _fail(f"{cap} rows: no wave was served from the slab")
+    slower = {cap: lanes[cap]["qps"] / lanes["off"]["qps"] for cap in CACHE_CAPACITIES}
+    print(f"  QPS cache on / off at full width: {slower}")
+    print(f"  ({time.perf_counter() - t0:.1f} s at full width)")
+
+    # the reduced config's 77,339 canonical rows fit the slot map: the fast path
+    rcfg, rparams = _reduced_int8(torch, 1)
+    rreqs = list(request_stream(np.random.default_rng(1), rcfg.table_sizes, rcfg.dense_dim,
+                                1024, 4))
+    roff, _, out["reduced_off"] = _cache_lane(torch, rcfg, rparams, rreqs, 0, total,
+                                              "reduced off", profile=False)
+    ron, rm, out["reduced"] = _cache_lane(torch, rcfg, rparams, rreqs, 1 << 20, total,
+                                          "reduced", profile=False)
+    _lane_line("reduced, cache off", out["reduced_off"])
+    _lane_line("reduced, 1 << 20 rows", out["reduced"])
+    _hold_scores("reduced, fast path vs cache off", ron, roff)
+    if not rm["cache_paths"]["fast"]:
+        _fail("reduced config: no wave took the fast path")
+
+    # a 2-row cache: every admission refused, every wave in-graph, the same bits
+    tiny_reqs = rreqs[:512]
+    toff = _serve_all(RecsysEngine(rcfg, rparams, max_batch=256), tiny_reqs)
+    tiny = DeviceHotRowCache(capacity_rows=2)
+    tengine = RecsysEngine(rcfg, rparams, max_batch=256, cache=tiny)
+    _zero_counts()
+    tscores = _serve_all(tengine, tiny_reqs)
+    counts = _read_counts()
+    tm = tengine.metrics()
+    _check_counts("cache 2 rows", counts, _cache_counts(tm))
+    _add_counts(total, counts)
+    print(f"  2 rows: paths {tm['cache_paths']}, rejections {tm['cache']['rejections']}")
+    _hold_scores("2 rows vs cache off", tscores, toff, tol=0.0)
+    if not tm["cache"]["rejections"] or tm["cache_paths"]["ingraph"] != tm["waves"]:
+        _fail("a 2-row cache did not refuse admission")
+
+    # swap_plan c=4 -> c=2 on the same tables
+    cfg2, params2 = _reduced_int8(torch, 2, num_collisions=2)
+    scache = DeviceHotRowCache(capacity_rows=1 << 20)
+    sengine = RecsysEngine(rcfg, rparams, max_batch=256, cache=scache)
+    _serve_all(sengine, rreqs[:512])
+    resident, version = len(scache), scache.residency_version
+    swap = sengine.swap_plan(cfg2, params2)
+    print(f"  swap_plan c=4 -> c=2: {swap} ({resident} rows resident before)")
+    if swap["invalidated_rows"] != resident or swap["residency_version"] == version:
+        _fail("swap_plan did not drop the old residency")
+    sengine.reset_metrics()
+    _zero_counts()
+    after = _serve_all(sengine, rreqs[512:])
+    counts = _read_counts()
+    _check_counts("cache after swap_plan", counts, _cache_counts(sengine.metrics()))
+    _add_counts(total, counts)
+    fresh = RecsysEngine(cfg2, params2, max_batch=256, cache=DeviceHotRowCache(1 << 20))
+    _hold_scores("after swap_plan vs a fresh engine on c=2", after,
+                 _serve_all(fresh, rreqs[512:]))
+
+    # the DCN from the cache (the DCN has no kernel route)
+    dcfg = dcn_criteo.config(reduced=True)
+    dparams = quantize_params(dcn_criteo.api(dcfg).init(
+        torch.Generator(device="cuda").manual_seed(3)), mode="int8")
+    _zero_counts()
+    doff = _serve_all(RecsysEngine(dcfg, dparams, max_batch=256), rreqs[:512])
+    dengine = RecsysEngine(dcfg, dparams, max_batch=256, cache=DeviceHotRowCache(1 << 20))
+    _serve_all(dengine, rreqs[:512])
+    don = _serve_all(dengine, rreqs[:512])
+    _check_counts("cache DCN", _read_counts(), {})
+    print(f"  DCN: paths {dengine.metrics()['cache_paths']}, hit rate "
+          f"{dengine.metrics()['cache']['hit_rate']:.3f}")
+    _hold_scores("DCN from the cache vs cache off", don, doff)
+    out["tiny"], out["swap"] = {"paths": tm["cache_paths"], "stats": tm["cache"]}, swap
+    out["qps_on_over_off"] = slower
+    print(f"  card: {card}; [cache] {time.perf_counter() - t0:.1f} s")
+    print(json.dumps({"cache_profile": out}, default=str))
+    return total
 
 
 def _score(api, params, batches):
@@ -1792,6 +2085,9 @@ def main() -> int:
     counts["serve"], engine, reqs = serve_full_width(torch)
     print("[profile] where a full wave's time goes")
     profile_waves(torch, engine, reqs[:1024])
+    print("[cache] the hot-row cache's paths at full width, on the reduced config, "
+          "after swap_plan and for the DCN")
+    counts["cache"] = cache_paths(torch, engine, reqs, card)
     del engine
     print("[eval] full-width one-hot DLRM-Criteo, 12 held-out batches of 256")
     counts.update(eval_full_width(torch))

@@ -1,0 +1,319 @@
+"""Quantized-serving benchmark of the port: {f32, bf16, int8} x {cache off,
+device cache on}.
+
+For each rec arch (the paper's DLRM + DCN, reduced Criteo configs at the
+deployment embedding dim D=64 — at D=16 the per-row scale/zp meta alone
+is 5% of the f32 bytes and the 0.27x bar is out of reach by arithmetic),
+the bench:
+
+1. trains the f32 model briefly with the port's ``Trainer`` on the
+   synthetic Criteo stream (so logits carry the planted signal and the
+   AUC proxy is meaningful);
+2. post-training-quantizes the tables (``repro_torch.serve.quantize``) and
+   reports table bytes vs f32;
+3. scores a fixed held-out batch under each mode and reports the BCE loss
+   + ranking-AUC deltas vs f32;
+4. drives ``RecsysEngine`` (DLRM with the fused serving and interaction
+   kernels on) with a Zipfian multi-hot request stream, cache off and with
+   a 4096-row ``DeviceHotRowCache``, through the reference's warm-then-
+   timed protocol, and reports p50/p99 wave latency, QPS, hit rate and
+   the branches that served the waves.
+
+Acceptance checks, the reference's with its constants (any failure ->
+``/ERROR`` row + exit 1):
+
+* int8 table bytes <= 0.27x f32;
+* every int8 table row dequantizes within its per-row bound
+  (``|dequant - w| <= scale/2``);
+* quantized BCE loss within ``LOSS_TOL`` and AUC within ``AUC_TOL`` of
+  f32 on the fixed batch;
+* cache-on rows see hit rate > 0 under the Zipfian stream;
+* p99 within ``10 x p50 + 10 ms``.
+
+The reference also gates "device cache beats cache off" and runs a
+mixed-dimension lane and an observability lane; the first is reported
+here, not gated (``cache_speedup`` per arch), and the lanes wait for the
+planner and ``obs`` (ROADMAP, modules to port: items 12-14).
+
+Artifacts: ``artifacts/bench/BENCH_serve_torch.json`` and CSV on stdout
+(``name,us_per_call,derived``).
+
+Usage::
+
+    python -m repro_torch.benchmarks.serve_bench --steps 30 [--device cpu]
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+import os
+import sys
+import time
+
+ART = "artifacts/bench"
+INT8_BYTES_BAR = 0.27
+LOSS_TOL = 0.05      # abs BCE delta vs f32 on the fixed batch
+AUC_TOL = 0.02       # abs ranking-AUC delta vs f32
+SERVE_EMB_DIM = 64
+CACHE_ROWS = 4096
+ARCHS = ("dlrm-criteo", "dcn-criteo")
+MODES = ("f32", "bf16", "int8")
+
+
+def _auc(logits, labels) -> float:
+    """Rank-based AUC (the Wilcoxon statistic) — the CTR quality proxy."""
+    import numpy as np
+    logits = np.asarray(logits, np.float64)
+    labels = np.asarray(labels) > 0.5
+    pos, neg = logits[labels], logits[~labels]
+    if not len(pos) or not len(neg):
+        return 0.5
+    ranks = np.argsort(np.argsort(np.concatenate([pos, neg]))) + 1.0
+    return (ranks[:len(pos)].sum() - len(pos) * (len(pos) + 1) / 2) \
+        / (len(pos) * len(neg))
+
+
+def _build(arch: str, device):
+    """(cfg, api, spec, params) of ``arch``'s reduced config at D=64, the
+    parameters drawn on ``device`` from seed 0."""
+    import torch
+
+    from ..configs import get_arch
+    from ..data.criteo import CriteoSpec
+
+    mod = get_arch(arch)
+    cfg = dataclasses.replace(mod.config(reduced=True), emb_dim=SERVE_EMB_DIM)
+    api = mod.api(cfg, device)
+    spec = CriteoSpec(table_sizes=cfg.table_sizes, zipf=1.5, noise=0.5)
+    params = api.init(torch.Generator(device=device).manual_seed(0))
+    return cfg, api, spec, params
+
+
+def _train(api, params, steps: int):
+    from ..configs.common import Shape
+    from ..train.loop import TrainConfig, Trainer, init_state, make_train_step
+
+    shape = Shape("serve_bench", 1, 128, "train")
+    trainer = Trainer(make_train_step(api.loss_fn, api.optimizer),
+                      TrainConfig(num_steps=steps, log_every=max(steps, 1)),
+                      batch_at=lambda step: api.batch_fn(step, shape))
+    state, _ = trainer.run(init_state(params, api.optimizer))
+    return state["params"]
+
+
+def _requests(cfg, spec, n: int, device, max_bag: int = 24, seed: int = 1234,
+              dense_step: int = 101):
+    """Deterministic Zipfian multi-hot stream with history-length bags
+    (1..``max_bag``, cycling) — **including empty bags** (every 4th
+    request drops one feature's bag entirely).  Ids are the reference's
+    numpy Zipf draws; the dense rows come from the port's stream."""
+    import numpy as np
+
+    from ..data.criteo import batch_at
+
+    f = len(cfg.table_sizes)
+    rng = np.random.default_rng(seed)
+    dense = batch_at(0, dense_step, n, spec, device)["dense"].to("cpu").numpy()
+    out = []
+    for r in range(n):
+        length = 1 + (r * 7) % max_bag
+        bags = [list(((rng.zipf(spec.zipf, size=length) - 1) % s).astype(int))
+                for s in cfg.table_sizes]
+        if r % 4 == 0:
+            bags[r % f] = []  # legal empty bag -> exact zero-vector pool
+        out.append((dense[r], bags))
+    return out
+
+
+def _run_warm_then_timed(engines, reqs, reps: int = 5):
+    """The reference's measurement protocol: two warm passes (the first
+    fills any cache, the second sees it filled), reset metrics and cache
+    counters (resident bytes kept), then ``reps`` timed passes; each engine
+    keeps its best-QPS pass.  Returns the last pass's per-request uid
+    tuples, each engine's completed map, and the per-engine best metrics."""
+    for _warm_pass in range(2):
+        for d, b in reqs:
+            for e in engines:
+                e.submit(d, b)
+        for e in engines:
+            e.run_until_drained()
+    best = [None] * len(engines)
+    for _rep in range(reps):
+        for e in engines:
+            e.reset_metrics()
+        uids = [tuple(e.submit(d, b) for e in engines) for d, b in reqs]
+        done = [e.run_until_drained() for e in engines]
+        for i, m in enumerate(e.metrics() for e in engines):
+            if best[i] is None or m["qps"] > best[i]["qps"]:
+                best[i] = m
+    return uids, done, best
+
+
+def _serve_cfg(cfg):
+    """The serving config: DLRM with the kernels on (the DCN has no kernel
+    route)."""
+    return dataclasses.replace(cfg, use_kernel=True) if hasattr(cfg, "use_kernel") else cfg
+
+
+def _engine_cell(cfg, qparams, reqs, *, cache_rows: int, max_batch: int, device):
+    from ..serve.cache import DeviceHotRowCache
+    from ..serve.recsys import RecsysEngine
+
+    cache = DeviceHotRowCache(capacity_rows=cache_rows, device=device) if cache_rows else None
+    eng = RecsysEngine(_serve_cfg(cfg), qparams, max_batch=max_batch, cache=cache,
+                       device=device)
+    _, _, (m,) = _run_warm_then_timed([eng], reqs)
+    return m
+
+
+def _row_bound(params, qparams):
+    """(every int8 row within ``scale/2`` of its f32 row, the largest
+    error as a fraction of its bound), paired by path."""
+    import torch
+
+    from ..core import is_quantized_table
+    from ..serve.quantize import dequantize_table, paths_and_leaves
+
+    ok, worst = True, 0.0
+    base = dict(paths_and_leaves(params))
+    for path, qt in paths_and_leaves(qparams):
+        if not is_quantized_table(qt):
+            continue
+        err = (dequantize_table(qt) - base[path].to(torch.float32)).abs()
+        bound = 0.5 * qt["scale"].to(torch.float32) + 1e-8
+        worst = max(worst, float((err / bound).max()))
+        ok &= bool((err <= bound).all())
+    return ok, worst
+
+
+def bench(steps: int, requests: int, max_batch: int, device="cuda") -> dict:
+    import torch
+
+    from ..data.criteo import batch_at
+    from ..serve.quantize import memory_report, quantize_params
+    from .timing import card
+
+    device = torch.device(device)
+    rows = []
+    for arch in ARCHS:
+        cfg, api, spec, params0 = _build(arch, device)
+        t0 = time.monotonic()
+        params = _train(api, params0, steps)
+        train_s = time.monotonic() - t0
+        fixed = batch_at(0, 9999, 512, spec, device)
+        with torch.inference_mode():
+            base_loss = float(api.loss_fn(params, fixed)[0])
+            base_auc = _auc(api.predict(params, fixed).to("cpu"), fixed["label"].to("cpu"))
+        reqs = _requests(cfg, spec, requests, device)
+        for mode in MODES:
+            qparams = quantize_params(params, mode=mode)
+            rep = memory_report(params, qparams)
+            with torch.inference_mode():
+                loss = float(api.loss_fn(qparams, fixed)[0])
+                auc = _auc(api.predict(qparams, fixed).to("cpu"), fixed["label"].to("cpu"))
+            row_bound_ok, max_row_err_frac = (_row_bound(params, qparams) if mode == "int8"
+                                              else (True, 0.0))
+            for cache_rows in (0, CACHE_ROWS):
+                t0 = time.monotonic()
+                m = _engine_cell(cfg, qparams, reqs, cache_rows=cache_rows,
+                                 max_batch=max_batch, device=device)
+                rows.append({
+                    "arch": arch, "mode": mode, "cache": "on" if cache_rows else "off",
+                    "batching": "continuous",
+                    "table_bytes_f32": rep["f32_table_bytes"],
+                    "table_bytes": rep["quant_table_bytes"], "bytes_ratio": rep["ratio"],
+                    "loss_f32": base_loss, "loss": loss, "auc_f32": base_auc, "auc": auc,
+                    "row_bound_ok": row_bound_ok, "max_row_err_frac": max_row_err_frac,
+                    "p50_ms": m["p50_ms"], "p99_ms": m["p99_ms"], "qps": m["qps"],
+                    "waves": m["waves"], "buckets": [list(b) for b in m["buckets"]],
+                    "hit_rate": (m.get("cache") or {}).get("hit_rate"),
+                    "cache_stats": m.get("cache"), "cache_paths": m.get("cache_paths"),
+                    "train_s": train_s, "wall_s": time.monotonic() - t0,
+                })
+    return {"requests": requests, "max_batch": max_batch, "train_steps": steps,
+            "emb_dim": SERVE_EMB_DIM, "cache_rows": CACHE_ROWS, "device": str(device),
+            "card": card() if device.type == "cuda" else None, "rows": rows,
+            "cache_speedup": cache_speedup(rows)}
+
+
+def cache_speedup(rows) -> dict:
+    """int8 cache-on QPS over cache-off QPS per arch (reported, not gated)."""
+    by = {(r["arch"], r["mode"], r["cache"]): r for r in rows}
+    return {arch: by[arch, "int8", "on"]["qps"] / by[arch, "int8", "off"]["qps"]
+            for arch, mode, cache in by if mode == "int8" and cache == "on"
+            and (arch, "int8", "off") in by and by[arch, "int8", "off"]["qps"] > 0}
+
+
+def check(report: dict) -> list[tuple[str, str]]:
+    """(name, message) per failed acceptance check; empty = all green."""
+    failures = []
+    for r in report["rows"]:
+        cell = f"{r['arch']}/{r['mode']}/cache_{r['cache']}/{r['batching']}"
+        if r["p99_ms"] > 10 * r["p50_ms"] + 10:
+            failures.append((cell, f"p99 {r['p99_ms']:.1f} ms unbounded "
+                                   f"vs p50 {r['p50_ms']:.1f} ms"))
+        if r["mode"] == "int8":
+            if r["bytes_ratio"] > INT8_BYTES_BAR:
+                failures.append((cell, f"int8 table bytes {r['bytes_ratio']:.3f}x "
+                                       f"f32 > {INT8_BYTES_BAR}"))
+            if not r["row_bound_ok"]:
+                failures.append((cell, "per-row dequant error exceeds scale/2 "
+                                       f"(max {r['max_row_err_frac']:.3f}x bound)"))
+        if r["mode"] != "f32":
+            dl = abs(r["loss"] - r["loss_f32"])
+            da = abs(r["auc"] - r["auc_f32"])
+            if dl > LOSS_TOL:
+                failures.append((cell, f"loss delta {dl:.4f} > {LOSS_TOL}"))
+            if da > AUC_TOL:
+                failures.append((cell, f"auc delta {da:.4f} > {AUC_TOL}"))
+        if r["cache"] == "on" and not (r["hit_rate"] or 0) > 0:
+            failures.append((cell, "cache enabled but hit rate is 0 under "
+                                   "the Zipfian stream"))
+    return failures
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--steps", type=int,
+                    default=int(os.environ.get("REPRO_BENCH_STEPS", 30)),
+                    help="f32 pre-training steps per arch")
+    ap.add_argument("--requests", type=int, default=192)
+    ap.add_argument("--max-batch", type=int, default=32)
+    ap.add_argument("--device", default="cuda")
+    ap.add_argument("--out", default=os.path.join(ART, "BENCH_serve_torch.json"))
+    args = ap.parse_args(argv)
+
+    print("name,us_per_call,derived")
+    try:
+        report = bench(args.steps, args.requests, args.max_batch, args.device)
+    except Exception as e:
+        print(f"serve_bench/ERROR,0,{repr(e)[:160]}")
+        return 1
+    for r in report["rows"]:
+        hr = "" if r["hit_rate"] is None else f";hit_rate={r['hit_rate']:.3f}"
+        print(f"serve/{r['arch']}/{r['mode']}/cache_{r['cache']}/{r['batching']},"
+              f"{r['p50_ms'] * 1e3:.0f},"
+              f"bytes_ratio={r['bytes_ratio']:.3f};qps={r['qps']:.1f};"
+              f"p99_ms={r['p99_ms']:.1f};dloss={abs(r['loss'] - r['loss_f32']):.4f};"
+              f"dauc={abs(r['auc'] - r['auc_f32']):.4f}{hr}")
+        sys.stdout.flush()
+    failures = check(report)
+    report["checks_failed"] = [f"{n}: {m}" for n, m in failures]
+    os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
+    with open(args.out, "w") as f:
+        json.dump(report, f, indent=1, default=float)
+    if report["card"]:
+        print(f"# card: {report['card']}")
+    print(f"# int8 cache-on / cache-off QPS: {report['cache_speedup']}")
+    for name, msg in failures:
+        print(f"serve/check/{name}/ERROR,0,{msg}")
+    if failures:
+        print(f"# {len(failures)} serve_bench check(s) failed", file=sys.stderr)
+        return 1
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

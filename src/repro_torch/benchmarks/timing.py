@@ -1,13 +1,29 @@
-"""Device time of a call on the card, with CUDA events."""
+"""Device time of a call on the card, with CUDA events, and the card's
+name and power limit to print beside it."""
 
 from __future__ import annotations
 
+import subprocess
 import sys
 import time
+from typing import Optional
 
 import torch
 
-__all__ = ["device_ms"]
+__all__ = ["device_ms", "card"]
+
+
+def card() -> Optional[str]:
+    """The card's name and power limit as ``nvidia-smi --query-gpu=name,
+    power.limit --format=csv,noheader`` prints them, or None on a machine
+    without ``nvidia-smi``."""
+    try:
+        out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                              "--format=csv,noheader"], capture_output=True, text=True,
+                             check=True, timeout=60).stdout
+    except (OSError, subprocess.SubprocessError):
+        return None
+    return out.strip().splitlines()[0]
 
 
 def device_ms(fn, iters: int) -> float:

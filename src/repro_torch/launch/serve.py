@@ -1,11 +1,14 @@
 """Serving launcher: ``python -m repro_torch.launch.serve --arch dlrm-criteo``.
 
-Boots the continuous-batching ``RecsysEngine`` for a rec-family arch over
-post-training-quantized tables (``--quantize {f32,bf16,int8}``), with the
-fused serving and interaction kernels on, feeds it a Zipfian synthetic
-request stream, and reports table bytes, p50/p99 wave latency and QPS.
-Runs on ``--device cuda`` unless told otherwise.  The model is the
-arch's reduced config, as in the reference launcher.
+Boots the continuous-batching ``RecsysEngine`` for a rec-family arch
+(``dlrm-criteo`` with the fused serving and interaction kernels on, or
+``dcn-criteo``) over post-training-quantized tables (``--quantize
+{f32,bf16,int8}``) with a hot-row cache (``--cache-rows N``, on by default
+with 4096 rows, device- or host-resident via ``--cache-impl``), feeds it a
+Zipfian synthetic request stream, and reports table bytes, p50/p99 wave
+latency, QPS and the cache's hit rate.  Runs on ``--device cuda`` unless
+told otherwise.  The model is the arch's reduced config, as in the
+reference launcher.
 """
 
 from __future__ import annotations
@@ -35,23 +38,35 @@ def request_stream(rng: np.random.Generator, sizes, dense_dim: int, n: int,
 
 
 def _serve_rec(mod, args):
-    from ..models.dlrm import dlrm_init
+    from ..serve.cache import DeviceHotRowCache, HotRowCache
     from ..serve.quantize import memory_report, quantize_params
     from ..serve.recsys import RecsysEngine
 
-    if args.cache_rows not in (None, 0) or args.cache_mb is not None \
-            or args.cache_impl is not None:
-        raise SystemExit("the hot-row cache is not ported yet (ROADMAP, modules "
-                         "to port: item 11); serve with --cache-rows 0")
     device = torch.device(args.device)
-    cfg = dataclasses.replace(mod.config(reduced=True), use_kernel=True)
-    gen = torch.Generator(device=device).manual_seed(0)
-    params = dlrm_init(cfg, gen, device)
+    cfg = mod.config(reduced=True)
+    if hasattr(cfg, "use_kernel"):           # the DCN has no kernel route
+        cfg = dataclasses.replace(cfg, use_kernel=True)
+    params = mod.api(cfg, device).init(torch.Generator(device=device).manual_seed(0))
     qparams = quantize_params(params, mode=args.quantize)
     rep = memory_report(params, qparams)
     print(f"{args.arch}: tables {rep['f32_table_bytes']} B f32 -> "
           f"{rep['quant_table_bytes']} B {args.quantize} ({rep['ratio']:.3f}x)")
-    engine = RecsysEngine(cfg, qparams, max_batch=args.batch_size,
+
+    # the cache admits combined f32 rows, 4·D bytes each.  With only
+    # --cache-mb given, rows stay unbounded so the byte budget binds; an
+    # explicit zero (rows or bytes) disables the cache
+    cache_bytes = int(args.cache_mb * 2 ** 20) if args.cache_mb is not None else None
+    if args.cache_rows == 0 or (cache_bytes is not None and cache_bytes <= 0):
+        cache = None
+    else:
+        cache_rows = (args.cache_rows if args.cache_rows is not None
+                      else (None if cache_bytes else 4096))
+        if args.cache_impl == "device":
+            cache = DeviceHotRowCache(capacity_rows=cache_rows, capacity_bytes=cache_bytes,
+                                      device=device)
+        else:
+            cache = HotRowCache(capacity_rows=cache_rows, capacity_bytes=cache_bytes)
+    engine = RecsysEngine(cfg, qparams, max_batch=args.batch_size, cache=cache,
                           batching=args.batching, device=device)
     rng = np.random.default_rng(0)
     for dense, bags in request_stream(rng, cfg.table_sizes, cfg.dense_dim,
@@ -61,6 +76,10 @@ def _serve_rec(mod, args):
     m = engine.metrics()
     print(f"{args.arch}: served {len(done)} requests in {m['waves']} waves | "
           f"p50 {m['p50_ms']:.1f} ms  p99 {m['p99_ms']:.1f} ms  qps {m['qps']:.1f}")
+    if cache is not None:
+        c = m["cache"]
+        print(f"  cache: hit_rate {c['hit_rate']:.3f} ({c['hits']}/{c['lookups']}), "
+              f"{c['bytes_cached']} B resident")
     for uid in sorted(done)[:3]:
         print(f"  req {uid}: score {done[uid].score:+.4f}")
     return done
@@ -73,11 +92,15 @@ def main(argv=None):
     ap.add_argument("--batch-size", type=int, default=4)
     ap.add_argument("--quantize", default="int8", choices=["f32", "bf16", "int8"])
     ap.add_argument("--cache-rows", type=int, default=None,
-                    help="hot-row cache rows; only 0 (no cache) is supported yet")
+                    help="hot-row cache row capacity (0 disables the cache; default "
+                         "4096, or unbounded rows when --cache-mb alone is given so "
+                         "the byte budget binds)")
     ap.add_argument("--cache-mb", type=float, default=None,
-                    help="hot-row cache byte budget; not supported yet")
-    ap.add_argument("--cache-impl", default=None, choices=["device", "host"],
-                    help="hot-row cache storage; not supported yet")
+                    help="hot-row cache byte budget (admission stops at this many "
+                         "MiB of resident f32 rows)")
+    ap.add_argument("--cache-impl", default="device", choices=["device", "host"],
+                    help="hot-row cache storage: 'device' keeps rows in slabs on the "
+                         "serving device, 'host' in a dict on the host")
     ap.add_argument("--batching", default="continuous", choices=["continuous", "waves"],
                     help="'continuous' pipelines waves (dispatch ahead while "
                          "earlier waves settle), 'waves' is the lock-step scheduler")
@@ -90,9 +113,6 @@ def main(argv=None):
     mod = get_arch(args.arch)
     if getattr(mod, "FAMILY", "lm") != "rec":
         raise SystemExit(f"{args.arch}: only rec-family archs are ported")
-    if args.arch != "dlrm-criteo":
-        raise SystemExit(f"{args.arch}: RecsysEngine serves DLRM only so far (ROADMAP, "
-                         "modules to port: item 12)")
     return _serve_rec(mod, args)
 
 

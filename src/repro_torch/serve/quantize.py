@@ -28,7 +28,8 @@ import torch
 from ..core.compositional import is_quantized_table
 
 __all__ = ["MODES", "TABLE_PATTERN", "quantize_table", "dequantize_table",
-           "quantize_params", "table_bytes", "table_shapes", "memory_report", "row_bytes"]
+           "quantize_params", "paths_and_leaves", "table_bytes", "table_shapes",
+           "memory_report", "row_bytes"]
 
 MODES = ("f32", "bf16", "int8")
 
@@ -90,6 +91,13 @@ def _walk(tree, path=""):
             yield from _walk(v, f"{path}/{i}" if path else str(i))
     else:
         yield path, tree
+
+
+def paths_and_leaves(params) -> list:
+    """(path, leaf) pairs treating quantized-table dicts as single leaves —
+    a quantized leaf keeps the path of the f32 leaf it replaced, so pairing
+    the two trees by path pairs original and quantized tables exactly."""
+    return list(_walk(params))
 
 
 def _map(tree, fn, path=""):

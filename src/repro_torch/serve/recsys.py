@@ -18,12 +18,26 @@ variable-length multi-hot id bag per categorical feature.  The engine:
   wave formation overlaps device execution (continuous mode only);
 * runs the **quantized forward** (int8/bf16 tables via ``serve.quantize``;
   the fused serving kernel and the interaction kernel when
-  ``cfg.use_kernel``) as an embed stage and a dense stage;
+  ``cfg.use_kernel``) as an embed stage and a dense stage — every path
+  (cache off, host cache, device cache) feeds its ``(B, F, D)`` features
+  to the same dense stage, so the cache cannot perturb the dense math;
+* serves hot rows from the **hot-row cache** when given: a
+  ``DeviceHotRowCache`` keeps combined dequantized rows resident in device
+  slabs, and only *miss* rows are computed from the tables.  Three
+  branches serve a wave: the speculative in-graph slot-map probe
+  (``fast``, id spaces up to ``_SLOT_MAP_ROWS_MAX`` rows), the exact
+  host-side lookup (``exact``), and, when admission is refused because
+  the wave's working set exceeds what the cache can pin, the cache-off
+  embed (``ingraph``); ``metrics()["cache_paths"]`` counts them.  A host
+  ``HotRowCache`` also works (rows pooled on the host, the compatibility
+  path);
 * tracks per-wave dispatch→ready wall time → **p50/p99 latency and QPS**
   via ``metrics()``.
 
-The hot-row cache, sharded serving, memory plans and observability are
-not ported yet; their constructor arguments raise when given.
+Deterministic given (params, request stream): no sampling, logical-clock
+cache, fixed bucket grid, sorted unique keys.  Sharded serving, memory
+plans and observability are not ported yet; their constructor arguments
+raise when given.
 """
 
 from __future__ import annotations
@@ -36,16 +50,35 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
+from ..core import CompositionalEmbedding, HashEmbedding, is_quantized_table
+from ..models.dcn import DCNConfig, dcn_forward_from_features
 from ..models.dlrm import DLRMConfig, dlrm_forward_from_features, embed_features, tables_for
+from .cache import CacheStats, DeviceHotRowCache, HotRowCache, RowRef
 
 __all__ = ["RecRequest", "RecsysEngine", "BATCHING_MODES"]
 
 BATCHING_MODES = ("continuous", "waves")
 
 # constructor arguments of features still to port -> their ROADMAP item
-_NOT_PORTED = {"cache": "11 (serve/cache.py)", "mesh": "16 (dist/)",
-               "mesh_devices": "16 (dist/)", "placement": "16 (dist/)",
-               "plan": "13 (plan/)", "obs": "14 (obs/)"}
+_NOT_PORTED = {"mesh": "16 (dist/)", "mesh_devices": "16 (dist/)",
+               "placement": "16 (dist/)", "plan": "13 (plan/)", "obs": "14 (obs/)"}
+
+_FEATURE_SHIFT = 44  # packed key: (feature << 44) | canonical row id
+# ceiling on the device slot map (int32 per cacheable row, 64 MiB):
+# configs whose total canonical id space exceeds it skip the in-graph
+# probe and use the exact host-side lookup instead
+_SLOT_MAP_ROWS_MAX = 1 << 24
+
+# the reference's per-wave stage names (its observability partitions a
+# wave's latency into these); the port has no observability yet
+STAGE_PARTITION = ("probe", "dense", "inflight", "miss_gather", "flush")
+STAGES = ("queue_wait", "pad") + STAGE_PARTITION
+
+# the programs whose input-shape signatures ``compile_count`` reports
+_PROGRAMS = ("embed", "dense", "slab", "fast")
+# the branches a device-cache wave is served by (``metrics()["cache_paths"]``);
+# ``probe_missed`` counts fast probes whose wave was recomputed exactly
+_CACHE_PATHS = ("fast", "exact", "ingraph", "probe_missed", "host")
 
 
 @dataclasses.dataclass
@@ -69,35 +102,61 @@ def _to_device(tree, device):
     return tree.to(device)
 
 
+def _same_device(a: torch.device, b: torch.device) -> bool:
+    """Whether two devices are one (``cuda`` is the current card, so it and
+    ``cuda:N`` for that card are the same)."""
+    if a.type != b.type or a.type != "cuda":
+        return a == b
+    current = torch.cuda.current_device()
+    return (current if a.index is None else a.index) == (current if b.index is None else b.index)
+
+
+def _dense_stage_for(cfg):
+    if isinstance(cfg, DLRMConfig):
+        return dlrm_forward_from_features
+    if isinstance(cfg, DCNConfig):
+        return dcn_forward_from_features
+    raise TypeError(f"no recsys serving path for config {type(cfg).__name__}")
+
+
+def _row_dtype(tp) -> torch.dtype:
+    """Dtype of the combined row ``module.apply`` yields for this table's
+    params: f32 once any side is row-quantized (dequant widens), else the
+    stored table dtype — the slab forward casts its f32 pooled bag back to
+    this, as ``bag_pool`` does."""
+    sub = tp.get("table", tp.get("table_0"))
+    return torch.float32 if is_quantized_table(sub) else sub.dtype
+
+
 class RecsysEngine:
     def __init__(self, cfg, params, *, max_batch: int = 32,
-                 cache=None, mesh=None,
+                 cache: Optional[HotRowCache] = None, mesh=None,
                  batching: str = "continuous", max_inflight: int = 2,
                  lookahead: Optional[int] = None,
                  mesh_devices: Optional[int] = None, placement=None,
                  plan=None, obs=None, device="cuda"):
         if batching not in BATCHING_MODES:
             raise ValueError(f"batching={batching!r} not in {BATCHING_MODES}")
-        given = {"cache": cache, "mesh": mesh, "mesh_devices": mesh_devices,
+        given = {"mesh": mesh, "mesh_devices": mesh_devices,
                  "placement": placement, "plan": plan, "obs": obs}
         for name, value in given.items():
             if value is not None:
                 raise NotImplementedError(
                     f"RecsysEngine({name}=...) is not ported yet "
                     f"(ROADMAP, modules to port: item {_NOT_PORTED[name]})")
-        if not isinstance(cfg, DLRMConfig):
-            raise TypeError(f"no recsys serving path for config {type(cfg).__name__}")
         if cfg.embedding.kind == "feature":
             raise NotImplementedError(
                 "feature-generation mode has no serving path (F varies)")
-        self.cfg = cfg
-        self.modules = tables_for(cfg)
         self.device = torch.device(device)
-        self.params = _to_device(params, self.device)
+        if isinstance(cache, DeviceHotRowCache) and not _same_device(cache.device, self.device):
+            raise ValueError(f"the cache's slabs live on {cache.device}, the engine serves "
+                             f"on {self.device}: build the cache on the engine's device")
+        self.cache = cache
         self.max_batch = max_batch
         self.batching = batching
         self.max_inflight = max_inflight
         self.lookahead = lookahead or 4 * max_batch
+        self._install_model(cfg, params)
         self._queue: deque[RecRequest] = deque()
         self._inflight: deque[tuple] = deque()
         self._next_uid = 0
@@ -105,19 +164,153 @@ class RecsysEngine:
         self.wave_latencies_s: list[float] = []
         self.wave_sizes: list[int] = []
         self.buckets_seen: set[tuple[int, int]] = set()
+        self.cache_paths = dict.fromkeys(_CACHE_PATHS, 0)
         self._t_first: Optional[float] = None
         self._t_last: Optional[float] = None
 
     # ------------------------------------------------------------- model
 
+    def _install_model(self, cfg, params) -> None:
+        """Bind (cfg, params) and (re)build everything derived from them:
+        the dense stage, the slab layout by width, the flat canonical-id
+        layout of the slot map, and the programs' signature sets.  Called
+        once from ``__init__`` and again by ``swap_plan``, between waves."""
+        self.cfg = cfg
+        self.modules = tables_for(cfg)
+        self.params = _to_device(params, self.device)
+        self._dense_stage = _dense_stage_for(cfg)
+
+        widths = tuple(sorted({mod.out_dim for mod in self.modules}))
+        self._widths = widths
+        self._w_index = {d: wi for wi, d in enumerate(widths)}
+        self._feat_width = tuple(mod.out_dim for mod in self.modules)
+        self._row_dtypes = tuple(_row_dtype(tp) for tp in self.params["tables"])
+        # one width, one row dtype, no projection: the slab forward pools
+        # every feature in one gather
+        self._uniform = (len(widths) == 1 and len(set(self._row_dtypes)) == 1
+                         and not self.params.get("proj"))
+
+        # flat canonical-id layout for the slot map: feature i's canonical
+        # rows occupy [offset_i, offset_i + space_i), so one int32 device
+        # tensor maps every cacheable row to its slab slot (-1 = not resident)
+        spaces = [mod.m if isinstance(mod, HashEmbedding) else size
+                  for mod, size in zip(self.modules, cfg.table_sizes)]
+        self._flat_offsets = np.concatenate([[0], np.cumsum(spaces)[:-1]]).astype(np.int64)
+        self._flat_total = int(sum(spaces))
+        self._slot_map = None
+        self._map_version = None
+        # canonicalization is part of the probe: hash features fold mod m,
+        # QR/full ids are already < their space, so the same modulus is a
+        # no-op for them
+        self._space_arr = torch.as_tensor(spaces, dtype=torch.int32,
+                                          device=self.device)[None, :, None]
+        self._off_arr = torch.as_tensor(self._flat_offsets, dtype=torch.int32,
+                                        device=self.device)[None, :, None]
+        self._signatures = {name: set() for name in _PROGRAMS}
+
+    def _seen(self, program: str, *tensors) -> None:
+        self._signatures[program].add(tuple((tuple(t.shape), t.dtype) for t in tensors))
+
     def _embed_fwd(self, idx, mask):
+        self._seen("embed", idx, mask)
         feats = embed_features(self.params["tables"], idx, self.cfg,
                                modules=self.modules, mask=mask,
                                proj=self.params.get("proj"))
         return feats if torch.is_tensor(feats) else torch.stack(feats, dim=1)
 
     def _dense_fwd(self, dense, feats):
-        return dlrm_forward_from_features(self.params, dense, feats, self.cfg)
+        self._seen("dense", dense, feats)
+        return self._dense_stage(self.params, dense, feats, self.cfg)
+
+    def _slab_pool(self, slabs, slots, mask):
+        """Gather each feature's rows from its width's slab, mask-pool them
+        in f32 and cast to the row dtype (``bag_pool``'s expression), then
+        project mixed-width features into the interaction width."""
+        m = mask.to(torch.float32)
+        if self._uniform:
+            rows = slabs[0][slots]                                   # (B, F, L, D)
+            return torch.sum(rows * m[..., None], dim=2,
+                             dtype=torch.float32).to(self._row_dtypes[0])
+        proj = self.params.get("proj") or {}
+        feats = []
+        for i, d in enumerate(self._feat_width):
+            rows = slabs[self._w_index[d]][slots[:, i, :]]           # (B, L, d)
+            pooled = torch.sum(rows * m[:, i, :, None], dim=-2,
+                               dtype=torch.float32).to(self._row_dtypes[i])
+            w = proj.get(str(i))
+            feats.append(pooled if w is None else pooled @ w)
+        return torch.stack(feats, dim=1)
+
+    def _slab_fwd(self, slabs, slots, mask):
+        self._seen("slab", *slabs, slots, mask)
+        return self._slab_pool(slabs, slots, mask)
+
+    def _fast_fwd(self, smap, idx, mask, slabs):
+        """Probe + gather + pool in one go: fold ids to flat canonical ids,
+        read their slots from the map, and count live slots not resident."""
+        self._seen("fast", smap, idx, mask, *slabs)
+        slots = smap[idx % self._space_arr + self._off_arr]
+        nmiss = torch.sum((slots < 0) & (mask > 0))
+        return self._slab_pool(slabs, slots, mask), nmiss
+
+    def swap_plan(self, cfg, params, *, warm: bool = True) -> dict:
+        """Hot-swap to a new plan's (cfg, params) without downtime.
+
+        1. **drain** — in-flight waves hold references to the old params
+           and slabs, so they settle on the old plan;
+        2. **invalidate** — every cached row is a *combined* row of the
+           old structure, so the whole residency is dropped as
+           invalidations, device slabs are released, and
+           ``residency_version`` moves so the slot map is rebuilt;
+        3. **install** — ``_install_model`` rebinds cfg/params;
+        4. **pre-warm** (``warm=True``) — one dummy wave per (batch, bag)
+           bucket this engine has served runs through the same path
+           selection as ``_dispatch``, off the wave path (it admits each
+           feature's row 0 into the cache, and no metrics see it).
+
+        The queue, uid space, metrics history and completed map survive."""
+        if cfg.embedding.kind == "feature":
+            raise NotImplementedError(
+                "feature-generation mode has no serving path (F varies)")
+        if tuple(cfg.table_sizes) != tuple(self.cfg.table_sizes):
+            raise ValueError("swap_plan keeps the feature set: table_sizes "
+                             "must match the running config")
+        while self._inflight:            # 1. drain on the old plan
+            self._reap()
+        dropped = 0
+        if self.cache is not None:       # 2. stale residency out
+            dropped = self.cache.invalidate_all()
+        self._install_model(cfg, params)  # 3. new plan in
+        if warm:                         # 4. every served bucket once
+            self._warm_buckets()
+        return {"invalidated_rows": dropped,
+                "buckets_warmed": sorted(self.buckets_seen) if warm else [],
+                "residency_version": getattr(self.cache, "residency_version", None)}
+
+    def _warm_buckets(self) -> None:
+        """One dummy wave per previously seen (batch, bag) bucket through
+        the same path selection as ``_dispatch``, outside the wave and
+        metrics bookkeeping."""
+        f = len(self.modules)
+        dense_dim = getattr(self.cfg, "dense_dim", 13)
+        for bb, lb in sorted(self.buckets_seen):
+            dense = np.zeros((bb, dense_dim), np.float32)
+            idx = np.zeros((bb, f, lb), np.int32)
+            mask = np.zeros((bb, f, lb), np.float32)
+            mask[:, :, 0] = 1.0  # one live slot: exercises the miss path
+            with torch.inference_mode():
+                if isinstance(self.cache, DeviceHotRowCache) \
+                        and not self.cache.record_events:
+                    fast = self._embed_device_fast(idx, mask)
+                    if fast is None or int(fast[1]):
+                        feats, _ = self._embed_device(idx, mask)
+                    else:
+                        feats = fast[0]
+                elif self.cache is not None:
+                    feats = self._host(self._embed_cached(idx, mask))
+                else:
+                    feats = self._embed_fwd(self._host(idx), self._host(mask))
+                self._dense_fwd(self._host(dense), feats).to("cpu")
 
     # ------------------------------------------------------------- intake
 
@@ -192,21 +385,222 @@ class RecsysEngine:
         self.buckets_seen.add((bb, lb))
         return dense, idx, mask
 
+    def _host(self, array: np.ndarray) -> torch.Tensor:
+        """A wave's host array on the engine's device (a blocking copy: the
+        arrays are made anew for every wave and never reused)."""
+        return torch.from_numpy(array).to(self.device)
+
+    # ------------------------------------------------------------- cache path
+
+    def _row_key(self, feature: int, gid: int):
+        """(table, quotient, remainder) cache key for one raw id,
+        canonicalized through the module's own bucketing so ids that share
+        an embedding row share a cache entry (hash tables fold mod m)."""
+        mod = self.modules[feature]
+        if isinstance(mod, CompositionalEmbedding) and len(mod.partitions) == 2:
+            m = mod.partitions[0].num_buckets
+            return (feature, gid // m, gid % m)
+        if isinstance(mod, HashEmbedding):
+            return (feature, 0, gid % mod.m)
+        return (feature, 0, gid)
+
+    def _canonical(self, idx: np.ndarray) -> np.ndarray:
+        """Fold raw ids (Bb, F, Lb) to canonical row ids per feature:
+        hash tables share rows mod m; QR/full ids are already 1:1 with
+        their (quotient, remainder) row, so the id itself canonicalizes."""
+        canon = np.empty(idx.shape, np.int64)
+        for i, mod in enumerate(self.modules):
+            col = idx[:, i, :].astype(np.int64)
+            canon[:, i, :] = col % mod.m if isinstance(mod, HashEmbedding) else col
+        return canon
+
+    def _compute_miss_rows(self, miss_keys: np.ndarray) -> list:
+        """Combined dequantized f32 rows for packed miss keys, one padded
+        gather per feature (``module.apply`` is elementwise per row, so
+        these rows are bit-identical to what the in-graph embed computes).
+        The rows of each width are joined into one block and handed out as
+        ``RowRef``s into it, so admission writes them with one gather."""
+        feats_of = (miss_keys >> _FEATURE_SHIFT).astype(np.int64)
+        gids = (miss_keys & ((1 << _FEATURE_SHIFT) - 1)).astype(np.int64)
+        rows_out: list = [None] * len(miss_keys)
+        parts: dict[int, list] = {}
+        for i in np.unique(feats_of).tolist():
+            sel = np.flatnonzero(feats_of == i)
+            ids = gids[sel]
+            # pad the fill-gather to a floored power of two, as the
+            # reference does: the gather shapes stay O(log) in number
+            n_pad = max(32, _next_pow2(len(ids)))
+            padded = np.concatenate([ids, np.repeat(ids[-1:], n_pad - len(ids))])
+            rows = self.modules[i].apply(self.params["tables"][i],
+                                         self._host(padded.astype(np.int32)))
+            parts.setdefault(self._feat_width[i], []).append((sel, rows.to(torch.float32)))
+        for group in parts.values():
+            block = group[0][1] if len(group) == 1 else torch.cat([r for _, r in group])
+            start = 0
+            for sel, rows in group:
+                for j, pos in enumerate(sel.tolist(), start):
+                    rows_out[pos] = RowRef(block, j)
+                start += rows.shape[0]
+        return rows_out
+
+    def _sync_slot_map(self) -> torch.Tensor:
+        """Device slot map (flat canonical id -> slab slot, -1 = miss),
+        rebuilt from the cache's residency only when it changed — at a
+        steady hit rate this is a no-op and the hit path never touches a
+        Python dict."""
+        ver = self.cache.residency_version
+        if self._slot_map is None or ver != self._map_version:
+            smap = np.full(self._flat_total, -1, np.int32)
+            keys, slots = self.cache.slot_items()
+            if len(keys):
+                feats = keys >> _FEATURE_SHIFT
+                canon = keys & ((1 << _FEATURE_SHIFT) - 1)
+                smap[self._flat_offsets[feats] + canon] = slots
+            self._slot_map = self._host(smap)
+            self._map_version = ver
+        return self._slot_map
+
+    def _embed_device_fast(self, idx: np.ndarray, mask: np.ndarray):
+        """Speculative wave via the in-graph slot-map probe: fold ids,
+        probe the map, gather/pool from the slabs — launched with no
+        per-key host work and no host<->device sync.  Returns ``(feats,
+        nmiss)`` where ``nmiss`` is a device scalar the caller checks *at
+        reap time*: nonzero means some row was not resident, the
+        speculative features are garbage, and the wave is recomputed
+        through the exact path.  Returns ``None`` when the config's id
+        space is too big to map.
+
+        Stream order makes speculation safe: every cache operation runs on
+        the current stream, so a later admission's ``index_copy_`` runs
+        after this wave's gathers, and the slabs this wave reads are the
+        slabs that were resident when it was launched.
+
+        The fast path batches accounting: per-wave hit totals land in
+        ``stats`` but per-key LFU/LRU freshness is only refreshed by the
+        exact path (miss waves and ``record_events`` runs)."""
+        if self._flat_total > _SLOT_MAP_ROWS_MAX:
+            return None
+        smap = self._sync_slot_map()
+        slabs = tuple(self.cache.slab(d) for d in self._widths)
+        return self._fast_fwd(smap, self._host(idx), self._host(mask), slabs)
+
+    def _embed_device(self, idx: np.ndarray, mask: np.ndarray):
+        """Wave features via the device-resident cache, and the branch that
+        served them (``"exact"`` or ``"ingraph"``): one packed
+        ``np.unique`` over the wave's live (feature, row) keys, slot
+        lookups host-side, miss rows computed once and admitted through a
+        batched scatter, then one slab gather→pool.
+
+        This is the *exact* path: full per-key accounting (stats, LFU/LRU
+        freshness, event log) with ``HotRowCache``'s semantics.  The whole
+        wave's keys are pinned during admission so an in-wave eviction
+        never reassigns a slot the gather is about to read; if admission
+        is refused anyway (a cache smaller than the wave's working set),
+        the wave is served by the cache-off embed — the same math, and
+        the stats already counted."""
+        cache = self.cache
+        bb, f, lb = idx.shape
+        canon = self._canonical(idx)
+        packed = canon + (np.arange(f, dtype=np.int64)[None, :, None] << _FEATURE_SHIFT)
+        live = mask > 0
+        keys_live = packed[live]
+        if keys_live.size:
+            uniq, inv, counts = np.unique(keys_live, return_inverse=True, return_counts=True)
+        else:
+            uniq = inv = counts = np.empty(0, np.int64)
+        key_list = uniq.tolist()
+        slots_u, miss_u = cache.lookup_many(key_list, counts)
+        if miss_u.any():
+            miss_keys = uniq[miss_u]
+            rows = self._compute_miss_rows(miss_keys)
+            admitted = cache.put_many(miss_keys.tolist(), rows, pinned=key_list)
+            if len(admitted) != len(miss_keys):
+                return self._embed_fwd(self._host(idx), self._host(mask)), "ingraph"
+            # the whole wave is pinned, so no hit row was evicted: only the
+            # misses need their slots
+            slots_u[miss_u] = cache.slots_for(miss_keys.tolist())
+        slots = np.zeros((bb, f, lb), np.int32)
+        if key_list:
+            slots[live] = slots_u[inv]
+        slabs = tuple(cache.slab(d) for d in self._widths)
+        return self._slab_fwd(slabs, self._host(slots), self._host(mask)), "exact"
+
+    def _embed_cached(self, idx: np.ndarray, mask: np.ndarray) -> np.ndarray:
+        """Pooled features (Bb, F, D) via the host hot-row cache.
+
+        Cached unit: the *combined* (post-op, dequantized) f32 row per
+        (table, quotient, remainder), at the table's own width; the pooled
+        bag is projected into the interaction width afterwards.  An empty
+        bag has no live slots and stays the zero vector.  Misses are
+        computed in one gather per feature over the unique missing ids and
+        admitted."""
+        bb, f, lb = idx.shape
+        d = self.cfg.emb_dim
+        proj = self.params.get("proj")
+        feats = np.zeros((bb, f, d), np.float32)
+        for i, mod in enumerate(self.modules):
+            pooled = np.zeros((bb, mod.out_dim), np.float32)
+            live = np.argwhere(mask[:, i, :] > 0)
+            gids = [int(idx[b, i, l]) for b, l in live]
+            keys = [self._row_key(i, g) for g in gids]
+            found, missing = self.cache.get_many(keys)
+            if missing:
+                miss_set = set(missing)
+                miss_gids = sorted({g for g, k in zip(gids, keys) if k in miss_set})
+                padded = miss_gids + [miss_gids[-1]] * \
+                    (max(32, _next_pow2(len(miss_gids))) - len(miss_gids))
+                rows = mod.apply(self.params["tables"][i],
+                                 self._host(np.asarray(padded, np.int32)))
+                rows = rows.to("cpu", torch.float32).numpy()
+                for g, row in zip(miss_gids, rows):
+                    found[self._row_key(i, g)] = row
+                    self.cache.put(self._row_key(i, g), row)
+            for (b, l), key in zip(live, keys):
+                pooled[b] += mask[b, i, l] * found[key]
+            w = None if proj is None else proj.get(str(i))
+            feats[:, i, :] = pooled if w is None \
+                else pooled @ w.to("cpu", torch.float32).numpy()
+        return feats
+
     # ------------------------------------------------------------- execution
 
     def _dispatch(self, wave: list[RecRequest]) -> None:
         dense, idx, mask = self._pad_wave(wave)
         t0 = time.monotonic()
-        dev = self.device
+        check = None
         with torch.inference_mode():
-            feats = self._embed_fwd(torch.from_numpy(idx).to(dev),
-                                    torch.from_numpy(mask).to(dev))
-            logits = self._dense_fwd(torch.from_numpy(dense).to(dev), feats)
+            if isinstance(self.cache, DeviceHotRowCache):
+                fast = None if self.cache.record_events else self._embed_device_fast(idx, mask)
+                if fast is not None:
+                    feats, nmiss = fast
+                    check = (dense, idx, mask, nmiss)
+                else:
+                    feats, branch = self._embed_device(idx, mask)
+                    self.cache_paths[branch] += 1
+            elif self.cache is not None:
+                feats = self._host(self._embed_cached(idx, mask))
+                self.cache_paths["host"] += 1
+            else:
+                feats = self._embed_fwd(self._host(idx), self._host(mask))
+            logits = self._dense_fwd(self._host(dense), feats)
         self._t_first = t0 if self._t_first is None else self._t_first
-        self._inflight.append((wave, logits, t0))
+        self._inflight.append((wave, logits, t0, check))
 
     def _reap(self) -> list[RecRequest]:
-        wave, logits, t0 = self._inflight.popleft()
+        wave, logits, t0, check = self._inflight.popleft()
+        if check is not None:
+            # settle the speculative probe: its miss count is ready once the
+            # wave's own launches have run
+            dense, idx, mask, nmiss = check
+            if int(nmiss):
+                with torch.inference_mode():
+                    feats, branch = self._embed_device(idx, mask)   # exact: admit+count
+                    logits = self._dense_fwd(self._host(dense), feats)
+                self.cache_paths["probe_missed"] += 1
+                self.cache_paths[branch] += 1
+            else:
+                self.cache.stats.hits += int((mask > 0).sum())
+                self.cache_paths["fast"] += 1
         logits = logits.to("cpu", torch.float32).numpy()  # waits for the device
         t1 = time.monotonic()
         self._t_last = t1
@@ -241,18 +635,33 @@ class RecsysEngine:
     # ------------------------------------------------------------- metrics
 
     def reset_metrics(self) -> None:
-        """Drop timing history (after warm-up, so p50/p99 measure steady
-        serving rather than first-launch costs)."""
+        """Drop timing history, branch counts and the cache's traffic
+        counters (after warm-up, so p50/p99 and hit rates measure steady
+        serving rather than first launches and cold fills).  Cache
+        residency (``bytes_cached``) survives: the rows are still
+        resident."""
         self.wave_latencies_s = []
         self.wave_sizes = []
         self._t_first = self._t_last = None
+        self.cache_paths = dict.fromkeys(_CACHE_PATHS, 0)
+        if self.cache is not None:
+            self.cache.stats = CacheStats(bytes_cached=self.cache.stats.bytes_cached)
+
+    def compile_count(self) -> dict:
+        """Distinct input-shape signatures each program has run since the
+        last install — the programs a per-bucket CUDA graph would capture,
+        and the count the reference's per-program jit caches hold.
+        ``swap_plan`` restarts the counts.  Returns ``{"per_program":
+        {...}, "total": n}``."""
+        per = {name: len(sigs) for name, sigs in self._signatures.items()}
+        return {"per_program": per, "total": sum(per.values())}
 
     def metrics(self) -> dict:
         lat = np.asarray(self.wave_latencies_s or [0.0])
         wall = ((self._t_last - self._t_first)
                 if self._t_first is not None and self._t_last is not None
                 else 0.0)
-        return {
+        out = {
             "requests": int(sum(self.wave_sizes)),
             "waves": len(self.wave_sizes),
             "batching": self.batching,
@@ -261,3 +670,7 @@ class RecsysEngine:
             "qps": (sum(self.wave_sizes) / wall) if wall > 0 else 0.0,
             "buckets": sorted(self.buckets_seen),
         }
+        if self.cache is not None:
+            out["cache"] = self.cache.stats.as_dict()
+            out["cache_paths"] = dict(self.cache_paths)
+        return out

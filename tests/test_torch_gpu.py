@@ -30,6 +30,7 @@ from repro_torch.kernels import (dot_interaction, embedding_bag, grouped_lookup,
                                  ref, serve_path)
 from repro_torch.launch import serve as launch_serve
 from repro_torch.models.dlrm import DLRMConfig, dlrm_forward, dlrm_init
+from repro_torch.serve.cache import DeviceHotRowCache, RowRef
 from repro_torch.serve.quantize import quantize_params, quantize_table
 from repro_torch.serve.recsys import RecsysEngine
 
@@ -197,6 +198,73 @@ def test_launcher_serves_on_card_by_default(cuda, capsys):
     done = launch_serve.main(["--requests", "16", "--batch-size", "8"])
     assert len(done) == 16 and all(np.isfinite(r.score) for r in done.values())
     assert "served 16 requests" in capsys.readouterr().out
+
+
+def test_device_cache_slab_scatter_and_read_back_on_card(cuda):
+    """Rows admitted by reference (one gather of a block) and as tensors
+    land in the card's slab, deduped last-write-wins, and read back
+    exactly; the slab is preallocated on the card."""
+    cache = DeviceHotRowCache(capacity_rows=100, device=cuda)
+    block = torch.arange(40 * 16, dtype=torch.float32, device=cuda).reshape(40, 16)
+    keys = list(range(0, 80, 2))
+    assert cache.put_many(keys, [RowRef(block, j) for j in range(40)]) == keys
+    assert cache.slab(16).device.type == "cuda" and cache.slab(16).shape == (100, 16)
+    for k, j in ((0, 0), (38, 19), (78, 39)):
+        np.testing.assert_array_equal(cache.get(k), block[j].cpu().numpy())
+    one = DeviceHotRowCache(capacity_rows=1, device=cuda)
+    one.put_many([10, 11], torch.stack([torch.full((4,), 1.0), torch.full((4,), 2.0)]))
+    np.testing.assert_array_equal(one.get(11), np.full(4, 2.0, np.float32))
+    slots, miss = cache.lookup_many(keys + [1], np.ones(41, np.int64))
+    assert (slots[:40] >= 0).all() and miss.tolist() == [False] * 40 + [True]
+
+
+def _cache_engine_scores(cfg, params, reqs, cache):
+    eng = RecsysEngine(cfg, params, max_batch=16, cache=cache)
+    uids = [eng.submit(d, b) for d, b in reqs]
+    done = eng.run_until_drained()
+    uids += [eng.submit(d, b) for d, b in reqs]           # the same again: hits
+    done = eng.run_until_drained()
+    return np.array([done[u].score for u in uids]), eng.metrics()
+
+
+@pytest.mark.parametrize("path", ["fast", "exact", "ingraph"])
+def test_engine_cache_paths_on_card_match_cache_off(cuda, path):
+    """Each cache branch on the card (the speculative probe, the exact
+    host lookup, and a refused admission served in-graph) against cache
+    off: within 1e-4 (slab pool vs K4's order), equal in-graph; one K2 per
+    dense stage and K4 only where the tables served the wave."""
+    sizes = (100, 500, 33, 10_000)
+    cfg = DLRMConfig(table_sizes=sizes, emb_dim=16, bottom_mlp=(32, 16), top_mlp=(32,),
+                     embedding=EmbeddingSpec(kind="qr", num_collisions=4), use_kernel=True)
+    params = quantize_params(dlrm_init(cfg, torch.Generator(device=cuda).manual_seed(0),
+                                       cuda))
+    reqs = list(launch_serve.request_stream(np.random.default_rng(1), sizes, 13, 48, 4))
+    reqs[5] = (reqs[5][0], [[] for _ in sizes])
+    off, _ = _cache_engine_scores(cfg, params, reqs, None)
+    cache = DeviceHotRowCache(capacity_rows=2 if path == "ingraph" else 4096,
+                              record_events=path == "exact", device=cuda)
+    k4, k2 = serve_path.fused_serve_pool.launches, dot_interaction.dot_interaction.launches
+    on, m = _cache_engine_scores(cfg, params, reqs, cache)
+    paths = m["cache_paths"]
+    assert paths[path] > 0 and (m["cache"]["hit_rate"] > 0 or path == "ingraph")
+    assert (serve_path.fused_serve_pool.launches - k4,
+            dot_interaction.dot_interaction.launches - k2) == \
+        (paths["ingraph"], m["waves"] + paths["probe_missed"])
+    assert np.isfinite(on).all()
+    if path == "ingraph":
+        np.testing.assert_array_equal(on, off)
+    else:
+        np.testing.assert_allclose(on, off, rtol=0, atol=1e-4)
+
+
+def test_engine_refuses_a_host_cache_device_on_card(cuda):
+    cfg = DLRMConfig(table_sizes=(100,), emb_dim=16, bottom_mlp=(16,), top_mlp=(16,),
+                     embedding=EmbeddingSpec(kind="qr", num_collisions=4))
+    params = dlrm_init(cfg, torch.Generator(device=cuda).manual_seed(0), cuda)
+    with pytest.raises(ValueError, match="device"):
+        RecsysEngine(cfg, params, cache=DeviceHotRowCache(8, device="cpu"))
+    cache = DeviceHotRowCache(8, device="cuda:0")         # the card "cuda" means
+    assert RecsysEngine(cfg, params, cache=cache).cache is cache
 
 
 def _launched(kernel, *args, **kw):

@@ -23,6 +23,7 @@ from repro_torch.convert import params_from_jax
 from repro_torch.core import EmbeddingSpec as TSpec
 from repro_torch.launch import serve as launch_serve
 from repro_torch.models.dlrm import DLRMConfig as TCfg
+from repro_torch.serve.cache import DeviceHotRowCache
 from repro_torch.serve.recsys import RecsysEngine
 
 SIZES = (100, 500, 33)
@@ -71,11 +72,14 @@ def test_engine_matches_reference_engine(batching):
 def test_engine_refuses_what_is_not_ported():
     _, tcfg = _cfgs()
     params = {"tables": [], "bottom": [], "top": []}
-    for kw, item in (({"cache": object()}, "11"), ({"mesh_devices": 2}, "16"),
+    for kw, item in (({"mesh_devices": 2}, "16"),
                      ({"plan": object()}, "13"), ({"obs": object()}, "14"),
                      ({"placement": object()}, "16"), ({"mesh": object()}, "16")):
         with pytest.raises(NotImplementedError, match=f"item {item}"):
             RecsysEngine(tcfg, params, device="cpu", **kw)
+    # the cache is ported; one whose slabs live on another device is refused
+    with pytest.raises(ValueError, match="device"):
+        RecsysEngine(tcfg, params, device="cpu", cache=DeviceHotRowCache(8, device="meta"))
     with pytest.raises(NotImplementedError, match="feature"):
         RecsysEngine(TCfg(table_sizes=SIZES, embedding=TSpec(kind="feature")), params,
                      device="cpu")
@@ -116,12 +120,20 @@ def test_launcher_main_cpu(capsys):
     assert len(done) == 10 and all(np.isfinite(r.score) for r in done.values())
     out = capsys.readouterr().out
     assert "dlrm-criteo: served 10 requests" in out and "int8" in out
+    assert "cache: hit_rate" in out                 # the device cache is on by default
     done = launch_serve.main(["--device", "cpu", "--requests", "5", "--quantize", "bf16",
                               "--batching", "waves", "--cache-rows", "0"])
-    assert len(done) == 5
-    for flags in (["--cache-rows", "8"], ["--cache-mb", "1"], ["--cache-impl", "device"]):
-        with pytest.raises(SystemExit):
-            launch_serve.main(["--device", "cpu", "--requests", "1", *flags])
+    assert len(done) == 5 and "cache:" not in capsys.readouterr().out
+    for flags, resident in ((["--cache-rows", "8"], 8 * 16 * 4),
+                            (["--cache-mb", "1"], None), (["--cache-impl", "host"], None),
+                            (["--arch", "dcn-criteo"], None)):
+        done = launch_serve.main(["--device", "cpu", "--requests", "6", *flags])
+        assert len(done) == 6 and all(np.isfinite(r.score) for r in done.values())
+        out = capsys.readouterr().out
+        assert "cache: hit_rate" in out, flags
+        if resident is not None:
+            assert f", {resident} B resident" in out
+    assert "dcn-criteo: served 6 requests" in out
 
 
 def test_request_stream_matches_reference_launcher_draws():
