@@ -92,7 +92,26 @@ Phases (any failure exits non-zero, and no result line is printed):
    reference's kernel bench and on the largest Kaggle table (one K3 launch
    each), and count its device operations per call with ``torch.profiler``
    (exactly one);
-13. run the paper's §5 experiment (``repro_torch.benchmarks.paper_tables``)
+13. ``[plan]``: solve the full-width DLRM-Criteo's memory plan with the
+   port's planner (stats from 24 CPU-drawn batches of 512, a budget of
+   0.125 x the full f32 tables, widths {4, 8, 16}) and hold every field to
+   the JAX package's plan on the same stats
+   (``src/repro_torch/benchmarks/reference_plans.json``, from
+   ``tools/plan_reference.py``); build the planned model on the card (22
+   full tables and 4 QR pairs, 18 projections) and hold each table's bytes
+   to the plan's, f32 and int8; hold grouped K4 at the planned wave (int8
+   rows of 4, 8 and 16 bytes, projections in shared memory) against its
+   plain version and 26 per-table launches; serve the 2,048 requests int8
+   through ``RecsysEngine`` (one grouped K4 and one K2 per wave, scores
+   within 1e-4 of the plain engine), then from a 1 << 20-row device cache
+   (a slab per width, the per-feature slab branch; scores within 1e-4 of
+   cache off); score the 12 held-out batches one-hot in f32 and int8 (one
+   K1 or K5 per QR pair and one K2 per batch, against ``use_kernel=False``);
+   train it 100 Adagrad steps through ``Trainer`` (the loss falls) and hold
+   one step's gradients, projections included, to the CPU's; and swap the
+   live uniform c=4 engine of 8 onto the planned model with ``swap_plan``
+   (its scores equal a fresh engine's);
+14. run the paper's §5 experiment (``repro_torch.benchmarks.paper_tables``)
    on the card for ``PAPER_ROWS``: fig4's six rows (DLRM and DCN x full,
    hash, QR mult) and QR add, concat, feature mode, threshold 2,000 and
    the path-based table at hidden 16, each trained 400 steps at B=256 on
@@ -111,7 +130,7 @@ Phases (any failure exits non-zero, and no result line is printed):
    ``fig4/dlrm/qr_mult`` 400 steps on the machine's CPU and print its
    held-out |Δ| from the card, and profile one DLRM and one DCN row's
    step (device ms, device operations, busy share);
-14. time each kernel, its plain version and a PyTorch yardstick with CUDA
+15. time each kernel, its plain version and a PyTorch yardstick with CUDA
    events, compute each kernel's bound from this run's inputs, and print
    the ``kernels`` JSON line.  The grouped kernels are timed at a full
    26-table wave (K4) and batch (K1 in f32, K5) at 1 to 16 threads per
@@ -122,9 +141,9 @@ Phases (any failure exits non-zero, and no result line is printed):
    plain version and the two-``F.embedding_bag`` yardstick, with its
    sweep of threads per bag for wide rows (8, 16, 32); and K1's per-table
    entry at the kernel bench's D=128 on int32 ids, int64 ids read in place
-   and int64 ids cast first.
+   and int64 ids cast first; and grouped K4 at the planned wave of 13.
 
-Each of the paths in 8 to 13 runs with every launch count set to 0
+Each of the paths in 8 to 14 runs with every launch count set to 0
 just before it and read just after; launches made to compare a kernel
 with its plain version count nowhere.  Peak device memory is printed as
 the process's peak and as the peak above what the phase found allocated
@@ -724,10 +743,12 @@ def _profile_device(run):
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        # a marker kernel first: the trace can miss the window's first launch
+        # marker kernels first and last: the trace can miss the window's
+        # first launch, and after large windows its last one
         torch.cuda._sleep(1000)
         torch.cuda.synchronize()
         out = run()
+        torch.cuda._sleep(1000)
         torch.cuda.synchronize()   # the last launch ends inside the window
     # device-side events only (kernels, copies): a CPU op's device time
     # would count its kernels twice
@@ -1457,6 +1478,278 @@ def train_full_width(torch, card):
     return counts
 
 
+# [plan]: full-width DLRM-Criteo solved under a byte budget over the width
+# ladder {4, 8, 16}, as tools/plan_reference.py solved it with the JAX
+# package (src/repro_torch/benchmarks/reference_plans.json)
+PLAN_REFERENCE = os.path.join(ROOT, "src", "repro_torch", "benchmarks", "reference_plans.json")
+PLAN_CACHE_ROWS = 1 << 20
+PLAN_TRAIN_STEPS = 100
+
+
+def _tree_bytes(tree) -> int:
+    from repro_torch import tree as ptree
+
+    return sum(x.numel() * x.element_size() for x in ptree.leaves(tree))
+
+
+def _solve_plan(torch):
+    """Solve the full-width plan with the port (stats drawn on the CPU) and
+    hold it to the JAX package's on the same stats: every field equal,
+    qualities within 1e-12."""
+    from repro_torch.configs import dlrm_criteo
+    from repro_torch.plan import (MemoryPlan, dim_ladder, full_table_bytes, plan_for_config,
+                                  plan_differences)
+
+    with open(PLAN_REFERENCE) as f:
+        ref = json.load(f)["full_width"]
+    cfg = dlrm_criteo.config(reduced=False)
+    budget = int(full_table_bytes(cfg.table_sizes, cfg.emb_dim) * ref["budget_frac"])
+    t = time.perf_counter()
+    plan = plan_for_config(cfg, budget, num_batches=ref["num_batches"],
+                           batch_size=ref["batch_size"], dims=dim_ladder(cfg.emb_dim))
+    solve_s = time.perf_counter() - t
+    s = plan.summary()
+    print(f"  solved in {solve_s:.2f} s (stats from {ref['num_batches']} CPU-drawn batches of "
+          f"{ref['batch_size']}): kinds {s['kinds']}, widths {s['dims']}, {plan.total_bytes} B "
+          f"f32 of a {budget} B budget ({s['budget_frac_of_full']:.4f}x full), quality "
+          f"{plan.quality:.10f} vs uniform hashing {plan.baseline_quality:.10f}, parked "
+          f"{s['parked']}")
+    diffs = plan_differences(plan, MemoryPlan.from_json(json.dumps(ref["plan"])), 1e-12)
+    if budget != ref["budget_bytes"] or diffs:
+        _fail(f"the plan differs from the JAX package's on the same stats: {diffs[:5]}")
+    print(f"  every field equals the JAX package's plan ({PLAN_REFERENCE[len(ROOT) + 1:]}), "
+          "qualities within 1e-12")
+    return plan, solve_s
+
+
+def _plan_bytes(torch, plan, params, qparams):
+    """Each table's built bytes against the plan, f32 and int8, and the
+    uniform c=4 model's beside them."""
+    from repro_torch.configs import dlrm_criteo
+    from repro_torch.models.dlrm import tables_for
+    from repro_torch.plan.candidates import module_tables
+    from repro_torch.serve.quantize import row_bytes
+
+    for i, t in enumerate(plan.tables):
+        f32, int8 = _tree_bytes(params["tables"][i]), _tree_bytes(qparams["tables"][i])
+        if (f32, int8) != (t.train_bytes, t.serve_bytes_int8):
+            _fail(f"table {i} ({t.kind}, d={t.dim}): built {f32} B f32 / {int8} B int8, "
+                  f"planned {t.train_bytes} / {t.serve_bytes_int8}")
+    narrow = {str(i) for i, t in enumerate(plan.tables) if t.dim != plan.emb_dim}
+    proj = params.get("proj", {})
+    if set(proj) != narrow or any(tuple(proj[k].shape) != (plan.tables[int(k)].dim, plan.emb_dim)
+                                  for k in proj):
+        _fail("the planned model's projections do not match its narrow tables")
+    uniform = tables_for(dlrm_criteo.config(reduced=False))
+    u_f32 = sum(m.num_params * 4 for m in uniform)
+    u_int8 = sum(r * row_bytes(w, "int8") for m in uniform for r, w in module_tables(m))
+    out = {"planned_f32": sum(t.train_bytes for t in plan.tables),
+           "planned_int8": sum(t.serve_bytes_int8 for t in plan.tables),
+           "uniform_c4_f32": u_f32, "uniform_c4_int8": u_int8,
+           "projections": len(proj), "projection_bytes": _tree_bytes(proj)}
+    print(f"  built bytes equal the plan per table: {out['planned_f32']} B f32, "
+          f"{out['planned_int8']} B int8 (uniform c=4: {u_f32} B f32, {u_int8} B int8); "
+          f"{len(proj)} projections, {out['projection_bytes']} B f32")
+    return out
+
+
+def _plan_serve(torch, cfg, qparams, reqs, total):
+    """Serve ``reqs`` through the planned model, kernels on: one grouped K4
+    (18 projections, int8 rows of 4, 8 and 16 bytes) and one K2 per wave,
+    scores within SCORE_TOL of the plain engine; then from a device cache
+    of PLAN_CACHE_ROWS rows (a slab per width, the per-feature slab
+    branch), scores within SCORE_TOL of cache off.  Returns the numbers."""
+    from repro_torch.serve.cache import DeviceHotRowCache
+    from repro_torch.serve.recsys import RecsysEngine
+
+    engine = RecsysEngine(cfg, qparams, max_batch=256, batching="continuous")
+    _serve_all(engine, reqs)                              # warm pass, outside the counts
+    engine.reset_metrics()
+    torch.cuda.synchronize()
+    _zero_counts()
+    t = time.perf_counter()
+    off = _serve_all(engine, reqs)
+    wall = time.perf_counter() - t
+    counts = _read_counts()
+    m = engine.metrics()
+    _check_counts("plan serve", counts, {"fused_serve_pool": m["waves"],
+                                         "dot_interaction": m["waves"]})
+    _add_counts(total, counts)
+    (_, pm), dev, ops_by_name = _profile_device(
+        lambda: (engine.reset_metrics(), _serve_all(engine, reqs[:1024]), engine.metrics())[1:])
+    out = {"requests": len(reqs), "waves": m["waves"], "wall_ms_per_wave": wall / m["waves"] * 1e3,
+           "p50_ms": m["p50_ms"], "p99_ms": m["p99_ms"], "qps": m["qps"],
+           "device_ms_per_wave": sum(dev.values()) / pm["waves"] / 1e3,
+           "device_ops_per_wave": sum(ops_by_name.values()) / pm["waves"],
+           "top_device_ms_per_wave": _top_ms(dev, pm["waves"], k=5)}
+    out["device_busy_share"] = out["device_ms_per_wave"] / out["wall_ms_per_wave"]
+    print(f"  cache off: {m['waves']} waves, wall {out['wall_ms_per_wave']:.3f} ms per wave, "
+          f"device {out['device_ms_per_wave']:.3f} ms in {out['device_ops_per_wave']:.1f} "
+          f"operations (busy {out['device_busy_share']:.3f}) | p50 {m['p50_ms']:.3f} p99 "
+          f"{m['p99_ms']:.3f} ms qps {m['qps']:.1f}")
+    plain = RecsysEngine(dataclasses.replace(cfg, use_kernel=False), qparams, max_batch=256)
+    out["max_abs_vs_plain"] = _hold_scores("planned, kernels vs the plain engine",
+                                           off, _serve_all(plain, reqs))
+    del plain
+
+    cache = DeviceHotRowCache(capacity_rows=PLAN_CACHE_ROWS)
+    cengine = RecsysEngine(cfg, qparams, max_batch=256, batching="continuous", cache=cache)
+    if cengine._uniform:
+        _fail("the planned engine takes the one-gather slab branch, not the per-feature one")
+    _serve_all(cengine, reqs)                             # warm pass: fills the cache
+    cengine.reset_metrics()
+    _zero_counts()
+    t = time.perf_counter()
+    on = _serve_all(cengine, reqs)
+    cwall = time.perf_counter() - t
+    counts = _read_counts()
+    cm = cengine.metrics()
+    _check_counts("plan cache", counts, _cache_counts(cm))
+    _add_counts(total, counts)
+    widths = sorted(cache._slabs)
+    slab_bytes = {d: s.numel() * s.element_size() for d, s in cache._slabs.items()}
+    out["cache"] = {"capacity_rows": PLAN_CACHE_ROWS, "waves": cm["waves"],
+                    "wall_ms_per_wave": cwall / cm["waves"] * 1e3, "p50_ms": cm["p50_ms"],
+                    "p99_ms": cm["p99_ms"], "qps": cm["qps"], "paths": cm["cache_paths"],
+                    "stats": cm["cache"], "slab_widths": widths, "slab_bytes": slab_bytes}
+    print(f"  {PLAN_CACHE_ROWS} rows: {cm['waves']} waves, wall "
+          f"{out['cache']['wall_ms_per_wave']:.3f} ms per wave | p50 {cm['p50_ms']:.3f} p99 "
+          f"{cm['p99_ms']:.3f} ms qps {cm['qps']:.1f} | paths {cm['cache_paths']} | hit rate "
+          f"{cm['cache']['hit_rate']:.3f} | slabs by width {slab_bytes}")
+    if widths != sorted(set(cfg.embedding.table_dims)):
+        _fail(f"the cache holds slabs of widths {widths}, the plan's are "
+              f"{sorted(set(cfg.embedding.table_dims))}")
+    if not cm["cache_paths"]["exact"] + cm["cache_paths"]["fast"]:
+        _fail("no planned wave was served from the slabs")
+    out["cache"]["max_abs_vs_off"] = _hold_scores("planned, cache on vs cache off", on, off)
+    return out
+
+
+def _plan_wave(torch, cfg, qparams, reqs):
+    """Grouped K4 at the planned model's wave: the 26 tables as the embed
+    stage hands them to the kernel (int8 rows of 4, 8 and 16 bytes, 18
+    projections to D=16) and a padded wave of 256 requests, held against
+    its plain version and against 26 per-table launches of the same kernel
+    (bit-equal).  Returns (max |err|, the wave's inputs for [time])."""
+    import numpy as np
+
+    from repro_torch.core import CompositionalEmbedding, HashEmbedding
+    from repro_torch.kernels import ops, ref, serve_path
+    from repro_torch.models.dlrm import tables_for
+    from repro_torch.serve.recsys import RecRequest, RecsysEngine
+
+    proj = qparams.get("proj", {})
+    group = []
+    for i, (mod, tp) in enumerate(zip(tables_for(cfg), qparams["tables"])):
+        if isinstance(mod, CompositionalEmbedding):
+            if len(mod.partitions) != 2:
+                _fail(f"planned table {i} has {len(mod.partitions)} partitions: the grouped "
+                      "K4 takes full and hash tables and QR pairs")
+            group.append(ops._group_table(tp["table_0"], tp["table_1"], 0, mod.op,
+                                          proj.get(str(i))))
+        else:
+            m = mod.m if isinstance(mod, HashEmbedding) else 0
+            group.append(ops._group_table(tp["table"], None, m, "mult", proj.get(str(i))))
+    wave = [RecRequest(k, np.asarray(d, np.float32), [list(b) for b in bags])
+            for k, (d, bags) in enumerate(reqs[:B])]
+    _, idx, mask = RecsysEngine(cfg, qparams, max_batch=B)._pad_wave(wave)
+    idx, mask = torch.from_numpy(idx).to("cuda"), torch.from_numpy(mask).to("cuda")
+    got = serve_path.fused_serve_pool_grouped(idx, mask, group)
+    err = _max_err(torch, got, ref.fused_serve_pool_grouped(idx, mask, group))
+    for t, tab in enumerate(group):
+        ia, ib = ref._split_ids(idx[:, t], tab)
+        one = serve_path.fused_serve_pool(ia, mask[:, t], tab.w_a, ib, tab.w_b, tab.scale_a,
+                                          tab.zp_a, tab.scale_b, tab.zp_b, tab.proj, op=tab.op)
+        if not torch.equal(one, got[:, t]):
+            _fail(f"planned wave: grouped K4 differs from the per-table launch on table {t}")
+    widths = sorted({tab.w_a.shape[1] for tab in group})
+    print(f"  grouped K4 at the planned wave (B={B}, L={idx.shape[2]}, int8 rows of widths "
+          f"{widths}, {sum(tab.proj is not None for tab in group)} projections): max |err| vs "
+          f"plain {err:.3e} (tol {TOL['f32']:.0e}), bit-equal to {len(group)} per-table launches")
+    if not err <= TOL["f32"]:
+        _fail("grouped K4 at the planned wave disagrees with its plain version")
+    return err, (idx, mask, group)
+
+
+def plan_full_width(torch, engine, reqs, card):
+    """The [plan] phase: solve, build, serve (kernels, then the cache),
+    score one-hot, train and swap a live uniform engine onto the planned
+    model; returns the phase's launch counts, and grouped K4's error and
+    inputs at the planned wave."""
+    from repro_torch.configs import dlrm_criteo
+    from repro_torch.configs.common import Shape
+    from repro_torch.models.dlrm import dlrm_init
+    from repro_torch.serve.quantize import quantize_params, table_bytes
+    from repro_torch.serve.recsys import RecsysEngine
+    from repro_torch.train.loop import TrainConfig, Trainer, init_state, make_train_step
+
+    t0 = time.perf_counter()
+    total = {name: 0 for name in _kernels()}
+    plan, solve_s = _solve_plan(torch)
+    cfg = dataclasses.replace(dlrm_criteo.config(reduced=False, plan=plan), use_kernel=True)
+    params = dlrm_init(cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
+    qparams = quantize_params(params, mode="int8")
+    out = {"card": card, "solve_s": solve_s, "kinds": plan.summary()["kinds"],
+           "widths": plan.summary()["dims"], "bytes": _plan_bytes(torch, plan, params, qparams)}
+    out["k4_err"], wave = _plan_wave(torch, cfg, qparams, reqs)
+
+    out["serve"] = _plan_serve(torch, cfg, qparams, reqs, total)
+
+    # one-hot scoring: the QR pairs through K1 (f32) or K5 (int8), one
+    # launch each, the full tables through plain gathers and projections
+    api = dlrm_criteo.api(cfg)
+    plain = dlrm_criteo.api(dataclasses.replace(cfg, use_kernel=False))
+    shape = Shape("bench", 1, B, "train")
+    batches = [api.batch_fn(step, shape) for step in EVAL_STEPS]
+    n_qr = sum(t.kind == "qr" for t in plan.tables)
+    base = torch.cuda.memory_allocated()
+    for mode, tables, lookup in (("f32", params, "qr_gather"),
+                                 ("int8", qparams, "qr_gather_quant")):
+        _add_counts(total, _eval_run(torch, api, plain, tables, batches, f"plan {mode}", lookup,
+                                     n_qr, table_bytes(tables), base))
+    del params
+
+    # training, plain as the reference trains: the loss falls, and one
+    # step's gradients (projections included) on the card equal the CPU's
+    tcfg = dataclasses.replace(cfg, use_kernel=False)
+    tapi = dlrm_criteo.api(tcfg)
+    tshape = Shape("train", 1, B, "train")
+    out["grad_check"] = _grads_vs_cpu(torch, dlrm_criteo.api(tcfg, device="cpu"), tapi, tshape)
+    state = init_state(tapi.init(torch.Generator(device="cuda").manual_seed(0)), tapi.optimizer)
+    t = time.perf_counter()
+    state, history = Trainer(make_train_step(tapi.loss_fn, tapi.optimizer),
+                             TrainConfig(num_steps=PLAN_TRAIN_STEPS, log_every=1),
+                             batch_at=lambda s: tapi.batch_fn(s, tshape)).run(state)
+    train_s = time.perf_counter() - t
+    losses = [loss for _, loss in history]
+    tail = sum(losses[-10:]) / 10
+    out["train"] = {"steps": PLAN_TRAIN_STEPS, "loss_step_0": losses[0], "loss_last_10": tail,
+                    "ms_per_step": train_s / PLAN_TRAIN_STEPS * 1e3}
+    print(f"  trained {PLAN_TRAIN_STEPS} Adagrad(1e-2) steps at B={B} in {train_s:.2f} s: loss "
+          f"{losses[0]:.5f} at step 0, {tail:.5f} over the last 10")
+    if len(losses) != PLAN_TRAIN_STEPS or not all(math.isfinite(x) for x in losses) \
+            or not tail < losses[0]:
+        _fail("the planned model's training loss did not fall")
+    del state
+
+    # swap the live uniform c=4 engine onto the planned model
+    swap = engine.swap_plan(cfg, qparams)
+    engine.reset_metrics()
+    _zero_counts()
+    after = _serve_all(engine, reqs[:512])
+    counts = _read_counts()
+    _check_counts("plan after swap_plan", counts, _cache_counts(engine.metrics()))
+    _add_counts(total, counts)
+    fresh = _serve_all(RecsysEngine(cfg, qparams, max_batch=256), reqs[:512])
+    out["swap"] = {"buckets_warmed": len(swap["buckets_warmed"]),
+                   "max_abs_vs_fresh": _hold_scores(
+                       "uniform c=4 engine swapped onto the plan vs a fresh engine", after,
+                       fresh, tol=0.0)}
+    print(f"  card: {card}; [plan] {time.perf_counter() - t0:.1f} s")
+    print(json.dumps({"plan_profile": out}, default=str))
+    return total, out["k4_err"], wave
+
+
 def _paper_device_profile(torch, pt, spec, warm=3, steps=5):
     """Device ms and device operations per training step of one
     ``paper_tables`` row (``torch.profiler``, ``steps`` steps after
@@ -1635,14 +1928,25 @@ def drive_bag_path(torch, shapes):
     return counts, per_call
 
 
-def _device_ops_per_call(torch, fn, calls: int = 20):
+def _device_ops_per_call(torch, fn, calls: int = 20, windows: int = 5):
     """Device operations per ``fn()`` call by ``torch.profiler``, over
-    ``calls`` calls after one outside the window."""
+    ``calls`` calls after one outside the window.  A window whose trace
+    holds fewer device operations than the launch counters counted kernels
+    in it lost events (the profiler drops some behind large windows, PERF.md
+    §7): it is profiled again, up to ``windows`` times, and the count of the
+    last window is returned with the windows it took."""
     fn()
     torch.cuda.synchronize()
-    _, _, by_name = _profile_device(lambda: [fn() for _ in range(calls)])
+    for window in range(1, windows + 1):
+        before = sum(_read_counts().values())
+        _, _, by_name = _profile_device(lambda: [fn() for _ in range(calls)])
+        launched = sum(_read_counts().values()) - before
+        if sum(by_name.values()) >= launched:
+            break
+        print(f"  (profiled window {window}: {sum(by_name.values())} device operations for "
+              f"{launched} kernel launches: events lost, profiling again)")
     return {"ops": sum(by_name.values()) / calls,
-            "by_name": {k: v / calls for k, v in by_name.items()}}
+            "by_name": {k: v / calls for k, v in by_name.items()}, "windows": window}
 
 
 def _k4_bound(rem, quo, mask):
@@ -1699,6 +2003,61 @@ def _grouped_bound(idx, tables, mask=None, row_bytes=D + 3, ops_per_elem=None):
         nbytes += (_distinct(ids % tab.m, live) + _distinct(ids // tab.m, live)) * row_bytes
         ops += int(live.sum()) * D * ops_per_elem
     return nbytes, ops
+
+
+def _plan_wave_bound(idx, mask, group):
+    """Grouped K4 at a planned wave: raw ids and mask once; each distinct
+    live row of each table once (d + 3 bytes for an int8 row with its scale
+    and zero point, 4·d for f32); each projection once; the f32 output
+    once.  Operations per element of a live slot: dequant (2) per table,
+    the combine of a pair, weight and add; and 2·d·D per bag for a
+    projection."""
+    d_out = max(tab.w_a.shape[1] if tab.proj is None else tab.proj.shape[1] for tab in group)
+    nbytes = idx.numel() * 4 * 2 + idx.shape[0] * len(group) * d_out * 4
+    ops = 0
+    for t, tab in enumerate(group):
+        ids, live = idx[:, t], mask[:, t] > 0
+        d = tab.w_a.shape[1]
+        row = d + 3 if tab.scale_a is not None else d * tab.w_a.element_size()
+        if tab.w_b is not None:
+            rows = _distinct(ids % tab.m, live) + _distinct(ids // tab.m, live)
+        else:
+            rows = _distinct(ids % tab.m if tab.m else ids, live)
+        nbytes += rows * row
+        per_elem = (2 + 2 + 1 if tab.w_b is not None else 2) + 2
+        ops += int(live.sum()) * d * per_elem
+        if tab.proj is not None:
+            nbytes += tab.proj.numel() * 4
+            ops += idx.shape[0] * d * d_out * 2
+    return nbytes, ops
+
+
+def time_plan_wave(torch, wave):
+    """Grouped K4 at the planned wave: device ms at the launcher's threads
+    per bag, plain version, bound, and host enqueue µs."""
+    from repro_torch.kernels import grouped_lookup, ref, serve_path
+
+    idx, mask, group = wave
+    nbytes, ops = _plan_wave_bound(idx, mask, group)
+    bound_ms, bound_by = _bound(nbytes, ops)
+    pairs = sum(tab.w_b is not None for tab in group)
+    out = {"shape": f"grouped, the planned model's wave: {len(group)} int8 tables ({pairs} QR "
+                    f"pairs) at widths {sorted({tab.w_a.shape[1] for tab in group})}, "
+                    f"{sum(tab.proj is not None for tab in group)} projections to D={D}, "
+                    f"B={idx.shape[0]} L={idx.shape[2]}",
+           "ms": _time_ms(torch, lambda: serve_path.fused_serve_pool_grouped(idx, mask, group),
+                          200),
+           "threads_per_bag": grouped_lookup.THREADS_PER_BAG,
+           "plain_ms": _time_ms(torch, lambda: ref.fused_serve_pool_grouped(idx, mask, group),
+                                20),
+           "bound_ms": bound_ms, "bound_by": bound_by, "bound_bytes": nbytes,
+           "bound_operations": ops,
+           "host_us": _host_us(torch, lambda: serve_path.fused_serve_pool_grouped(
+               idx, mask, group), 200)}
+    print(f"  grouped K4 at the planned wave: {out['ms']:.6f} ms, bound {bound_ms:.7f} ms "
+          f"({bound_by}, {nbytes} B), plain {out['plain_ms']:.6f} ms; host {out['host_us']:.1f} "
+          "us per call")
+    return out
 
 
 def _host_us(torch, fn, iters: int) -> float:
@@ -2088,7 +2447,6 @@ def main() -> int:
     print("[cache] the hot-row cache's paths at full width, on the reduced config, "
           "after swap_plan and for the DCN")
     counts["cache"] = cache_paths(torch, engine, reqs, card)
-    del engine
     print("[eval] full-width one-hot DLRM-Criteo, 12 held-out batches of 256")
     counts.update(eval_full_width(torch))
     print("[train] full-width DLRM-Criteo, Adagrad, then the trained tables through the kernels")
@@ -2097,12 +2455,18 @@ def main() -> int:
     print("[bag] ops.qr_bag_lookup, K3's own entry point")
     counts["bag"], bag_ops = drive_bag_path(torch, shapes)
     print(f"  ({time.perf_counter() - t0:.0f} s so far)")
+    print("[plan] full-width DLRM-Criteo solved under a byte budget over widths {4, 8, 16}: "
+          "served, scored, trained, swapped in")
+    counts["plan"], plan_err, plan_wave = plan_full_width(torch, engine, reqs, card)
+    del engine
+    print(f"  ({time.perf_counter() - t0:.0f} s so far)")
     print("[paper] paper_tables rows trained on the card, held against the CPU and the reference")
     counts["paper"] = paper_rows(torch, card)
     print(f"  ({time.perf_counter() - t0:.0f} s so far)")
     print("[time] CUDA events")
     print(f"  card: {card}")
-    errs = {"fused_serve_pool": max(k4_err, grouped_errs["k4"]), "dot_interaction": k2_err,
+    errs = {"fused_serve_pool": max(k4_err, grouped_errs["k4"], plan_err),
+            "dot_interaction": k2_err,
             "qr_gather": max(k1_err, grouped_errs["k1"]),
             "qr_gather_quant": max(k5_err, grouped_errs["k5"]), "qr_embedding_bag": k3_err}
     grouped = time_grouped(torch, grouped_inputs, grouped_errs)
@@ -2111,6 +2475,7 @@ def main() -> int:
     kernels = measure(torch, gen, k4_inputs, k2_inputs, k2_fields, qr_inputs, grouped_inputs,
                       bag, counts, errs, grouped)
     kernels[-1]["ops_qr_bag_lookup_device_ops_per_call"] = bag_ops
+    kernels[0]["plan_wave"] = time_plan_wave(torch, plan_wave)
     for k in kernels:
         if k["launches"] == 0:
             _fail(f"{k['name']} was launched on no path")

@@ -30,10 +30,20 @@ Acceptance checks, the reference's with its constants (any failure ->
 * cache-on rows see hit rate > 0 under the Zipfian stream;
 * p99 within ``10 x p50 + 10 ms``.
 
-The reference also gates "device cache beats cache off" and runs a
-mixed-dimension lane and an observability lane; the first is reported
-here, not gated (``cache_speedup`` per arch), and the lanes wait for the
-planner and ``obs`` (ROADMAP, modules to port: items 12-14).
+A **mixed-dimension lane** per arch, the reference's, solves a
+mixed-width plan at 0.125x full-table bytes (``plan.dim_ladder``: {D/4,
+D/2, D}) with the port's planner, builds the model from it, and serves the
+stream int8, cache off and with the device cache (DLRM through grouped K4
+with per-feature projections).  Its checks, the reference's: built table
+bytes equal the plan's per-table claim (f32 *and* serve-int8 domains),
+the plan's widths are genuinely per-feature (>= 2 distinct), the plan
+fits its budget, the cache path's scores match the in-graph path's to
+1e-3, and hit rate > 0.
+
+The reference also gates "device cache beats cache off" and runs an
+observability lane; the first is reported here, not gated
+(``cache_speedup`` per arch), and the lane waits for ``obs`` (ROADMAP,
+modules to port: items 12 and 14).
 
 Artifacts: ``artifacts/bench/BENCH_serve_torch.json`` and CSV on stdout
 (``name,us_per_call,derived``).
@@ -168,6 +178,58 @@ def _engine_cell(cfg, qparams, reqs, *, cache_rows: int, max_batch: int, device)
     return m
 
 
+def _mixed_dim_cell(arch: str, cfg, reqs, max_batch: int, device) -> dict:
+    """Mixed-dimension serving lane: solve a mixed-width plan at 0.125x of
+    the full-table bytes (the plan_bench strict-beat point), build the
+    model from it, quantize int8, and serve the same request stream with
+    the device cache on and off — the cache path's scores must match the
+    in-graph path's, hit rate must be positive, and every built table's
+    bytes must equal the plan's claim (per-feature width drift fails)."""
+    import torch
+
+    from ..configs import get_arch
+    from ..core import make_embedding
+    from ..plan import dim_ladder, full_table_bytes, plan_for_config
+    from ..serve.cache import DeviceHotRowCache
+    from ..serve.quantize import memory_report, quantize_params
+    from ..serve.recsys import RecsysEngine
+
+    dim = cfg.emb_dim
+    budget = int(full_table_bytes(cfg.table_sizes, dim) * 0.125)
+    plan = plan_for_config(cfg, budget, arch=f"{arch}-mixed", num_batches=8,
+                           batch_size=256, dims=dim_ladder(dim))
+    built_ok = all(make_embedding(n, dim, plan, feature=i).num_params * 4
+                   == plan.tables[i].train_bytes for i, n in enumerate(cfg.table_sizes))
+    pcfg = _serve_cfg(dataclasses.replace(cfg, embedding=plan))
+    params = get_arch(arch).api(pcfg, device).init(
+        torch.Generator(device=device).manual_seed(0))
+    qparams = quantize_params(params)
+    rep = memory_report(params, qparams)
+    # the serve-domain twin of the built-bytes check: the quantized tables
+    # weigh exactly what the plan's serve_int8 domain claimed
+    planned_serve_bytes = sum(t.serve_bytes_int8 for t in plan.tables)
+
+    t0 = time.monotonic()
+    eng_c = RecsysEngine(pcfg, qparams, max_batch=max_batch, device=device,
+                         cache=DeviceHotRowCache(capacity_rows=CACHE_ROWS, device=device))
+    eng_n = RecsysEngine(pcfg, qparams, max_batch=max_batch, device=device)
+    uids, (done_c, done_n), (m, m_off) = _run_warm_then_timed([eng_c, eng_n], reqs)
+    max_dscore = max(abs(done_c[a].score - done_n[b].score) for a, b in uids)
+    return {
+        "arch": arch, "mode": "int8-mixed-plan", "cache": "on", "batching": "continuous",
+        "budget_bytes": budget, "plan_bytes": plan.total_bytes,
+        "plan_dims": sorted(set(plan.table_dims)), "plan_kinds": plan.summary()["kinds"],
+        "plan_built_bytes_ok": built_ok,
+        "table_bytes_f32": rep["f32_table_bytes"], "table_bytes": rep["quant_table_bytes"],
+        "planned_serve_bytes": planned_serve_bytes, "bytes_ratio": rep["ratio"],
+        "table_dims": rep["table_dims"], "cache_vs_ingraph_max_dscore": max_dscore,
+        "p50_ms": m["p50_ms"], "p99_ms": m["p99_ms"], "qps": m["qps"], "waves": m["waves"],
+        "qps_cache_off": m_off["qps"], "p99_ms_cache_off": m_off["p99_ms"],
+        "hit_rate": (m.get("cache") or {}).get("hit_rate"), "cache_stats": m.get("cache"),
+        "cache_paths": m.get("cache_paths"), "wall_s": time.monotonic() - t0,
+    }
+
+
 def _row_bound(params, qparams):
     """(every int8 row within ``scale/2`` of its f32 row, the largest
     error as a fraction of its bound), paired by path."""
@@ -196,7 +258,7 @@ def bench(steps: int, requests: int, max_batch: int, device="cuda") -> dict:
     from .timing import card
 
     device = torch.device(device)
-    rows = []
+    rows, mixed_rows = [], []
     for arch in ARCHS:
         cfg, api, spec, params0 = _build(arch, device)
         t0 = time.monotonic()
@@ -232,10 +294,11 @@ def bench(steps: int, requests: int, max_batch: int, device="cuda") -> dict:
                     "cache_stats": m.get("cache"), "cache_paths": m.get("cache_paths"),
                     "train_s": train_s, "wall_s": time.monotonic() - t0,
                 })
+        mixed_rows.append(_mixed_dim_cell(arch, cfg, reqs, max_batch, device))
     return {"requests": requests, "max_batch": max_batch, "train_steps": steps,
             "emb_dim": SERVE_EMB_DIM, "cache_rows": CACHE_ROWS, "device": str(device),
             "card": card() if device.type == "cuda" else None, "rows": rows,
-            "cache_speedup": cache_speedup(rows)}
+            "mixed_rows": mixed_rows, "cache_speedup": cache_speedup(rows)}
 
 
 def cache_speedup(rows) -> dict:
@@ -271,6 +334,30 @@ def check(report: dict) -> list[tuple[str, str]]:
         if r["cache"] == "on" and not (r["hit_rate"] or 0) > 0:
             failures.append((cell, "cache enabled but hit rate is 0 under "
                                    "the Zipfian stream"))
+    for r in report.get("mixed_rows", []):
+        cell = f"{r['arch']}/{r['mode']}"
+        if not r["plan_built_bytes_ok"]:
+            failures.append((cell, "a mixed-dim table's built bytes differ "
+                                   "from its planned train_bytes"))
+        if r["plan_bytes"] > r["budget_bytes"]:
+            failures.append((cell, f"mixed-dim plan bytes {r['plan_bytes']} "
+                                   f"exceed budget {r['budget_bytes']}"))
+        if len(r["plan_dims"]) < 2:
+            failures.append((cell, f"plan produced uniform widths "
+                                   f"{r['plan_dims']} — the mixed-dim lane "
+                                   f"must exercise per-feature row widths"))
+        if r["cache_vs_ingraph_max_dscore"] > 1e-3:
+            failures.append((cell, f"cache-path scores diverge from the "
+                                   f"in-graph path by "
+                                   f"{r['cache_vs_ingraph_max_dscore']:.2e}"))
+        if not (r["hit_rate"] or 0) > 0:
+            failures.append((cell, "cache enabled but hit rate is 0 under "
+                                   "the Zipfian stream"))
+        if r["table_bytes"] != r["planned_serve_bytes"]:
+            failures.append((cell, f"quantized table bytes "
+                                   f"{r['table_bytes']} differ from the "
+                                   f"plan's serve_int8 claim "
+                                   f"{r['planned_serve_bytes']}"))
     return failures
 
 
@@ -298,6 +385,15 @@ def main(argv=None) -> int:
               f"bytes_ratio={r['bytes_ratio']:.3f};qps={r['qps']:.1f};"
               f"p99_ms={r['p99_ms']:.1f};dloss={abs(r['loss'] - r['loss_f32']):.4f};"
               f"dauc={abs(r['auc'] - r['auc_f32']):.4f}{hr}")
+        sys.stdout.flush()
+    for r in report["mixed_rows"]:
+        print(f"serve/{r['arch']}/{r['mode']}/cache_{r['cache']}/{r['batching']},"
+              f"{r['p50_ms'] * 1e3:.0f},"
+              f"bytes_ratio={r['bytes_ratio']:.3f};qps={r['qps']:.1f};"
+              f"qps_cache_off={r['qps_cache_off']:.1f};"
+              f"dims={'x'.join(map(str, r['plan_dims']))};"
+              f"dscore={r['cache_vs_ingraph_max_dscore']:.1e};"
+              f"hit_rate={(r['hit_rate'] or 0):.3f}")
         sys.stdout.flush()
     failures = check(report)
     report["checks_failed"] = [f"{n}: {m}" for n, m in failures]

@@ -7,6 +7,7 @@ reference's ``jax.ShapeDtypeStruct``), and ``embedding_spec``.
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import Any, Callable
 
 import torch
@@ -47,7 +48,12 @@ def embedding_spec(embedding: str, num_collisions: int = 4) -> EmbeddingSpec:
 
 
 def resolve_plan(plan, table_sizes):
-    """A memory plan ready to serve as a config's ``embedding``: waits for
-    the planner's port."""
-    raise NotImplementedError("memory plans need the planner "
-                              "(ROADMAP, modules to port: item 13)")
+    """A ``repro_torch.plan.MemoryPlan`` (or a path to its JSON artifact,
+    written by either package) ready to serve as a config's ``embedding``:
+    loads if needed and validates that it was solved for exactly these
+    table sizes."""
+    from ..plan import MemoryPlan
+    if isinstance(plan, (str, bytes, os.PathLike)):
+        plan = MemoryPlan.load(plan)
+    plan.validate_sizes(table_sizes)
+    return plan

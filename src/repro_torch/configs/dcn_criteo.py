@@ -19,7 +19,9 @@ def config(reduced: bool = False, embedding: str = "qr", num_collisions: int = 4
            plan=None) -> DCNConfig:
     sizes = REDUCED_SIZES if reduced else KAGGLE_TABLE_SIZES
     if plan is not None:
-        resolve_plan(plan, sizes)
+        emb = resolve_plan(plan, sizes)
+        return DCNConfig(name=ARCH, table_sizes=sizes, emb_dim=emb.emb_dim, cross_layers=6,
+                         deep_mlp=(512, 256, 64), embedding=emb)
     emb = dataclasses.replace(embedding_spec(embedding, num_collisions),
                               threshold=threshold, op=op, path_hidden=path_hidden)
     return DCNConfig(name=ARCH, table_sizes=sizes, emb_dim=16, cross_layers=6,

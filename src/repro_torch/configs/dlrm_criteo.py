@@ -22,7 +22,11 @@ def config(reduced: bool = False, embedding: str = "qr", num_collisions: int = 4
            plan=None) -> DLRMConfig:
     sizes = REDUCED_SIZES if reduced else KAGGLE_TABLE_SIZES
     if plan is not None:
-        resolve_plan(plan, sizes)
+        # a MemoryPlan (or a path to one) overrides the uniform spec with
+        # the planner's per-feature choices
+        emb = resolve_plan(plan, sizes)
+        return DLRMConfig(name=ARCH, table_sizes=sizes, emb_dim=emb.emb_dim,
+                          bottom_mlp=(512, 256, 64), top_mlp=(512, 256), embedding=emb)
     emb = dataclasses.replace(embedding_spec(embedding, num_collisions),
                               threshold=threshold, op=op, path_hidden=path_hidden)
     return DLRMConfig(name=ARCH, table_sizes=sizes, emb_dim=16,

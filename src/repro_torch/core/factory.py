@@ -3,7 +3,16 @@
 ``EmbeddingSpec`` is the single knob surface exposed through model configs.
 The factory applies the paper's §5.4 thresholding rule: tables with at most
 ``threshold`` categories keep a full table; only larger tables are
-compressed.  Building from a memory plan waits for the planner's port.
+compressed.
+
+The from-plan path: ``spec`` may also be a ``repro_torch.plan.MemoryPlan``
+(duck-typed via ``spec_for`` — no import cycle), in which case ``feature``
+selects the per-feature spec the planner solved for; the plan validates
+cardinality and embedding dim so a stale plan fails loudly instead of
+silently building un-scored tables.  Mixed-dimension plans additionally
+carry a per-feature table width (``plan.dim_for``): the module is built
+at that width (its ``out_dim`` reports it), and the models project each
+feature back to the interaction width ``dim``.
 """
 
 from __future__ import annotations
@@ -39,13 +48,22 @@ def make_embedding(num_categories: int, dim: int, spec: EmbeddingSpec,
                    param_dtype=torch.float32, feature: int | None = None):
     """Build the embedding module for one categorical feature/table.
 
-    ``feature`` is the categorical feature index; it only matters for a
-    memory plan, which is not supported yet.
+    ``spec`` is an ``EmbeddingSpec`` or a ``repro_torch.plan.MemoryPlan``; a
+    plan requires ``feature`` (the categorical feature index) to pick the
+    table choice the planner made for it.  Building allocates nothing: the
+    module's ``init`` draws its tables.
     """
-    if hasattr(spec, "spec_for"):
-        raise NotImplementedError(
-            "building tables from a MemoryPlan needs the planner "
-            "(ROADMAP, modules to port: item 13)")
+    if hasattr(spec, "spec_for"):  # MemoryPlan: resolve the per-feature spec
+        if feature is None:
+            raise ValueError("building from a MemoryPlan requires feature=<i> "
+                             "(the categorical feature index)")
+        plan = spec
+        spec = plan.spec_for(feature, num_categories=num_categories, dim=dim)
+        width = plan.dim_for(feature) if hasattr(plan, "dim_for") else dim
+        if not 1 <= width <= dim:
+            raise ValueError(f"plan table {feature} has width {width} outside "
+                             f"[1, emb_dim={dim}] — regenerate the plan")
+        dim = width
     if spec.kind == "full" or num_categories <= max(spec.threshold, 1):
         return FullEmbedding(num_categories, dim, param_dtype)
     c = max(1, spec.num_collisions)

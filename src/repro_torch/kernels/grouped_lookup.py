@@ -99,6 +99,13 @@ def _table_fault(tab: GroupTable, bag: bool, pre_split: bool):
     return None
 
 
+def proj_smem_bytes(d: int, d_out: int, tpb: int) -> int:
+    """Shared memory a block takes to project a width-``d`` table to
+    ``d_out``: the f32 ``(d, d_out)`` projection and the block's pooled
+    bags, ``64 / tpb`` of them, each ``d`` f32 wide."""
+    return 4 * (d * d_out + (_BLOCK // tpb) * d)
+
+
 def _threads_per_bag(widest: int) -> int:
     """Threads per (bag, table) for a launch whose widest row has
     ``widest`` bytes."""
@@ -165,7 +172,7 @@ def launch(counter, name, idx, mask, tables, *, bag: bool, idx_b=None):
             proj = proj.to(torch.float32).contiguous()
             keep.append(proj)
             d = tab.w_a.shape[1]
-            smem = max(smem, 4 * (d * d_out + (_BLOCK // tpb) * d))
+            smem = max(smem, proj_smem_bytes(d, d_out, tpb))
         ptrs += [0 if x is None else x.data_ptr() for x in
                  (tab.w_a, tab.w_b, tab.scale_a, tab.zp_a, tab.scale_b, tab.zp_b, proj)]
         ints += [tab.m, tab.w_a.shape[1], _TYPES[tab.w_a.dtype], int(tab.op == "mult"),

@@ -8,7 +8,10 @@ with 4096 rows, device- or host-resident via ``--cache-impl``), feeds it a
 Zipfian synthetic request stream, and reports table bytes, p50/p99 wave
 latency, QPS and the cache's hit rate.  Runs on ``--device cuda`` unless
 told otherwise.  The model is the arch's reduced config, as in the
-reference launcher.
+reference launcher, or a memory plan of it: ``--plan PATH`` loads one
+(written by either package), ``--plan-budget-mb MB`` solves one at that
+table byte budget and ``--plan-dims mixed`` (or ``4,8,16``) over a width
+ladder (``launch/plan_cli.py``).
 """
 
 from __future__ import annotations
@@ -18,6 +21,8 @@ import dataclasses
 
 import numpy as np
 import torch
+
+from .plan_cli import add_plan_args
 
 __all__ = ["request_stream", "main"]
 
@@ -41,16 +46,19 @@ def _serve_rec(mod, args):
     from ..serve.cache import DeviceHotRowCache, HotRowCache
     from ..serve.quantize import memory_report, quantize_params
     from ..serve.recsys import RecsysEngine
+    from .plan_cli import resolve_plan_args
 
     device = torch.device(args.device)
-    cfg = mod.config(reduced=True)
+    plan = resolve_plan_args(mod, args)
+    cfg = mod.config(reduced=True, plan=plan) if plan is not None else mod.config(reduced=True)
     if hasattr(cfg, "use_kernel"):           # the DCN has no kernel route
         cfg = dataclasses.replace(cfg, use_kernel=True)
     params = mod.api(cfg, device).init(torch.Generator(device=device).manual_seed(0))
     qparams = quantize_params(params, mode=args.quantize)
     rep = memory_report(params, qparams)
     print(f"{args.arch}: tables {rep['f32_table_bytes']} B f32 -> "
-          f"{rep['quant_table_bytes']} B {args.quantize} ({rep['ratio']:.3f}x)")
+          f"{rep['quant_table_bytes']} B {args.quantize} ({rep['ratio']:.3f}x); "
+          f"table widths {rep['table_dims']}")
 
     # the cache admits combined f32 rows, 4·D bytes each.  With only
     # --cache-mb given, rows stay unbounded so the byte budget binds; an
@@ -107,6 +115,7 @@ def main(argv=None):
     ap.add_argument("--max-bag", type=int, default=4,
                     help="max multi-hot ids per categorical feature")
     ap.add_argument("--device", default="cuda", help="torch device to serve on")
+    add_plan_args(ap)
     args = ap.parse_args(argv)
 
     from ..configs import get_arch

@@ -6,8 +6,8 @@ network ``x_{l+1} = x0 · (x_l · w_l) + b_l + x_l`` in parallel with a deep
 MLP; their concatenation feeds the CTR logit.
 
 As in the reference, ``DCNConfig`` has no ``use_kernel``: the embed stage
-takes the plain per-table route.  Mixed-width projections wait for the
-planner (ROADMAP, modules to port: item 13).
+takes the plain per-table route.  A mixed-width plan's narrow tables are
+projected back to ``emb_dim`` (``dlrm.proj_init``) before they join x0.
 """
 
 from __future__ import annotations
@@ -17,7 +17,7 @@ import dataclasses
 import torch
 
 from ..core import CompositionalEmbedding, EmbeddingSpec
-from .dlrm import _mlp_apply, _mlp_init, embed_features, tables_for
+from .dlrm import _mlp_apply, _mlp_init, embed_features, proj_init, tables_for
 
 __all__ = ["DCNConfig", "dcn_init", "dcn_forward", "dcn_loss_fn",
            "dcn_forward_from_features"]
@@ -59,12 +59,16 @@ def dcn_init(cfg: DCNConfig, generator: torch.Generator, device="cuda"):
                         dtype=torch.float32) * (1.0 / d0) ** 0.5
         cross.append({"w": w.to(cfg.pdtype),
                       "b": torch.zeros((d0,), dtype=cfg.pdtype, device=device)})
-    return {
+    params = {
         "tables": [m.init(generator, device) for m in modules],
         "cross": cross,
         "deep": _mlp_init(generator, (d0,) + cfg.deep_mlp, cfg.pdtype, device),
         "out": _mlp_init(generator, (d0 + cfg.deep_mlp[-1], 1), cfg.pdtype, device),
     }
+    proj = proj_init(generator, modules, cfg, device)
+    if proj:  # mixed-width plan: project narrow tables into the x0 width
+        params["proj"] = proj
+    return params
 
 
 def dcn_forward_from_features(params, dense_x, feats, cfg: DCNConfig):

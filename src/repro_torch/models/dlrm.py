@@ -23,7 +23,7 @@ from ..core import (CompositionalEmbedding, EmbeddingSpec, FullEmbedding,
 from ..kernels import ops
 
 __all__ = ["DLRMConfig", "dlrm_init", "dlrm_forward", "dlrm_loss_fn",
-           "dlrm_num_params", "tables_for", "embed_features",
+           "dlrm_num_params", "tables_for", "embed_features", "proj_init",
            "dlrm_forward_from_features"]
 
 # The dense MLPs and the plain interaction stay true f32 on the card: no
@@ -50,13 +50,35 @@ class DLRMConfig:
 
 
 def tables_for(cfg) -> list:
-    """Embedding module per categorical feature (threshold rule applies)."""
+    """Embedding module per categorical feature (threshold rule applies).
+
+    ``cfg.embedding`` may be a single ``EmbeddingSpec`` (uniform strategy)
+    or a ``repro_torch.plan.MemoryPlan`` (per-feature strategies and widths
+    from the memory-budget planner — the feature index routes the lookup).
+    """
     return [make_embedding(n, cfg.emb_dim, cfg.embedding, cfg.pdtype, feature=i)
             for i, n in enumerate(cfg.table_sizes)]
 
 
 def _feature_mode(cfg) -> bool:
     return cfg.embedding.kind == "feature"
+
+
+def proj_init(generator, modules, cfg, device="cuda"):
+    """Per-feature learned projections ``(d_i, D)`` for mixed-dimension
+    plans — only features whose table width differs from ``cfg.emb_dim``
+    get an entry (keyed by the feature index as a string), scaled by
+    ``(1/d_i)**0.5``, so uniform-width configs keep the same parameter tree
+    (no ``"proj"`` key at all).  Drawn from ``generator`` after every
+    other leaf, so adding a projection never changes any other draw."""
+    out = {}
+    for i, mod in enumerate(modules):
+        d = mod.out_dim
+        if d != cfg.emb_dim:
+            w = torch.randn((d, cfg.emb_dim), generator=generator, device=device,
+                            dtype=torch.float32) * (1.0 / d) ** 0.5
+            out[str(i)] = w.to(cfg.pdtype)
+    return out
 
 
 def _project(feat, proj, i):
@@ -98,12 +120,16 @@ def dlrm_init(cfg: DLRMConfig, generator: torch.Generator, device="cuda"):
     modules = tables_for(cfg)
     f = _num_features(cfg, modules)
     interact_dim = f * (f - 1) // 2 + cfg.emb_dim
-    return {
+    params = {
         "bottom": _mlp_init(generator, (cfg.dense_dim,) + cfg.bottom_mlp + (cfg.emb_dim,),
                             cfg.pdtype, device),
         "top": _mlp_init(generator, (interact_dim,) + cfg.top_mlp + (1,), cfg.pdtype, device),
         "tables": [m.init(generator, device) for m in modules],
     }
+    proj = proj_init(generator, modules, cfg, device)
+    if proj:  # mixed-width plan: project narrow tables into the interaction
+        params["proj"] = proj
+    return params
 
 
 def _qr2(mod) -> bool:

@@ -60,8 +60,11 @@ __all__ = ["RecRequest", "RecsysEngine", "BATCHING_MODES"]
 BATCHING_MODES = ("continuous", "waves")
 
 # constructor arguments of features still to port -> their ROADMAP item
+# (``plan=`` feeds the reference's sharded placement; a planned model is
+# served by building its config from the plan)
 _NOT_PORTED = {"mesh": "16 (dist/)", "mesh_devices": "16 (dist/)",
-               "placement": "16 (dist/)", "plan": "13 (plan/)", "obs": "14 (obs/)"}
+               "placement": "16 (dist/)", "plan": "16 (dist/: sharded placement)",
+               "obs": "14 (obs/)"}
 
 _FEATURE_SHIFT = 44  # packed key: (feature << 44) | canonical row id
 # ceiling on the device slot map (int32 per cacheable row, 64 MiB):

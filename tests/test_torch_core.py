@@ -151,10 +151,15 @@ def test_factory_matches_reference():
     with pytest.raises(ValueError):
         tcore.EmbeddingSpec(kind="nope")
 
-    class Plan:
+    class Plan:      # a memory plan's two hooks: one full table, 32 wide
         def spec_for(self, *a, **k):
-            return None
-    with pytest.raises(NotImplementedError, match="item 13"):
+            return tcore.EmbeddingSpec(kind="full")
+
+        def dim_for(self, feature):
+            return 32
+    with pytest.raises(ValueError, match="feature="):
+        tcore.make_embedding(100, 16, Plan())
+    with pytest.raises(ValueError, match="width 32"):
         tcore.make_embedding(100, 16, Plan(), feature=0)
 
 

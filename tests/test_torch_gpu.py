@@ -648,6 +648,115 @@ def test_grouped_serve_pool_matches_plain_and_per_table(cuda, mode, threads_per_
                     assert torch.equal(one, got[:, t])
 
 
+def _mixed_width_group(rng, sizes, mode, cuda, d_out=16):
+    """A memory plan's table set: widths 4, 8 and 16 in turn, kinds QR
+    (c=4), full and hash in turn, mult and add in turn; every table
+    narrower than ``d_out`` with its ``(d, d_out)`` projection."""
+    tables = []
+    for t, size in enumerate(sizes):
+        d, kind = (4, 8, 16)[t % 3], ("qr", "full", "hash", "qr")[t % 4]
+        m = -(-size // 4) if kind == "qr" else (max(1, size // 3) if kind == "hash" else 0)
+        tt = _tables(rng, m or size, -(-size // max(m, 1)), d, mode, cuda)
+        proj = None if d == d_out else torch.from_numpy(
+            (rng.normal(size=(d, d_out)) / d ** 0.5).astype(np.float32)).to(cuda)
+        pair = kind == "qr"
+        tables.append(ref.GroupTable(tt["w_a"], tt["w_b"] if pair else None, tt.get("scale_a"),
+                                     tt.get("zp_a"), tt.get("scale_b") if pair else None,
+                                     tt.get("zp_b") if pair else None, m,
+                                     ("mult", "add")[t % 2], proj))
+    return tables
+
+
+@pytest.mark.parametrize("mode", ["f32", "int8"])
+@pytest.mark.parametrize("threads_per_bag", [1, 2, 4, 8, 16])
+def test_grouped_serve_pool_mixed_widths_with_projections(cuda, mode, threads_per_bag,
+                                                          monkeypatch):
+    """Grouped K4 over a mixed-width plan's tables: rows of 4, 8 and 16
+    elements (int8 rows of 4 and 8 bytes: one- and two-byte loads), a
+    projection to D=16 on every narrow table in shared memory, L in {0, 1,
+    4, 16}, empty bags: one launch, within tolerance of the plain version
+    and bit-equal to per-table launches of the same kernel."""
+    monkeypatch.setattr(grouped_lookup, "THREADS_PER_BAG", threads_per_bag)
+    sizes = (13, 50, 7, 200, 3, 1_000_003, 26, 10_007, 5, 31, 2, 600)
+    for length in (0, 1, 4, 16):
+        rng = np.random.default_rng(length + 100)
+        tables = _mixed_width_group(rng, sizes, mode, cuda)
+        assert {t.w_a.shape[1] for t in tables} == {4, 8, 16}
+        idx = _edge_ids(rng, sizes, 37, length, cuda)
+        mask = torch.from_numpy((rng.random(idx.shape) > 0.3).astype(np.float32)).to(cuda)
+        mask[-1] = 0.0                                      # a request of empty bags
+        got = _launched_on(serve_path.fused_serve_pool, serve_path.fused_serve_pool_grouped,
+                           idx, mask, tables)
+        want = ref.fused_serve_pool_grouped(idx, mask, tables)
+        assert got.dtype == want.dtype == torch.float32 and got.shape == (37, len(sizes), 16)
+        torch.testing.assert_close(got, want, rtol=TOL["f32"], atol=TOL["f32"])
+        assert (got[-1] == 0).all()
+        for t, tab in enumerate(tables):
+            ia, ib = ref._split_ids(idx[:, t], tab)
+            one = serve_path.fused_serve_pool(ia, mask[:, t], tab.w_a, ib, tab.w_b, tab.scale_a,
+                                              tab.zp_a, tab.scale_b, tab.zp_b, tab.proj,
+                                              op=tab.op)
+            assert torch.equal(one, got[:, t])
+
+
+def _mixed_plan_cfg(sizes, use_kernel=True):
+    from repro_torch.plan import build_plan, dim_ladder, full_table_bytes, power_law_stats
+
+    stats = [power_law_stats(n, alpha=1.2) for n in sizes]
+    plan = build_plan(stats, 16, int(full_table_bytes(sizes, 16) * 0.25), dims=dim_ladder(16))
+    assert len(set(plan.table_dims)) >= 2
+    return DLRMConfig(table_sizes=sizes, emb_dim=16, bottom_mlp=(32, 16), top_mlp=(32,),
+                      embedding=plan, use_kernel=use_kernel)
+
+
+@pytest.mark.parametrize("quant", [None, "int8"])
+@pytest.mark.parametrize("one_hot", [True, False])
+def test_planned_dlrm_forward_kernel_route_matches_plain(cuda, quant, one_hot):
+    """A mixed-width planned DLRM on the card: multi-hot ids take one
+    grouped K4 with the narrow tables' projections, one-hot ids the
+    per-table route (K1 / K5 for each QR pair); logits within 1e-4 of
+    use_kernel=False."""
+    sizes = (100, 500, 33, 2000)
+    cfg = _mixed_plan_cfg(sizes)
+    params = dlrm_init(cfg, torch.Generator(device=cuda).manual_seed(0), cuda)
+    assert "proj" in params
+    if quant:
+        params = quantize_params(params, mode=quant)
+    rng = np.random.default_rng(2)
+    dense = torch.from_numpy(rng.normal(size=(97, 13)).astype(np.float32)).to(cuda)
+    idx = _edge_ids(rng, sizes, 97, 1 if one_hot else 4, cuda)
+    idx, mask = (idx[:, :, 0], None) if one_hot else (idx, (torch.rand(idx.shape, device=cuda)
+                                                           > 0.3).float())
+    k4 = serve_path.fused_serve_pool.launches
+    got = dlrm_forward(params, dense, idx, cfg, mask=mask)
+    torch.cuda.synchronize()
+    assert serve_path.fused_serve_pool.launches == k4 + (0 if one_hot else 1)
+    want = dlrm_forward(params, dense, idx, dataclasses.replace(cfg, use_kernel=False), mask=mask)
+    assert got.shape == (97,) and torch.isfinite(got).all()
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+
+
+def test_planned_engine_on_card_cache_matches_cache_off(cuda):
+    """The mixed-width planned model served int8 on the card: the device
+    cache keeps one slab per width and takes the per-feature slab branch;
+    its scores equal cache off within 1e-4, and cache off equals the plain
+    engine within 1e-4."""
+    sizes = (100, 500, 33, 2000)
+    cfg = _mixed_plan_cfg(sizes)
+    qp = quantize_params(dlrm_init(cfg, torch.Generator(device=cuda).manual_seed(0), cuda))
+    rng = np.random.default_rng(5)
+    reqs = [(rng.normal(size=13), [list(rng.integers(0, s, int(rng.integers(0, 5))))
+                                   for s in sizes]) for _ in range(96)]
+    cache = DeviceHotRowCache(4096, record_events=True)
+    on, m = _cache_engine_scores(cfg, qp, reqs, cache)
+    off, _ = _cache_engine_scores(cfg, qp, reqs, None)
+    plain, _ = _cache_engine_scores(dataclasses.replace(cfg, use_kernel=False), qp, reqs, None)
+    assert sorted(cache._slabs) == sorted(set(cfg.embedding.table_dims))
+    assert m["cache_paths"]["exact"] > 0
+    np.testing.assert_allclose(on, off, rtol=0, atol=1e-4)
+    np.testing.assert_allclose(off, plain, rtol=0, atol=1e-4)
+
+
 @pytest.mark.parametrize("d", [16, 24])
 def test_grouped_qr_gather_quant_matches_plain_and_per_table(cuda, d):
     sizes = (13, 50, 7, 200, 3, 1_000_003)

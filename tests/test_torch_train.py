@@ -42,6 +42,7 @@ from repro_torch.core import EmbeddingSpec as TSpec
 from repro_torch.data.loader import ShardedLoader
 from repro_torch.models import dlrm as tdlrm
 from repro_torch.optim import optimizers as topt
+from repro_torch.plan import power_law_stats, uniform_hash_plan
 from repro_torch.train import loop as tloop
 
 SIZES = (100, 500, 33, 2000)
@@ -306,8 +307,10 @@ def test_api_optimizer_and_train_batch_follow_reference(arch):
     got = topt.state_structs(tapi.optimizer, tparams)
     assert [{k: tuple(v.shape) for k, v in s.items()} for s in got] \
         == [{k: tuple(v.shape) for k, v in s.items()} for s in want]
-    with pytest.raises(NotImplementedError, match="item 13"):
-        tmod.config(reduced=True, plan="plan.json")
+    # a memory plan solved for other tables is refused
+    plan = uniform_hash_plan([power_law_stats(n) for n in (10, 20)], 16, 10 ** 6)
+    with pytest.raises(ValueError, match="table sizes"):
+        tmod.config(reduced=True, plan=plan)
 
 
 def test_reduced_config_trains_on_the_cpu():
