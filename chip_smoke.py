@@ -111,7 +111,41 @@ Phases (any failure exits non-zero, and no result line is printed):
    one step's gradients, projections included, to the CPU's; and swap the
    live uniform c=4 engine of 8 onto the planned model with ``swap_plan``
    (its scores equal a fresh engine's);
-14. run the paper's §5 experiment (``repro_torch.benchmarks.paper_tables``)
+14. ``[online]``: on ``[plan]``'s model (int8, kernels on) and the port's
+   stream at Kaggle sizes — fit the detector's ``collision_scale`` on 4
+   stationary windows of 2,048 requests (the reference drift bench's lane
+   1); serve 2,048 ``[serve]`` requests on twin engines, obs off and
+   ``Obs(trace=True, collisions=True)``: scores bit-equal, one grouped K4
+   and one K2 per wave on both, the stage partition ratio 1 within 1e-9,
+   one ``wave`` profiler range per wave in a profiled pass with
+   ``profiler_annotations``, obs-off vs obs-on host ms per wave alternated
+   7 times, and the obs work itself (the telemetry's record and
+   compaction, the stage and trace recording) timed in place per wave; run
+   ``ReplanController`` (the reference bench's thresholds, ``min_lookups``
+   4 x 256) on an engine with a 1 << 20-row device cache, batching
+   ``waves``, beside a twin with no controller, over 3 stationary windows
+   (no fire allowed) and up to 6 drifted ones (``DriftSpec(rotate_frac=
+   0.5, zipf_after=8)``, ONLINE_ZIPF_AFTER) until the detector fires,
+   printing every decision with the QR features' predicted and measured
+   masses and the population masses of the stream, of this drift and of
+   the reference bench's (zipf_after 0.7).  The detector keeps the
+   reference's rel_gap, hysteresis and cooldown; its abs_gap is the
+   largest mass measured on the calibration windows (ONLINE_THRESHOLDS).
+   No fire fails the phase.  On the fire: the re-plan within the plan's
+   budget, 2 drifted windows after the swap (the launches held to the
+   cache's branches), p50 / p99 through the swap beside the twin's and the
+   reference's bound.  Then, on the installed plan, hold the migration on
+   the card against the same call on CPU copies (every leaf within 1e-5
+   of its largest |value|, and the served params its re-quantization), a
+   fresh cache-off engine on the migrated int8 params (one grouped K4 and
+   one K2 per wave, scores within 1e-4 of the swapped engine), the
+   migrated model's one-hot
+   scoring in f32 and int8 (one K1 / K5 per QR pair and one K2 per batch,
+   within 1e-4 of ``use_kernel=False``), and 20 Adagrad steps through
+   ``Trainer(obs=Obs(trace=True))`` (20 histogram samples and
+   ``train_step`` events, losses bit-equal to an obs-off run with
+   deterministic algorithms).  ``drift_bench`` runs on its own;
+15. run the paper's §5 experiment (``repro_torch.benchmarks.paper_tables``)
    on the card for ``PAPER_ROWS``: fig4's six rows (DLRM and DCN x full,
    hash, QR mult) and QR add, concat, feature mode, threshold 2,000 and
    the path-based table at hidden 16, each trained 400 steps at B=256 on
@@ -130,7 +164,7 @@ Phases (any failure exits non-zero, and no result line is printed):
    ``fig4/dlrm/qr_mult`` 400 steps on the machine's CPU and print its
    held-out |Δ| from the card, and profile one DLRM and one DCN row's
    step (device ms, device operations, busy share);
-15. time each kernel, its plain version and a PyTorch yardstick with CUDA
+16. time each kernel, its plain version and a PyTorch yardstick with CUDA
    events, compute each kernel's bound from this run's inputs, and print
    the ``kernels`` JSON line.  The grouped kernels are timed at a full
    26-table wave (K4) and batch (K1 in f32, K5) at 1 to 16 threads per
@@ -143,7 +177,7 @@ Phases (any failure exits non-zero, and no result line is printed):
    entry at the kernel bench's D=128 on int32 ids, int64 ids read in place
    and int64 ids cast first; and grouped K4 at the planned wave of 13.
 
-Each of the paths in 8 to 14 runs with every launch count set to 0
+Each of the paths in 8 to 15 runs with every launch count set to 0
 just before it and read just after; launches made to compare a kernel
 with its plain version count nowhere.  Peak device memory is printed as
 the process's peak and as the peak above what the phase found allocated
@@ -1747,7 +1781,530 @@ def plan_full_width(torch, engine, reqs, card):
                        fresh, tol=0.0)}
     print(f"  card: {card}; [plan] {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"plan_profile": out}, default=str))
-    return total, out["k4_err"], wave
+    return total, out["k4_err"], wave, (plan, cfg, qparams)
+
+
+# [online]: the [plan] model served with observability on, then through
+# stationary and drifted windows of the port's stream under the online
+# controller (the reference drift bench's thresholds and drift, at Kaggle
+# sizes), its migration, re-quantization and hot-swap
+ONLINE_WINDOW = 2048            # requests per telemetry window: 8 waves of 256
+ONLINE_CAL_WINDOWS = 4          # stationary windows that fit collision_scale
+ONLINE_STAT_WINDOWS = 3         # stationary windows through the controller
+ONLINE_DRIFT_WINDOWS = 6        # drifted windows through the controller, at most
+ONLINE_POST_WINDOWS = 2         # drifted windows after the swap
+ONLINE_DRIFT_STEP = 100_000     # the stream step where the drift starts
+ONLINE_POPULATION = 1 << 18     # draws of each stream behind its population masses
+ONLINE_OBS_PAIRS = 7            # alternated obs-off / obs-on timed passes (the
+                                # reference obs lane's 7 paired passes)
+ONLINE_TRAIN_STEPS = 20
+# the reference drift bench's detector knobs (benchmarks/drift_bench.py:62-65)
+# and its p99-through-swap bound (:67-68).  Its abs_gap, 1e-4, absorbs a
+# window's sampling noise at its table sizes (500-4,000 rows), where a QR
+# pair's mass under spread traffic is about 1/S >= 2.5e-4; at Kaggle sizes
+# it is 1e-7 to 1e-6, so no mass of a QR feature can clear 1e-4.  The
+# phase takes abs_gap from its own stationary calibration windows instead:
+# the largest mass any feature showed there (_online_calibrate).
+ONLINE_THRESHOLDS = {"rel_gap": 0.6, "hysteresis": 2, "cooldown": 2}
+REFERENCE_ABS_GAP = 1e-4
+# the drift: the reference bench's rotation of the popularity head by half of
+# each table, with the exponent moved to the reference's plan-time
+# concentration (drift_bench.py:58, ZIPF_BEFORE 8).  The reference moves
+# 8 -> 0.7 because its plan priced concentrated traffic; [plan]'s plan priced
+# the api's spread stream (1.5), and a flatter one only lowers its QR pairs'
+# masses, while a concentrated head packs ids into shared quotient and
+# remainder rows.  Both drifts' population masses are printed.
+ONLINE_ZIPF_AFTER = 8.0
+REFERENCE_ZIPF_AFTER = 0.7
+P99_FACTOR, P99_SLACK_MS = 3.0, 5.0
+# migration, card vs CPU: f32 gathers and width changes summed in another
+# order, within this share of each leaf's largest |value|
+MIGRATE_TOL = 1e-5
+
+
+def _online_stream(zipf_after=ONLINE_ZIPF_AFTER):
+    """The port's stream at Kaggle sizes (the api's: zipf 1.5, the stats
+    [plan] solved from) and its drift from ONLINE_DRIFT_STEP on: the head
+    rotated by half of each table, the exponent moved to ``zipf_after``."""
+    from repro_torch.data.criteo import KAGGLE_TABLE_SIZES, CriteoSpec, DriftSpec
+
+    return (CriteoSpec(table_sizes=KAGGLE_TABLE_SIZES, zipf=1.5, noise=0.5),
+            DriftSpec(shift_step=ONLINE_DRIFT_STEP, rotate_frac=0.5, zipf_after=zipf_after))
+
+
+def _online_window(step, drifted):
+    """One window: ONLINE_WINDOW rows of the stream drawn on the CPU, as
+    requests with one id per feature (the telemetry sees the stream's ids)
+    and as the batch itself."""
+    from repro_torch.data.criteo import drifted_batch_at
+
+    spec, drift = _online_stream()
+    batch = drifted_batch_at(0, (ONLINE_DRIFT_STEP if drifted else 0) + step, ONLINE_WINDOW,
+                             spec, drift, device="cpu")
+    dense, sparse = batch["dense"].numpy(), batch["sparse"].numpy().tolist()
+    return [(dense[r], [[i] for i in row]) for r, row in enumerate(sparse)], batch
+
+
+def _serve_waves(engine, reqs, latencies):
+    """``reqs`` one wave of ``engine.max_batch`` at a time, each wave's
+    submit-to-drained ms appended to ``latencies``; the scores in order."""
+    import numpy as np
+
+    out = []
+    for lo in range(0, len(reqs), engine.max_batch):
+        uids = [engine.submit(d, b) for d, b in reqs[lo:lo + engine.max_batch]]
+        t = time.perf_counter()
+        done = engine.run_until_drained()
+        latencies.append((time.perf_counter() - t) * 1e3)
+        out += [done[u].score for u in uids]
+    return np.array(out, dtype=np.float64)
+
+
+def _counted(torch, total, path, engine, run):
+    """``run()`` with the launch counts zeroed just before and read just
+    after, held to the engine's waves (``_cache_counts``) and added to
+    ``total``; returns what ``run`` returned."""
+    engine.reset_metrics()
+    torch.cuda.synchronize()
+    _zero_counts()
+    out = run()
+    counts = _read_counts()
+    _check_counts(path, counts, _cache_counts(engine.metrics()))
+    _add_counts(total, counts)
+    return out
+
+
+def _online_calibrate(modules, plan_stats):
+    """The reference bench's lane 1 at Kaggle sizes: the planner's predicted
+    collision masses under the plan's stats against the masses measured on
+    ONLINE_CAL_WINDOWS stationary windows; returns (predicted, scale,
+    abs_gap), abs_gap the largest mass measured on any feature in those
+    windows (ONLINE_THRESHOLDS)."""
+    from repro_torch.obs.collision import predicted_collision_mass
+    from repro_torch.plan.freq import stats_from_batches
+    from repro_torch.plan.quality import fit_collision_scale
+
+    predicted = [predicted_collision_mass(m, s) for m, s in zip(modules, plan_stats)]
+    pairs, abs_gap = [], 0.0
+    for w in range(ONLINE_CAL_WINDOWS):
+        _, batch = _online_window(1000 + w, drifted=False)
+        window = stats_from_batches([batch], [s.size for s in plan_stats])
+        measured = [predicted_collision_mass(m, s) for m, s in zip(modules, window)]
+        abs_gap = max(abs_gap, *measured)
+        pairs += [(p, x) for p, x in zip(predicted, measured) if p > 0]
+    scale = fit_collision_scale(pairs)
+    shown = {i: f"{p:.3e}" for i, p in enumerate(predicted) if p > 0}
+    print(f"  calibration: predicted collision masses (features with any) {shown}; "
+          f"{len(pairs)} (predicted, measured) pairs over {ONLINE_CAL_WINDOWS} stationary "
+          f"windows of {ONLINE_WINDOW}: collision_scale {scale:.4f}; the largest measured "
+          f"mass, the detector's abs_gap: {abs_gap:.4e} (the reference's {REFERENCE_ABS_GAP})")
+    if not abs_gap > 0.0:
+        _fail("the calibration windows measured no collision mass: no abs_gap to set")
+    return predicted, scale, abs_gap
+
+
+def _online_readonly(torch, cfg, qparams, reqs, total):
+    """Obs is read-only: the same requests through twin engines, obs off and
+    on, bitwise equal scores and one grouped K4 and one K2 per wave each;
+    the stage partition tiles the wave latency; a profiled pass shows one
+    ``wave`` range per wave; obs-off vs obs-on host ms per wave, alternated."""
+    import numpy as np
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.obs import Obs
+    from repro_torch.serve.recsys import STAGES, RecsysEngine
+
+    obs = Obs(trace=True, collisions=True)
+    off = RecsysEngine(cfg, qparams, max_batch=B, batching="continuous")
+    on = RecsysEngine(cfg, qparams, max_batch=B, batching="continuous", obs=obs)
+    scores = {}
+    for name, eng in (("off", off), ("on", on)):
+        _serve_all(eng, reqs[:256])                    # warm pass, outside the counts
+        scores[name] = _counted(torch, total, f"online obs {name}", eng,
+                                lambda e=eng: _serve_all(e, reqs))
+    waves = on.metrics()["waves"]
+    if off.metrics()["waves"] != waves or (scores["on"] != scores["off"]).any():
+        _fail("obs-on scores or waves differ from obs-off: observability is not read-only")
+    ss = on.stage_summary()
+    ratio = ss["partition"]["ratio"]
+    counts_ok = all(ss[st]["count"] == waves for st in STAGES)
+    print(f"  {len(reqs)} requests, {waves} waves: obs-on scores bit-equal to obs-off, one "
+          f"grouped K4 and one K2 per wave on both; stage partition ratio {ratio:.12f}, every "
+          f"stage counted {waves} times {counts_ok}; {len(obs.tracer)} trace events, "
+          f"{obs.collisions.waves} telemetry waves")
+    if abs(ratio - 1.0) > 1e-9 or not counts_ok:
+        _fail("the stage partition does not tile the wave latency")
+
+    annotated = RecsysEngine(cfg, qparams, max_batch=B, batching="continuous",
+                             obs=Obs(trace=True, profiler_annotations=True))
+    _serve_all(annotated, reqs[:256])
+    for attempt in range(5):
+        annotated.reset_metrics()
+        torch.cuda.synchronize()
+        _zero_counts()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            _serve_all(annotated, reqs[:1024])
+            torch.cuda.synchronize()
+        counts = _read_counts()
+        pw = annotated.metrics()["waves"]
+        _check_counts("online obs profiled", counts, _cache_counts(annotated.metrics()))
+        _add_counts(total, counts)
+        # each range is a host event, mirrored on the device's timeline
+        # as a user annotation: count the host's
+        waves_ev = [ev for ev in prof.events() if ev.name == "wave"]
+        ranges = sum(ev.device_type == DeviceType.CPU for ev in waves_ev)
+        if ranges == pw:
+            break
+        print(f"  profiled pass {attempt}: {ranges} host wave ranges for {pw} waves and "
+              f"{counts['fused_serve_pool']} K4 launches: the profiler dropped events, again")
+    print(f"  profiled pass with profiler annotations: {ranges} `wave` ranges on the host "
+          f"({len(waves_ev) - ranges} mirrored on the device) for {pw} waves "
+          f"({counts['fused_serve_pool']} K4 and {counts['dot_interaction']} K2 launches)")
+    if ranges != pw:
+        _fail("the profiled pass does not show one wave range per wave")
+
+    host = {"off": [], "on": []}
+    spent, on_waves = {}, 0
+    for name in ("record", "_compact"):
+        _time_calls(obs.collisions, name, spent)
+    _time_calls(on, "_record_wave", spent)
+    for _ in range(ONLINE_OBS_PAIRS):
+        for name, eng in (("off", off), ("on", on)):
+            eng.reset_metrics()
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            _serve_all(eng, reqs)
+            host[name].append((time.perf_counter() - t) / eng.metrics()["waves"] * 1e3)
+            on_waves += eng.metrics()["waves"] if name == "on" else 0
+    ratios = [b / a for a, b in zip(host["off"], host["on"])]
+    med = {k: float(np.median(v)) for k, v in host.items()}
+    print(f"  host ms per wave, alternated within this call: obs off "
+          f"{[round(x, 3) for x in host['off']]}, obs on {[round(x, 3) for x in host['on']]}; "
+          f"medians {med['off']:.3f} / {med['on']:.3f}; on / off per pair "
+          f"{[round(x, 4) for x in ratios]}, best {min(ratios):.4f}")
+    # the obs work itself, timed where it runs: the telemetry's record (with
+    # the compaction it triggers) and the stage and trace recording
+    work = {k: v / on_waves * 1e3 for k, v in spent.items()}
+    obs_ms = work["record"] + work["_record_wave"]
+    print(f"  obs work per wave, timed in place over {on_waves} obs-on waves: telemetry record "
+          f"{work['record']:.4f} ms (compaction inside it {work['_compact']:.4f}), stage and "
+          f"trace recording {work['_record_wave']:.4f} ms; {obs_ms:.4f} ms in all = "
+          f"{obs_ms / med['off'] * 100:.3f}% of the obs-off median host ms per wave "
+          f"(the reference obs lane's budget: 2%)")
+    return {"waves": waves, "partition_ratio": ratio, "profiled_wave_ranges": ranges,
+            "host_ms_per_wave": host, "median_ms_per_wave": med, "on_over_off": ratios,
+            "obs_ms_per_wave": work, "obs_share_of_off": obs_ms / med["off"]}
+
+
+def _time_calls(obj, name, spent):
+    """Replace ``obj.name`` by a wrapper that adds each call's host seconds
+    to ``spent[name]``: obs work timed in place, on the path that runs it."""
+    fn = getattr(obj, name)
+    spent[name] = 0.0
+
+    def timed(*args, **kwargs):
+        t = time.perf_counter()
+        try:
+            return fn(*args, **kwargs)
+        finally:
+            spent[name] += time.perf_counter() - t
+
+    setattr(obj, name, timed)
+
+
+def _online_population(modules, qr):
+    """The QR features' collision masses over ONLINE_POPULATION draws of the
+    stationary stream, of the drift served and of the reference bench's
+    (zipf_after 0.7): what the windows sample, and the direction in which
+    each drift moves it."""
+    from repro_torch.data.criteo import drifted_batch_at
+    from repro_torch.obs.collision import predicted_collision_mass
+    from repro_torch.plan.freq import stats_from_batches
+
+    out = {}
+    for name, base, after in (("stationary", 0, ONLINE_ZIPF_AFTER),
+                              ("drifted", ONLINE_DRIFT_STEP, ONLINE_ZIPF_AFTER),
+                              ("reference_drift", ONLINE_DRIFT_STEP, REFERENCE_ZIPF_AFTER)):
+        spec, drift = _online_stream(after)
+        batch = drifted_batch_at(0, base + 9000, ONLINE_POPULATION, spec, drift, device="cpu")
+        stats = stats_from_batches([batch], spec.table_sizes)
+        out[name] = {i: predicted_collision_mass(modules[i], stats[i]) for i in qr}
+    ratio = {k: {i: out[k][i] / out["stationary"][i] for i in qr}
+             for k in ("drifted", "reference_drift")}
+    fmt = {k: {i: f"{v:.3e}" for i, v in out[k].items()} for k in out}
+    print(f"  population masses of the QR features over {ONLINE_POPULATION} draws: stationary "
+          f"{fmt['stationary']}; drifted (zipf_after {ONLINE_ZIPF_AFTER}) {fmt['drifted']}, "
+          f"/ stationary { {i: round(r, 4) for i, r in ratio['drifted'].items()} }; the "
+          f"reference bench's drift (zipf_after {REFERENCE_ZIPF_AFTER}) "
+          f"{fmt['reference_drift']}, / stationary "
+          f"{ {i: round(r, 4) for i, r in ratio['reference_drift'].items()} }")
+    return {**out, "ratio": ratio}
+
+
+def _online_loop(torch, cfg, qparams, plan, plan_stats, predicted, calib, total):
+    """The closed loop: the controller on one engine (int8, waves, a
+    1 << 20-row device cache) and a twin with no controller, over
+    stationary windows, then drifted ones until the detector fires; after
+    the fire, drifted windows through the swapped model.  No fire fails the
+    phase; the phase never re-plans by hand.  ``calib`` is
+    ``_online_calibrate``'s (scale, abs_gap).  Returns the controller, the
+    engine, the last window served after the swap and the numbers."""
+    import numpy as np
+
+    from repro_torch.obs import Obs
+    from repro_torch.online import DriftThresholds, ReplanController
+    from repro_torch.plan import dim_ladder
+    from repro_torch.serve.cache import DeviceHotRowCache
+    from repro_torch.serve.recsys import RecsysEngine
+
+    def make(obs):
+        return RecsysEngine(cfg, qparams, max_batch=B, batching="waves", obs=obs,
+                            cache=DeviceHotRowCache(capacity_rows=PLAN_CACHE_ROWS))
+
+    engine = make(Obs(trace=True, collisions=True))
+    twin = make(Obs(collisions=True))               # the same work per wave
+    scale, abs_gap = calib
+    thresholds = DriftThresholds(min_lookups=4 * B, collision_scale=scale, abs_gap=abs_gap,
+                                 **ONLINE_THRESHOLDS)
+    ctrl = ReplanController(engine, budget_bytes=plan.budget_bytes, thresholds=thresholds,
+                            decay=0.8, dims=dim_ladder(cfg.emb_dim), quantize="int8",
+                            plan_stats=plan_stats)
+    spent, waves = {}, [0]
+    for name in ("record", "_compact"):
+        _time_calls(engine._obs.collisions, name, spent)
+    for name in ("check", "replan"):
+        _time_calls(ctrl, name, spent)
+    lat = {"engine": [], "twin": []}
+    decisions = []
+    qr = [i for i, p in enumerate(predicted) if p > 0]
+
+    def window(phase, step, drifted, timed):
+        reqs, _ = _online_window(step, drifted)
+        sink = {"engine": lat["engine"] if timed else [], "twin": lat["twin"] if timed else []}
+        got = _counted(torch, total, f"online {phase} {step}", engine,
+                       lambda: _serve_waves(engine, reqs, sink["engine"]))
+        waves[0] += engine.metrics()["waves"]
+        want = _counted(torch, total, f"online twin {phase} {step}", twin,
+                        lambda: _serve_waves(twin, reqs, sink["twin"]))
+        twin._obs.collisions.reset()
+        return reqs, got, want
+
+    for k in range(ONLINE_STAT_WINDOWS):
+        _, got, want = window("stationary", 2000 + k, drifted=False, timed=k > 0)
+        d = ctrl.check()
+        if not np.array_equal(got, want):
+            _fail("the controlled engine's scores differ from its twin's before any swap")
+        decisions.append(("stationary", d))
+    for k in range(ONLINE_DRIFT_WINDOWS):
+        window("drift", 3000 + k, drifted=True, timed=True)
+        decisions.append(("drift", ctrl.check()))
+        if ctrl.replans:
+            break
+    if any(d is None for _, d in decisions):
+        _fail("a window returned no decision: the controller was not armed from the plan's stats")
+    for phase, d in decisions:
+        gaps = {i: f"{d.gaps[i][0]:.3e}/{d.gaps[i][1]:.3e}" for i in qr if i in d.gaps}
+        zero = sum(d.gaps[i] == (0.0, 0.0) for i in d.gaps if i not in qr)
+        print(f"  {phase}: fired {d.fired}, over {list(d.over)}, streak {d.streak}, "
+              f"cooldown {d.cooldown}; predicted x scale / measured mass, QR features: {gaps}; "
+              f"0 / 0 on {zero} of the {len(d.gaps) - len(gaps)} other features judged")
+    fires_stat = sum(d.fired for phase, d in decisions if phase == "stationary")
+    fires_drift = sum(d.fired for phase, d in decisions if phase == "drift")
+    n_drift = len(decisions) - ONLINE_STAT_WINDOWS
+    print(f"  fires: {fires_stat} over {ONLINE_STAT_WINDOWS} stationary windows, {fires_drift} "
+          f"over {n_drift} drifted windows (abs_gap {thresholds.abs_gap:.4e}, rel_gap "
+          f"{thresholds.rel_gap}, hysteresis {thresholds.hysteresis}, min_lookups "
+          f"{thresholds.min_lookups}, collision_scale {scale:.4f})")
+    population = _online_population(engine.modules, qr)
+    check_ms = (spent["check"] - spent["replan"]) / len(decisions) * 1e3
+    print(f"  controlled engine, host ms per wave over {waves[0]} waves: telemetry record "
+          f"{spent['record'] / waves[0] * 1e3:.4f} (compaction inside it and on read "
+          f"{spent['_compact'] / waves[0] * 1e3:.4f}); controller check {check_ms:.3f} ms per "
+          f"window of {ONLINE_WINDOW // B} waves")
+    out = {"collision_scale": scale, "abs_gap": abs_gap, "fires_stationary": fires_stat, "fires_drift": fires_drift,
+           "drift_windows": n_drift, "population": population,
+           "host_ms": {"record_per_wave": spent["record"] / waves[0] * 1e3,
+                       "compact_per_wave": spent["_compact"] / waves[0] * 1e3,
+                       "check_per_window": check_ms},
+           "decisions": [{"phase": ph, "fired": d.fired, "over": list(d.over),
+                          "gaps": {str(i): d.gaps[i] for i in qr if i in d.gaps}}
+                         for ph, d in decisions]}
+    if fires_stat:
+        _fail("the detector fired on stationary traffic")
+    if not fires_drift:
+        _fail(f"[online]: the detector did not fire within {n_drift} drifted windows at full "
+              f"width (the masses per window and the population masses above)")
+    rep = ctrl.replans[0]
+    if rep["plan"]["total_bytes"] > rep["plan"]["budget_bytes"] or not rep["swap"]:
+        _fail(f"the re-plan is over budget or did not swap: {rep['plan']}")
+    print(f"  re-plan on the fire: kinds "
+          f"{ {k: rep['plan']['kinds'].count(k) for k in sorted(set(rep['plan']['kinds']))} }, "
+          f"{rep['plan']['total_bytes']} B of a {rep['plan']['budget_bytes']} B budget, "
+          f"migration {rep['migration']}, swap invalidated {rep['swap']['invalidated_rows']} "
+          f"rows, warmed {len(rep['swap']['buckets_warmed'])} buckets, "
+          f"{spent['replan']:.2f} s")
+    last = None
+    for k in range(ONLINE_POST_WINDOWS):
+        last = window("after swap", 4000 + k, drifted=True, timed=True)
+    p = {who: (float(np.percentile(v, 50)), float(np.percentile(v, 99)))
+         for who, v in lat.items()}
+    bound = P99_FACTOR * p["twin"][1] + P99_SLACK_MS
+    print(f"  wave ms through the swap ({len(lat['engine'])} waves): controlled p50 "
+          f"{p['engine'][0]:.3f} p99 {p['engine'][1]:.3f}, twin p50 {p['twin'][0]:.3f} p99 "
+          f"{p['twin'][1]:.3f}; the reference's bound {P99_FACTOR} x p99 + {P99_SLACK_MS} = "
+          f"{bound:.3f} ms (gated by drift_bench, printed here): "
+          f"{'within' if p['engine'][1] <= bound else 'over'}")
+    out.update({"plan": rep["plan"], "migration": rep["migration"], "p50_p99_ms": p,
+                "p99_bound_ms": bound, "replan_s": spent["replan"]})
+    return ctrl, engine, last, out
+
+
+def _online_fresh(torch, cfg, qparams, reqs, swapped, total):
+    """A fresh cache-off engine on the migrated int8 params serves one
+    grouped K4 and one K2 per wave, its scores within SCORE_TOL of the
+    swapped engine's on the same window."""
+    from repro_torch.serve.recsys import RecsysEngine
+
+    fresh = RecsysEngine(cfg, qparams, max_batch=B, batching="waves")
+    torch.cuda.synchronize()
+    _zero_counts()
+    got = _serve_all(fresh, reqs)
+    counts = _read_counts()
+    waves = fresh.metrics()["waves"]
+    _check_counts("online fresh engine on the migrated params", counts,
+                  {"fused_serve_pool": waves, "dot_interaction": waves})
+    _add_counts(total, counts)
+    return _hold_scores("swapped engine vs a fresh engine on its migrated int8 params",
+                        swapped, got)
+
+
+def _online_migration(torch, ctrl, old_cfg, old_q, new_cfg, served):
+    """``migrate_params`` of the served int8 params on the card against the
+    same call on CPU copies (every leaf), and the served params equal to
+    the card's migration re-quantized.  Returns the card's f32
+    migration, its int8 re-quantization and the numbers."""
+    from repro_torch import tree
+    from repro_torch.configs import get_arch
+    from repro_torch.online import migrate_params
+    from repro_torch.serve.quantize import quantize_params
+    from repro_torch.serve.recsys import _to_device
+
+    fresh = get_arch(new_cfg.name).api(new_cfg, "cpu").init(
+        torch.Generator().manual_seed(ctrl.seed))
+    t = time.perf_counter()
+    card, card_rep = migrate_params(old_cfg, old_q, new_cfg, _to_device(fresh, "cuda"))
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t
+    t = time.perf_counter()
+    cpu, cpu_rep = migrate_params(old_cfg, _to_device(old_q, "cpu"), new_cfg, fresh)
+    cpu_s = time.perf_counter() - t
+    worst = 0.0
+    for a, b in zip(tree.leaves(card), tree.leaves(cpu)):
+        if a.shape != b.shape or a.dtype != b.dtype or a.device.type != "cuda":
+            _fail("the card's migration differs in structure from the CPU's")
+        scale = max(1.0, float(b.abs().max())) if b.numel() else 1.0
+        worst = max(worst, float((a.cpu() - b).abs().max()) / scale if b.numel() else 0.0)
+    qcard = quantize_params(card, mode="int8")
+    same = all(torch.equal(a, b) for a, b in zip(
+        tree.leaves(qcard), tree.leaves(served)))
+    n = sum(x.numel() for x in tree.leaves(card))
+    print(f"  migration of the served int8 params, card vs CPU copies, every leaf ({n} "
+          f"values): max |diff| {worst:.3e} of each leaf's largest |value| (tol "
+          f"{MIGRATE_TOL:.0e}); reports equal {card_rep == cpu_rep} ({card_rep['counts']}); "
+          f"card {card_s:.2f} s, CPU {cpu_s:.2f} s; the served params are the card's "
+          f"migration re-quantized: {same}")
+    if worst > MIGRATE_TOL or card_rep != cpu_rep or not same:
+        _fail("migration on the card differs from migration on the CPU")
+    return card, qcard, {"max_rel_diff": worst, "card_s": card_s, "cpu_s": cpu_s,
+                         "counts": card_rep["counts"]}
+
+
+def _online_train(torch, cfg, params):
+    """ONLINE_TRAIN_STEPS Adagrad steps of the migrated model (the plain
+    path, as the reference trains) through ``Trainer(obs=Obs(trace=True))``
+    and without obs, from the same state with deterministic algorithms:
+    the step histogram and trace count the steps, the losses are bit-equal."""
+    from repro_torch.configs import dlrm_criteo
+    from repro_torch.configs.common import Shape
+    from repro_torch.obs import Obs
+    from repro_torch.train.loop import TrainConfig, Trainer, init_state, make_train_step
+
+    tapi = dlrm_criteo.api(dataclasses.replace(cfg, use_kernel=False))
+    shape = Shape("train", 1, B, "train")
+    kept = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True)
+    try:
+        runs = {}
+        for name, obs in (("obs", Obs(trace=True)), ("plain", None)):
+            tr = Trainer(make_train_step(tapi.loss_fn, tapi.optimizer),
+                         TrainConfig(num_steps=ONLINE_TRAIN_STEPS, log_every=1),
+                         batch_at=lambda s: tapi.batch_fn(s, shape), obs=obs)
+            t = time.perf_counter()
+            _, history = tr.run(init_state(params, tapi.optimizer))
+            runs[name] = (history, obs, time.perf_counter() - t)
+    finally:
+        torch.use_deterministic_algorithms(kept)
+    history, obs, secs = runs["obs"]
+    h = obs.registry.histogram("train_step_seconds").labels()
+    events = sum(e["name"] == "train_step" for e in obs.tracer.events)
+    same = history == runs["plain"][0]
+    print(f"  {ONLINE_TRAIN_STEPS} Adagrad steps of the migrated model through Trainer(obs=): "
+          f"step histogram count {h.count}, {events} train_step events, loss "
+          f"{history[0][1]:.5f} -> {history[-1][1]:.5f}, {secs / ONLINE_TRAIN_STEPS * 1e3:.2f} "
+          f"ms per step; losses bit-equal to the obs-off run {same}")
+    if h.count != ONLINE_TRAIN_STEPS or events != ONLINE_TRAIN_STEPS or not same:
+        _fail("Trainer(obs=) miscounts the steps or changes the loss")
+    return {"losses": [x for _, x in history], "ms_per_step": secs / ONLINE_TRAIN_STEPS * 1e3}
+
+
+def online_full_width(torch, planned, reqs, card):
+    """The [online] phase (module docstring, phase 14); returns its launch
+    counts."""
+    from repro_torch.configs import dlrm_criteo
+    from repro_torch.configs.common import Shape
+    from repro_torch.models.dlrm import _qr2, tables_for
+    from repro_torch.plan.freq import stats_from_criteo
+    from repro_torch.serve.quantize import table_bytes
+
+    t0 = time.perf_counter()
+    total = {name: 0 for name in _kernels()}
+    plan, cfg, qparams = planned
+    spec, _ = _online_stream()
+    with open(PLAN_REFERENCE) as f:
+        ref = json.load(f)["full_width"]
+    plan_stats = stats_from_criteo(spec, num_batches=ref["num_batches"],
+                                   batch_size=ref["batch_size"])
+    predicted, *calib = _online_calibrate(tables_for(cfg), plan_stats)
+    out = {"card": card, "readonly": _online_readonly(torch, cfg, qparams, reqs[:2048], total)}
+    ctrl, engine, last, out["loop"] = _online_loop(torch, cfg, qparams, plan, plan_stats,
+                                                   predicted, calib, total)
+    new_cfg = engine.cfg
+    migrated, qmigrated, out["migration"] = _online_migration(
+        torch, ctrl, cfg, qparams, new_cfg, engine.params)
+    out["fresh_vs_swapped"] = _online_fresh(torch, new_cfg, qmigrated, last[0], last[1], total)
+    del ctrl, engine
+
+    api, plain = dlrm_criteo.api(new_cfg), dlrm_criteo.api(
+        dataclasses.replace(new_cfg, use_kernel=False))
+    batches = [api.batch_fn(step, Shape("bench", 1, B, "train")) for step in EVAL_STEPS]
+    mods = tables_for(new_cfg)
+    n_qr = sum(_qr2(m) for m in mods)
+    if all(_qr2(m) for m in mods) and not migrated.get("proj"):
+        n_qr = 1                          # QR pairs alone: one grouped launch
+    base = torch.cuda.memory_allocated()
+    for mode, tables, lookup in (("f32", migrated, "qr_gather"),
+                                 ("int8", qmigrated, "qr_gather_quant")):
+        _add_counts(total, _eval_run(torch, api, plain, tables, batches, f"migrated {mode}",
+                                     lookup, n_qr, table_bytes(tables), base))
+    print(f"  migrated model one-hot: {n_qr} K1 / K5 (per QR pair) and 1 K2 per batch")
+    del qmigrated
+    out["train"] = _online_train(torch, new_cfg, migrated)
+    del migrated
+    out["seconds"] = time.perf_counter() - t0
+    print(f"  card: {card}; [online] {out['seconds']:.1f} s")
+    print(json.dumps({"online_profile": out}, default=str))
+    return total
 
 
 def _paper_device_profile(torch, pt, spec, warm=3, steps=5):
@@ -2457,8 +3014,13 @@ def main() -> int:
     print(f"  ({time.perf_counter() - t0:.0f} s so far)")
     print("[plan] full-width DLRM-Criteo solved under a byte budget over widths {4, 8, 16}: "
           "served, scored, trained, swapped in")
-    counts["plan"], plan_err, plan_wave = plan_full_width(torch, engine, reqs, card)
+    counts["plan"], plan_err, plan_wave, planned = plan_full_width(torch, engine, reqs, card)
     del engine
+    print(f"  ({time.perf_counter() - t0:.0f} s so far)")
+    print("[online] the planned model served with observability on, through drift, the "
+          "controller, migration and hot-swap; the migrated model scored and trained")
+    counts["online"] = online_full_width(torch, planned, reqs, card)
+    del planned
     print(f"  ({time.perf_counter() - t0:.0f} s so far)")
     print("[paper] paper_tables rows trained on the card, held against the CPU and the reference")
     counts["paper"] = paper_rows(torch, card)

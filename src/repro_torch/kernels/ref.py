@@ -179,9 +179,12 @@ def qr_gather_quant_grouped(idx, tables):
 
 @functools.lru_cache(maxsize=None)
 def _tril(f: int, device: torch.device):
-    """``np.tril_indices(f, k=-1)`` as tensors on ``device``, made once."""
+    """``np.tril_indices(f, k=-1)`` as tensors on ``device``, made once —
+    outside inference mode, so a first call from the serving engine (which
+    dispatches in it) caches tensors that autograd can still save."""
     i, j = np.tril_indices(f, k=-1)
-    return torch.as_tensor(i, device=device), torch.as_tensor(j, device=device)
+    with torch.inference_mode(False):
+        return torch.as_tensor(i, device=device), torch.as_tensor(j, device=device)
 
 
 def dot_interaction(x):

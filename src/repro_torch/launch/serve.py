@@ -12,12 +12,22 @@ reference launcher, or a memory plan of it: ``--plan PATH`` loads one
 (written by either package), ``--plan-budget-mb MB`` solves one at that
 table byte budget and ``--plan-dims mixed`` (or ``4,8,16``) over a width
 ladder (``launch/plan_cli.py``).
+
+Observability and online re-planning, as in the reference launcher:
+``--trace PATH`` writes a Chrome-trace JSON of per-wave stage timelines,
+``--metrics-out PATH`` the metrics registry as JSONL, and
+``--replan-interval N`` drains and runs one drift check every N requests,
+re-solving and hot-swapping the plan when drift persists, within
+``--replan-budget-mb`` (default: the plan's budget, else the f32 table
+footprint).  Each of them turns the engine's observability on.
+``--mesh-devices`` (sharded serving) waits for the port of ``dist``.
 """
 
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import itertools
 
 import numpy as np
 import torch
@@ -49,6 +59,17 @@ def _serve_rec(mod, args):
     from .plan_cli import resolve_plan_args
 
     device = torch.device(args.device)
+    sharded = bool(args.mesh_devices and args.mesh_devices > 1)
+    if args.replan_interval and sharded:
+        raise SystemExit("--replan-interval is single-host "
+                         "(swap_plan contract); drop --mesh-devices")
+    obs = None
+    if args.trace or args.metrics_out or args.replan_interval:
+        from ..obs import Obs
+        # the replan controller reads collision telemetry, so
+        # --replan-interval turns obs on even without --trace/--metrics-out
+        obs = Obs(trace=bool(args.trace), collisions=True)
+
     plan = resolve_plan_args(mod, args)
     cfg = mod.config(reduced=True, plan=plan) if plan is not None else mod.config(reduced=True)
     if hasattr(cfg, "use_kernel"):           # the DCN has no kernel route
@@ -75,12 +96,40 @@ def _serve_rec(mod, args):
         else:
             cache = HotRowCache(capacity_rows=cache_rows, capacity_bytes=cache_bytes)
     engine = RecsysEngine(cfg, qparams, max_batch=args.batch_size, cache=cache,
-                          batching=args.batching, device=device)
+                          batching=args.batching, device=device, obs=obs,
+                          mesh_devices=args.mesh_devices if sharded else None)
+
+    ctrl = None
+    if args.replan_interval:
+        from ..online import ReplanController
+        from ..plan.planner import full_table_bytes
+        # re-solve budget: explicit flag > the plan's own budget > the
+        # uncompressed f32 footprint ("no tighter than full tables")
+        if args.replan_budget_mb is not None:
+            budget = int(args.replan_budget_mb * 2 ** 20)
+        elif plan is not None:
+            budget = plan.budget_bytes
+        else:
+            budget = full_table_bytes(cfg.table_sizes, cfg.emb_dim)
+        ctrl = ReplanController(engine, budget_bytes=budget, quantize=args.quantize)
+        print(f"  replan: every {args.replan_interval} requests, budget {budget} B")
+
     rng = np.random.default_rng(0)
-    for dense, bags in request_stream(rng, cfg.table_sizes, cfg.dense_dim,
-                                      args.requests, args.max_bag):
-        engine.submit(dense, bags)
-    done = engine.run_until_drained()
+    stream = request_stream(rng, cfg.table_sizes, cfg.dense_dim, args.requests, args.max_bag)
+    interval = args.replan_interval or args.requests
+    done = {}
+    for _ in range(0, args.requests, interval):
+        for dense, bags in itertools.islice(stream, interval):
+            engine.submit(dense, bags)
+        done.update(engine.run_until_drained())
+        if ctrl is not None:
+            decision = ctrl.check()
+            if decision is not None and decision.fired:
+                rep = ctrl.replans[-1]
+                print(f"  replan: drift on features {decision.over} -> swapped plan "
+                      f"({rep['plan']['total_bytes']} B, kinds {rep['plan']['kinds']})")
+    if ctrl is not None:
+        print(f"  replan: {ctrl.checks} windows checked, {len(ctrl.replans)} plan swaps")
     m = engine.metrics()
     print(f"{args.arch}: served {len(done)} requests in {m['waves']} waves | "
           f"p50 {m['p50_ms']:.1f} ms  p99 {m['p99_ms']:.1f} ms  qps {m['qps']:.1f}")
@@ -88,6 +137,15 @@ def _serve_rec(mod, args):
         c = m["cache"]
         print(f"  cache: hit_rate {c['hit_rate']:.3f} ({c['hits']}/{c['lookups']}), "
               f"{c['bytes_cached']} B resident")
+    if obs is not None:
+        ss = engine.stage_summary()
+        parts = "  ".join(f"{s} {ss[s]['sum'] * 1e3 / max(1, ss[s]['count']):.2f}ms"
+                          for s in ("probe", "dense", "inflight", "miss_gather", "flush"))
+        print(f"  stages (mean/wave): {parts}")
+        obs.save(metrics_path=args.metrics_out, trace_path=args.trace)
+        for p in (args.metrics_out, args.trace):
+            if p:
+                print(f"  obs: wrote {p}")
     for uid in sorted(done)[:3]:
         print(f"  req {uid}: score {done[uid].score:+.4f}")
     return done
@@ -114,6 +172,23 @@ def main(argv=None):
                          "earlier waves settle), 'waves' is the lock-step scheduler")
     ap.add_argument("--max-bag", type=int, default=4,
                     help="max multi-hot ids per categorical feature")
+    ap.add_argument("--mesh-devices", type=int, default=None,
+                    help="serve the tables sharded across this many devices (not "
+                         "ported yet: ROADMAP item 16)")
+    ap.add_argument("--trace", default=None, metavar="PATH",
+                    help="write a Chrome-trace/Perfetto JSON of per-wave stage "
+                         "timelines to PATH (implies obs on)")
+    ap.add_argument("--metrics-out", default=None, metavar="PATH",
+                    help="write the metrics registry as JSONL to PATH (implies obs on)")
+    ap.add_argument("--replan-interval", type=int, default=None,
+                    help="run the online drift controller: drain and run one detector "
+                         "check every N requests, re-solving and hot-swapping the plan "
+                         "when drift persists (single device; implies obs on; off by "
+                         "default)")
+    ap.add_argument("--replan-budget-mb", type=float, default=None,
+                    help="byte budget for online re-solves in MiB (default: the current "
+                         "plan's budget, or the f32 table footprint when serving "
+                         "unplanned)")
     ap.add_argument("--device", default="cuda", help="torch device to serve on")
     add_plan_args(ap)
     args = ap.parse_args(argv)

@@ -140,11 +140,13 @@ def _qr2(mod) -> bool:
 def _embed_grouped(table_params, sparse_idx, modules, mask, proj):
     """The embed stage in one kernel launch — K4 over every table for
     multi-hot ids, K5 (int8) or K1 (dense) for one-hot ids — as a ``(B, F,
-    D)`` tensor, or None where the per-table route stays: a table kind the
-    fused kernels do not take, or a set of tables they cannot serve
-    together (``ops``' rules: one-hot takes only QR pairs, all int8 or all
-    dense of one dtype)."""
-    specs = []
+    D)`` tensor, or None where the per-table route stays: a set of tables
+    the fused kernels cannot serve together (``ops``' rules: one-hot takes
+    only QR pairs, all int8 or all dense of one dtype).  Multi-hot tables of
+    a kind K4 does not take (a mixed-radix, CRT or path-based table, a
+    concat pair) pool through ``bag_pool`` beside the one launch over all
+    the others; one-hot, any such table keeps the per-table route."""
+    specs, rest = [], []
     for i, (mod, tp) in enumerate(zip(modules, table_params)):
         w = None if proj is None else proj.get(str(i))
         if _qr2(mod):
@@ -153,10 +155,27 @@ def _embed_grouped(table_params, sparse_idx, modules, mask, proj):
             m = mod.m if isinstance(mod, HashEmbedding) else 0
             specs.append((tp["table"], None, m, "mult", w))
         else:
-            return None
-    if sparse_idx.dim() == 3:
+            specs.append(None)
+            rest.append(i)
+    if sparse_idx.dim() != 3:
+        return None if rest else ops.qr_lookup_grouped(sparse_idx, specs)
+    if not rest:
         return ops.serve_bag_pool_grouped(sparse_idx, mask, specs)
-    return ops.qr_lookup_grouped(sparse_idx, specs)
+    kernel = [i for i, spec in enumerate(specs) if spec is not None]
+    if not kernel:
+        return None
+    sel = torch.as_tensor(kernel, device=sparse_idx.device)
+    pooled = ops.serve_bag_pool_grouped(sparse_idx[:, sel], None if mask is None else mask[:, sel],
+                                        [specs[i] for i in kernel])
+    if pooled is None:
+        return None
+    feats = dict(zip(kernel, pooled.unbind(1)))
+    for i in rest:
+        idx = sparse_idx[:, i, :]
+        mk = mask[:, i, :] if mask is not None \
+            else torch.ones(idx.shape, dtype=torch.float32, device=idx.device)
+        feats[i] = _project(bag_pool(modules[i], table_params[i], idx, mk), proj, i)
+    return torch.stack([feats[i] for i in range(len(modules))], dim=1)
 
 
 def embed_features(table_params, sparse_idx, cfg, modules=None, mask=None, proj=None):

@@ -32,12 +32,17 @@ variable-length multi-hot id bag per categorical feature.  The engine:
   ``HotRowCache`` also works (rows pooled on the host, the compatibility
   path);
 * tracks per-wave dispatch→ready wall time → **p50/p99 latency and QPS**
-  via ``metrics()``.
+  via ``metrics()``;
+* with ``obs=Obs(...)`` (``repro_torch.obs``), partitions each wave's
+  latency into stages (``STAGES``) in the metrics registry and the
+  tracer, and records the served ids into the collision telemetry from
+  the host arrays each wave is padded into (never a read back from the
+  device).  With ``obs=None`` the engine makes no extra clock read and
+  does no registry work.
 
 Deterministic given (params, request stream): no sampling, logical-clock
-cache, fixed bucket grid, sorted unique keys.  Sharded serving, memory
-plans and observability are not ported yet; their constructor arguments
-raise when given.
+cache, fixed bucket grid, sorted unique keys.  Sharded serving is not
+ported yet; its constructor arguments raise when given.
 """
 
 from __future__ import annotations
@@ -63,8 +68,7 @@ BATCHING_MODES = ("continuous", "waves")
 # (``plan=`` feeds the reference's sharded placement; a planned model is
 # served by building its config from the plan)
 _NOT_PORTED = {"mesh": "16 (dist/)", "mesh_devices": "16 (dist/)",
-               "placement": "16 (dist/)", "plan": "16 (dist/: sharded placement)",
-               "obs": "14 (obs/)"}
+               "placement": "16 (dist/)", "plan": "16 (dist/: sharded placement)"}
 
 _FEATURE_SHIFT = 44  # packed key: (feature << 44) | canonical row id
 # ceiling on the device slot map (int32 per cacheable row, 64 MiB):
@@ -72,8 +76,11 @@ _FEATURE_SHIFT = 44  # packed key: (feature << 44) | canonical row id
 # probe and use the exact host-side lookup instead
 _SLOT_MAP_ROWS_MAX = 1 << 24
 
-# the reference's per-wave stage names (its observability partitions a
-# wave's latency into these); the port has no observability yet
+# stage names: the five partition stages tile the measured wave-latency
+# interval [dispatch t0, reap t1] with contiguous boundary timestamps, so
+# their sum equals the recorded latency by construction; queue_wait and pad
+# happen before t0 and ride along as extra, non-partition stages.  flush is
+# the wait for the device (the scores' copy to the host)
 STAGE_PARTITION = ("probe", "dense", "inflight", "miss_gather", "flush")
 STAGES = ("queue_wait", "pad") + STAGE_PARTITION
 
@@ -91,6 +98,7 @@ class RecRequest:
     bags: list[list[int]]          # one multi-hot id bag per categorical
     score: Optional[float] = None
     done: bool = False
+    t_submit: Optional[float] = None   # monotonic enqueue time (obs on only)
 
 
 def _next_pow2(n: int) -> int:
@@ -141,7 +149,7 @@ class RecsysEngine:
         if batching not in BATCHING_MODES:
             raise ValueError(f"batching={batching!r} not in {BATCHING_MODES}")
         given = {"mesh": mesh, "mesh_devices": mesh_devices,
-                 "placement": placement, "plan": plan, "obs": obs}
+                 "placement": placement, "plan": plan}
         for name, value in given.items():
             if value is not None:
                 raise NotImplementedError(
@@ -170,6 +178,23 @@ class RecsysEngine:
         self.cache_paths = dict.fromkeys(_CACHE_PATHS, 0)
         self._t_first: Optional[float] = None
         self._t_last: Optional[float] = None
+
+        # observability: everything below is skipped when obs is None (the
+        # off-by-default contract: obs-off waves take no extra clock read
+        # and no registry work, which keeps the obs lane's QPS comparison
+        # honest)
+        self._obs = obs
+        if obs is not None:
+            obs.attach_collisions(cfg.table_sizes)
+            # label handles bound once: the hot path never hashes a dict
+            hs = obs.histogram("serve_stage_seconds",
+                               "per-wave stage durations (see STAGES)")
+            self._h_stage = {s: hs.labels(stage=s) for s in STAGES}
+            self._h_wave = obs.histogram(
+                "serve_wave_latency_seconds",
+                "dispatch->ready wall time per wave").labels()
+            self._c_req = obs.counter("serve_requests_total", "requests scored").labels()
+            self._c_waves = obs.counter("serve_waves_total", "waves dispatched").labels()
 
     # ------------------------------------------------------------- model
 
@@ -331,7 +356,9 @@ class RecsysEngine:
                 raise ValueError(f"feature {i}: ids must lie in [0, {size})")
         uid = self._next_uid
         self._next_uid += 1
-        self._queue.append(RecRequest(uid, np.asarray(dense, np.float32), bags))
+        self._queue.append(RecRequest(
+            uid, np.asarray(dense, np.float32), bags,
+            t_submit=time.monotonic() if self._obs is not None else None))
         return uid
 
     # ------------------------------------------------------------- batching
@@ -568,8 +595,16 @@ class RecsysEngine:
     # ------------------------------------------------------------- execution
 
     def _dispatch(self, wave: list[RecRequest]) -> None:
+        obs = self._obs
+        tq = time.monotonic() if obs is not None else None
         dense, idx, mask = self._pad_wave(wave)
         t0 = time.monotonic()
+        if obs is not None and obs.collisions is not None:
+            # raw served ids for the measured collision mass, from the host
+            # arrays this wave was padded into (made anew for every wave)
+            obs.collisions.record(idx, mask, live_rows=len(wave))
+        span = obs.tracer.range_begin("wave") if obs is not None and obs.tracer is not None \
+            else None
         check = None
         with torch.inference_mode():
             if isinstance(self.cache, DeviceHotRowCache):
@@ -585,12 +620,21 @@ class RecsysEngine:
                 self.cache_paths["host"] += 1
             else:
                 feats = self._embed_fwd(self._host(idx), self._host(mask))
+            ta = time.monotonic() if obs is not None else None
             logits = self._dense_fwd(self._host(dense), feats)
         self._t_first = t0 if self._t_first is None else self._t_first
-        self._inflight.append((wave, logits, t0, check))
+        oi = None
+        if obs is not None:
+            tb = time.monotonic()
+            waits = [tq - r.t_submit for r in wave if r.t_submit is not None]
+            oi = {"tq": tq, "t0": t0, "ta": ta, "tb": tb,
+                  "queue_wait": max(waits) if waits else 0.0,
+                  "n": len(wave), "bb": idx.shape[0], "lb": idx.shape[2], "span": span}
+        self._inflight.append((wave, logits, t0, check, oi))
 
     def _reap(self) -> list[RecRequest]:
-        wave, logits, t0, check = self._inflight.popleft()
+        wave, logits, t0, check, oi = self._inflight.popleft()
+        tc = time.monotonic() if oi is not None else None
         if check is not None:
             # settle the speculative probe: its miss count is ready once the
             # wave's own launches have run
@@ -604,11 +648,14 @@ class RecsysEngine:
             else:
                 self.cache.stats.hits += int((mask > 0).sum())
                 self.cache_paths["fast"] += 1
+        td = time.monotonic() if oi is not None else None
         logits = logits.to("cpu", torch.float32).numpy()  # waits for the device
         t1 = time.monotonic()
         self._t_last = t1
         self.wave_latencies_s.append(t1 - t0)
         self.wave_sizes.append(len(wave))
+        if oi is not None:
+            self._record_wave(oi, tc, td, t1)
         for b, r in enumerate(wave):  # padded rows beyond len(wave) discarded
             r.score = float(logits[b])
             r.done = True
@@ -637,18 +684,65 @@ class RecsysEngine:
 
     # ------------------------------------------------------------- metrics
 
+    def _record_wave(self, oi: dict, tc: float, td: float, t1: float) -> None:
+        """Fold one reaped wave's boundary timestamps into the registry
+        (and tracer).  The five partition stages tile [t0, t1] exactly:
+        probe (embed / cache-probe launches), dense (dense launches),
+        inflight (the pipeline gap until reap), miss_gather (settling the
+        speculative probe: recompute on miss, accounting on hit), flush
+        (the wait for the device as the scores come to the host)."""
+        obs = self._obs
+        t0, ta, tb = oi["t0"], oi["ta"], oi["tb"]
+        stages = (("queue_wait", oi["tq"] - oi["queue_wait"], oi["queue_wait"]),
+                  ("pad", oi["tq"], t0 - oi["tq"]),
+                  ("probe", t0, ta - t0),
+                  ("dense", ta, tb - ta),
+                  ("inflight", tb, tc - tb),
+                  ("miss_gather", tc, td - tc),
+                  ("flush", td, t1 - td))
+        for name, _, dur in stages:
+            self._h_stage[name].observe(dur)
+        self._h_wave.observe(t1 - t0)
+        self._c_req.inc(oi["n"])
+        self._c_waves.inc()
+        if obs.tracer is not None:
+            tr = obs.tracer
+            tr.range_end(oi["span"])
+            tr.complete("wave", t0, t1 - t0, requests=oi["n"], batch=oi["bb"], bag=oi["lb"])
+            for name, ts, dur in stages:
+                tr.complete(name, ts, dur)
+
+    def stage_summary(self) -> dict:
+        """Per-stage latency summaries plus the partition check: the five
+        partition stages sum to the recorded wave latency (the same clock
+        reads, contiguous boundaries)."""
+        if self._obs is None:
+            raise RuntimeError("stage_summary() needs an Obs-enabled engine")
+        out = {s: self._h_stage[s].summary() for s in STAGES}
+        stage_sum = sum(out[s]["sum"] for s in STAGE_PARTITION)
+        lat = self._h_wave.summary()
+        out["partition"] = {
+            "stage_sum_s": stage_sum,
+            "latency_sum_s": lat["sum"],
+            "ratio": (stage_sum / lat["sum"]) if lat["sum"] else 1.0,
+        }
+        return out
+
     def reset_metrics(self) -> None:
         """Drop timing history, branch counts and the cache's traffic
         counters (after warm-up, so p50/p99 and hit rates measure steady
         serving rather than first launches and cold fills).  Cache
         residency (``bytes_cached``) survives: the rows are still
-        resident."""
+        resident.  The registry's ``serve_*`` series reset too; bound label
+        handles stay live."""
         self.wave_latencies_s = []
         self.wave_sizes = []
         self._t_first = self._t_last = None
         self.cache_paths = dict.fromkeys(_CACHE_PATHS, 0)
         if self.cache is not None:
             self.cache.stats = CacheStats(bytes_cached=self.cache.stats.bytes_cached)
+        if self._obs is not None:
+            self._obs.registry.reset(prefix="serve_")
 
     def compile_count(self) -> dict:
         """Distinct input-shape signatures each program has run since the
@@ -676,4 +770,10 @@ class RecsysEngine:
         if self.cache is not None:
             out["cache"] = self.cache.stats.as_dict()
             out["cache_paths"] = dict(self.cache_paths)
+            if self._obs is not None:
+                # fold residency + traffic into gauges at scrape time (never
+                # per wave: this walk is not hot-path work)
+                g = self._obs.gauge("serve_cache_stat", "hot-row cache stats at last scrape")
+                for k, v in out["cache"].items():
+                    g.set(float(v), stat=k)
         return out

@@ -11,7 +11,10 @@
   skipped).
 * **straggler watchdog** — per-step wall time is tracked; steps slower
   than ``watchdog_factor ×`` the running median are logged as straggler
-  events.
+  events;
+* **observability** — with ``obs=Obs(...)`` each step lands in a step-time
+  histogram, the steps and straggler counters and, with tracing on, a
+  ``train_step`` event; with ``obs=None`` none of it runs.
 
 The step is functional, as the reference's jitted step is: it returns a
 new state of plain tensors (no autograd graph) and leaves the old one as
@@ -124,12 +127,9 @@ class Trainer:
     def __init__(self, train_step, cfg: TrainConfig, *,
                  batch_at: Callable[[int], Any], obs=None, step_wire=None):
         """``train_step`` from ``make_train_step``; ``batch_at(step)`` the
-        batch of a step.  ``obs`` (per-step spans and counters) and
-        ``step_wire`` (accounted collective bytes) wait for their modules'
-        port and raise if given."""
-        if obs is not None:
-            raise NotImplementedError("training observability needs repro_torch.obs "
-                                      "(ROADMAP, modules to port: item 14)")
+        batch of a step.  ``obs`` (a ``repro_torch.obs.Obs``) turns on
+        per-step spans and counters; ``step_wire`` (accounted collective
+        bytes) waits for the port of ``dist`` and raises if given."""
         if step_wire is not None:
             raise NotImplementedError("per-leaf wire counters need repro_torch.dist "
                                       "(ROADMAP, modules to port: item 16)")
@@ -139,6 +139,13 @@ class Trainer:
         self.checkpointer = (ckpt.AsyncCheckpointer(cfg.ckpt_dir, keep=cfg.keep)
                              if cfg.ckpt_dir else None)
         self.straggler_events: list[tuple[int, float]] = []
+        self._obs = obs
+        if obs is not None:
+            self._h_step = obs.histogram("train_step_seconds", "per-step wall time").labels()
+            self._c_steps = obs.counter("train_steps_total", "optimizer steps taken").labels()
+            self._c_strag = obs.counter(
+                "train_straggler_events_total",
+                "steps slower than watchdog_factor x running median").labels()
 
     def resume_or(self, state):
         """Resume from the newest valid checkpoint, else the given state."""
@@ -164,11 +171,20 @@ class Trainer:
             state, metrics = self.train_step(state, batch)
             _block_until_ready(metrics["loss"])
             dt = time.monotonic() - t0
+            straggled = False
             if len(durations) >= 5:
                 med = statistics.median(durations[-50:])
                 if dt > cfg.watchdog_factor * med:
                     self.straggler_events.append((step, dt / med))
+                    straggled = True
             durations.append(dt)
+            if self._obs is not None:
+                self._h_step.observe(dt)
+                self._c_steps.inc()
+                if straggled:
+                    self._c_strag.inc()
+                if self._obs.tracer is not None:
+                    self._obs.tracer.complete("train_step", t0, dt, step=step)
             if step % cfg.log_every == 0 or step == cfg.num_steps - 1:
                 history.append((step, float(metrics["loss"])))
             if self.checkpointer and (step + 1) % cfg.ckpt_every == 0:

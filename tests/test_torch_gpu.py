@@ -1063,3 +1063,136 @@ def test_examples_run_on_the_card(cuda, tmp_path, capsys):
     capsys.readouterr()
     train_dlrm_criteo.main(argv + ["--steps", "5"])
     assert capsys.readouterr().out.splitlines()[1] == "resumed from step 3"
+
+
+# ------------------------------------------------ observability and online
+
+
+def _online_requests(rng, sizes, n, spread=False):
+    return [(rng.normal(size=13),
+             [list(np.floor(rng.random(3) ** (0.7 if spread else 3.0) * s).astype(int)
+                   + (s // 2 if spread else 0)) for s in sizes]) for _ in range(n)]
+
+
+def _wrap_ids(reqs, sizes):
+    return [(d, [[int(i) % s for i in bag] for bag, s in zip(bags, sizes)]) for d, bags in reqs]
+
+
+def _served(engine, reqs):
+    uids = [engine.submit(d, b) for d, b in reqs]
+    done = engine.run_until_drained()
+    return np.array([done[u].score for u in uids])
+
+
+@pytest.mark.parametrize("batching", ["continuous", "waves"])
+def test_obs_is_read_only_on_the_card(cuda, batching):
+    """The planned model served int8 with the kernels on, obs off and on
+    (trace, collisions, profiler ranges): scores equal bit for bit, one
+    grouped K4 and one K2 per wave either way, the partition ratio 1."""
+    from repro_torch.obs import Obs
+
+    sizes = (100, 500, 33, 2000)
+    cfg = _mixed_plan_cfg(sizes)
+    qp = quantize_params(dlrm_init(cfg, torch.Generator(device=cuda).manual_seed(0), cuda))
+    reqs = _wrap_ids(_online_requests(np.random.default_rng(1), sizes, 200), sizes)
+    out = {}
+    for name, obs in (("off", None), ("on", Obs(trace=True, collisions=True,
+                                                profiler_annotations=True))):
+        eng = RecsysEngine(cfg, qp, max_batch=32, batching=batching, obs=obs)
+        k4, k2 = serve_path.fused_serve_pool.launches, dot_interaction.dot_interaction.launches
+        scores = _served(eng, reqs)
+        waves = eng.metrics()["waves"]
+        assert serve_path.fused_serve_pool.launches - k4 == waves
+        assert dot_interaction.dot_interaction.launches - k2 == waves
+        out[name] = scores, waves, eng
+    np.testing.assert_array_equal(out["on"][0], out["off"][0])
+    assert out["on"][1] == out["off"][1]
+    ss = out["on"][2].stage_summary()
+    assert ss["partition"]["ratio"] == pytest.approx(1.0, abs=1e-9)
+    assert all(ss[s]["count"] == out["on"][1] for s in ("probe", "dense", "flush"))
+
+
+def test_migration_on_the_card_equals_the_cpu(cuda):
+    """``migrate_params`` of int8 planned params on the card equals the same
+    call on CPU copies: f32 within 1e-5 of each leaf's largest |value|, the
+    report equal."""
+    from repro_torch import tree
+    from repro_torch.online import migrate_params
+    from repro_torch.plan import build_plan, full_table_bytes, power_law_stats
+    from repro_torch.serve.recsys import _to_device
+
+    sizes = (100, 500, 33, 2000)
+    old_cfg = _mixed_plan_cfg(sizes)
+    stats = [power_law_stats(n, alpha=0.8) for n in sizes]
+    new_cfg = dataclasses.replace(old_cfg, embedding=build_plan(
+        stats, 16, int(full_table_bytes(sizes, 16) * 0.125), dims=(4, 8, 16)))
+    old = quantize_params(dlrm_init(old_cfg, torch.Generator().manual_seed(0), "cpu"))
+    fresh = dlrm_init(new_cfg, torch.Generator().manual_seed(1), "cpu")
+    got, grep = migrate_params(old_cfg, _to_device(old, cuda), new_cfg, _to_device(fresh, cuda))
+    want, wrep = migrate_params(old_cfg, old, new_cfg, fresh)
+    assert grep == wrep and grep["counts"].get("folded")
+    for g, w in zip(tree.leaves(got), tree.leaves(want)):
+        assert g.is_cuda and g.shape == w.shape and g.dtype == w.dtype
+        tol = 1e-5 * max(1.0, float(w.abs().max()))
+        torch.testing.assert_close(g.cpu(), w, rtol=0, atol=tol)
+
+
+def test_controller_swap_keeps_one_k4_and_one_k2_per_wave_on_the_card(cuda):
+    """A forced re-plan through the controller on the card: after the swap
+    the engine's waves launch K2 once per dense stage and K4 on every wave
+    the tables served; a fresh cache-off engine on the same migrated int8
+    params serves one grouped K4 and one K2 per wave, with scores within
+    1e-4 of the swapped engine's."""
+    from repro_torch.obs import Obs
+    from repro_torch.online import ReplanController
+    from repro_torch.plan import full_table_bytes
+
+    sizes = (100, 500, 33, 2000)
+    cfg = dataclasses.replace(_mixed_plan_cfg(sizes), name="dlrm-criteo")
+    qp = quantize_params(dlrm_init(cfg, torch.Generator().manual_seed(0), "cpu"))
+    eng = RecsysEngine(cfg, qp, max_batch=32, batching="waves", obs=Obs(collisions=True),
+                       cache=DeviceHotRowCache(1 << 12))
+    rng = np.random.default_rng(3)
+    _served(eng, _wrap_ids(_online_requests(rng, sizes, 96), sizes))
+    ctrl = ReplanController(eng, budget_bytes=int(full_table_bytes(sizes, 16) * 0.125),
+                            dims=(4, 8, 16), quantize="int8")
+    assert ctrl.check() is None                      # the bootstrap window
+    _served(eng, _wrap_ids(_online_requests(rng, sizes, 96, spread=True), sizes))
+    rep = ctrl.replan()
+    assert rep["plan"]["total_bytes"] <= rep["plan"]["budget_bytes"]
+    assert eng.params["tables"][0] is not qp["tables"][0]
+    reqs = _wrap_ids(_online_requests(rng, sizes, 160, spread=True), sizes)
+    eng.reset_metrics()
+    k4, k2 = serve_path.fused_serve_pool.launches, dot_interaction.dot_interaction.launches
+    swapped = _served(eng, reqs)
+    m = eng.metrics()
+    assert serve_path.fused_serve_pool.launches - k4 == m["cache_paths"]["ingraph"]
+    assert dot_interaction.dot_interaction.launches - k2 == \
+        m["waves"] + m["cache_paths"]["probe_missed"]
+    fresh = RecsysEngine(eng.cfg, eng.params, max_batch=32, batching="waves")
+    k4, k2 = serve_path.fused_serve_pool.launches, dot_interaction.dot_interaction.launches
+    np.testing.assert_allclose(_served(fresh, reqs), swapped, rtol=0, atol=1e-4)
+    waves = fresh.metrics()["waves"]
+    assert serve_path.fused_serve_pool.launches - k4 == waves
+    assert dot_interaction.dot_interaction.launches - k2 == waves
+
+
+def test_mixed_radix_tables_keep_one_grouped_k4_per_wave(cuda):
+    """Mixed-radix tables (which a re-solved plan may hold) pool beside one
+    grouped K4 over the other tables: one K4 and one K2 per wave, scores
+    within 1e-4 of the plain engine."""
+    sizes = (1000, 500, 33, 2000)
+    cfg = DLRMConfig(table_sizes=sizes, emb_dim=16, bottom_mlp=(32, 16), top_mlp=(32,),
+                     embedding=EmbeddingSpec(kind="mixed_radix", threshold=100),
+                     use_kernel=True)
+    qp = quantize_params(dlrm_init(cfg, torch.Generator().manual_seed(0), "cpu"))
+    reqs = _wrap_ids(_online_requests(np.random.default_rng(4), sizes, 100), sizes)
+    eng = RecsysEngine(cfg, qp, max_batch=32, batching="waves")
+    k4, k2 = serve_path.fused_serve_pool.launches, dot_interaction.dot_interaction.launches
+    got = _served(eng, reqs)
+    waves = eng.metrics()["waves"]
+    assert serve_path.fused_serve_pool.launches - k4 == waves
+    assert dot_interaction.dot_interaction.launches - k2 == waves
+    plain = RecsysEngine(dataclasses.replace(cfg, use_kernel=False), qp, max_batch=32,
+                         batching="waves")
+    np.testing.assert_allclose(got, _served(plain, reqs), rtol=0, atol=1e-4)

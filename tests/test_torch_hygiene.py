@@ -48,7 +48,8 @@ def test_serving_stack_import_leaves_jax_out():
             "repro_torch.benchmarks.run, repro_torch.benchmarks.paper_tables, "
             "repro_torch.benchmarks.kernels_bench, repro_torch.examples.quickstart, "
             "repro_torch.examples.train_dlrm_criteo, repro_torch.serve.cache, "
-            "repro_torch.benchmarks.serve_bench, repro_torch.benchmarks.serve_soak; "
+            "repro_torch.benchmarks.serve_bench, repro_torch.benchmarks.serve_soak, "
+            "repro_torch.obs, repro_torch.online, repro_torch.benchmarks.drift_bench; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'repro')); "
             "assert not bad, bad")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))

@@ -95,3 +95,16 @@ def test_plain_triangle_indices_are_made_once_per_size_and_device():
     assert (info.misses, info.hits) == (2, 2)
     i, j = ref._tril(7, torch.device("cpu"))
     np.testing.assert_array_equal(np.stack([i.numpy(), j.numpy()]), np.tril_indices(7, k=-1))
+
+
+def test_triangle_indices_cached_under_inference_mode_stay_differentiable():
+    """The serving engine dispatches under ``torch.inference_mode``; the
+    triangle indices it caches first must still serve a later training
+    step, which autograd differentiates through the same plain version."""
+    f = 11                                       # a size no other test caches
+    with torch.inference_mode():
+        ref.dot_interaction(torch.ones((2, f, 4)))
+    x = torch.randn((3, f, 4), requires_grad=True)
+    ref.dot_interaction(x).sum().backward()
+    want = torch.autograd.functional.jacobian(lambda t: ref.dot_interaction(t).sum(), x)
+    torch.testing.assert_close(x.grad, want)

@@ -73,7 +73,7 @@ def test_engine_refuses_what_is_not_ported():
     _, tcfg = _cfgs()
     params = {"tables": [], "bottom": [], "top": []}
     for kw, item in (({"mesh_devices": 2}, "16"),
-                     ({"plan": object()}, "16"), ({"obs": object()}, "14"),
+                     ({"plan": object()}, "16"),
                      ({"placement": object()}, "16"), ({"mesh": object()}, "16")):
         with pytest.raises(NotImplementedError, match=f"item {item}"):
             RecsysEngine(tcfg, params, device="cpu", **kw)

@@ -288,19 +288,26 @@ def test_engine_refuses_a_cache_on_another_device():
 
 
 def test_serve_bench_runs_its_checks_on_the_cpu(tmp_path, capsys, monkeypatch):
-    """The bench's grid (2 archs x 3 modes x cache off / on) and its
-    acceptance checks at a few steps and requests.  The p99 bound is a
-    timing check, held here on fixed reports: a loaded CPU can stall one
-    wave past it."""
+    """The bench's grid (2 archs x 3 modes x cache off / on, and int8 in
+    waves batching), its obs lane and its acceptance checks at a few steps
+    and requests.  The p99 bound and the obs lane's QPS ratio are timing
+    checks, held here on fixed reports: a loaded CPU can stall one wave
+    past them."""
     import json
 
     from repro_torch.benchmarks import serve_bench
 
+    monkeypatch.chdir(tmp_path)
     report = serve_bench.bench(2, 24, 32, device="cpu")
-    assert len(report["rows"]) == 12
-    assert {(r["arch"], r["mode"], r["cache"]) for r in report["rows"]} == {
-        (a, m, c) for a in serve_bench.ARCHS for m in serve_bench.MODES for c in ("off", "on")}
-    assert [m for _, m in serve_bench.check(report) if not m.startswith("p99")] == []
+    assert len(report["rows"]) == 16
+    assert {(r["arch"], r["mode"], r["cache"], r["batching"]) for r in report["rows"]} == {
+        (a, m, c, b) for a in serve_bench.ARCHS for m in serve_bench.MODES for c in ("off", "on")
+        for b in (("continuous", "waves") if m == "int8" else ("continuous",))}
+    assert [m for _, m in serve_bench.check(report)
+            if not m.startswith(("p99", "obs-on best paired qps ratio"))] == []
+    assert [(r["arch"], r["batching"]) for r in report["obs_rows"]] == [
+        (a, b) for a in serve_bench.ARCHS for b in ("continuous", "waves")]
+    assert set(report["collision_tables"]) == set(serve_bench.ARCHS)
     for r in report["rows"]:
         assert (r["hit_rate"] > 0) if r["cache"] == "on" else r["hit_rate"] is None
         if r["mode"] == "int8":
@@ -310,10 +317,17 @@ def test_serve_bench_runs_its_checks_on_the_cpu(tmp_path, capsys, monkeypatch):
     assert {m.split()[0] for _, m in serve_bench.check({"rows": [bad]})} == {"p99", "loss",
                                                                              "cache"}
     out = tmp_path / "bench.json"
-    monkeypatch.setattr(serve_bench, "bench", lambda *a: dict(report, rows=[row]))
+    obs_rows = [dict(r, qps_ratio=1.0) for r in report["obs_rows"]]
+    monkeypatch.setattr(serve_bench, "bench",
+                        lambda *a: dict(report, rows=[row], obs_rows=obs_rows))
     assert serve_bench.main(["--device", "cpu", "--out", str(out)]) == 0
     assert json.loads(out.read_text())["checks_failed"] == []
-    assert "serve/dlrm-criteo/int8/cache_on/continuous" in capsys.readouterr().out
+    summary = json.loads((tmp_path / "artifacts" / "bench_torch" / "BENCH_obs.json").read_text())
+    assert summary["acceptance"]["all_checks_passed"] and len(summary["lanes"]) == 4
+    assert not list(tmp_path.glob("BENCH_*.json"))
+    printed = capsys.readouterr().out
+    assert "serve/dlrm-criteo/int8/cache_on/continuous" in printed
+    assert "serve/dlrm-criteo/obs/waves" in printed
 
 
 def test_serve_soak_runs_and_gates_on_its_baseline(tmp_path, monkeypatch):

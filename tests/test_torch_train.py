@@ -235,7 +235,17 @@ def test_training_reduces_loss():
     assert np.mean(losses[-10:]) < np.mean(losses[:10]) - 0.05
 
 
-def test_watchdog_flags_straggler():
+@pytest.fixture
+def one_thread():
+    """One intra-op thread: a wall-clock test must not time the spinning of
+    idle threads while other test processes load the host."""
+    kept = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(kept)
+
+
+def test_watchdog_flags_straggler(one_thread):
     opt = topt.adagrad(1e-2)
     state = tloop.init_state(tdlrm.dlrm_init(CFG, torch.Generator().manual_seed(0), "cpu"), opt)
     batches = _ref_batches(12, 32)
@@ -256,9 +266,8 @@ def test_watchdog_flags_straggler():
 
 def test_trainer_refuses_what_is_not_ported():
     step = tloop.make_train_step(_loss_fn, topt.adagrad(1e-2))
-    for kw, item in (({"obs": object()}, "item 14"), ({"step_wire": {}}, "item 16")):
-        with pytest.raises(NotImplementedError, match=item):
-            tloop.Trainer(step, tloop.TrainConfig(), batch_at=lambda s: None, **kw)
+    with pytest.raises(NotImplementedError, match="item 16"):
+        tloop.Trainer(step, tloop.TrainConfig(), batch_at=lambda s: None, step_wire={})
 
 
 # ------------------------------------------------------- loader and config api
