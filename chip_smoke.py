@@ -145,7 +145,37 @@ Phases (any failure exits non-zero, and no result line is printed):
    ``Trainer(obs=Obs(trace=True))`` (20 histogram samples and
    ``train_step`` events, losses bit-equal to an obs-off run with
    deterministic algorithms).  ``drift_bench`` runs on its own;
-15. run the paper's §5 experiment (``repro_torch.benchmarks.paper_tables``)
+15. ``[sweep]``: run ``examples/compression_sweep.py`` on the card at its
+   defaults — the full tables, then the plan and the uniform-hash control
+   at 4 budgets (0.05 to 0.5 of the f32 tables), 9 models of 10 reduced
+   tables trained 250 Adagrad steps at B=256 from CPU-drawn parameters on
+   CPU-drawn batches — and hold every plan field for field, and every
+   held-out loss within its row's tolerance, to the JAX package's run on
+   the port's stream (``src/repro_torch/benchmarks/reference_sweep.json``
+   from ``tools/sweep_reference.py``: 0.02, or 1.5 times the row's
+   JAX-vs-port-CPU gap where that is larger); print whether the quality
+   proxy's order agrees with the trained order per budget;
+16. ``[dist]``: the data-parallel step with compressed gradient exchange
+   on the full-width DLRM-Criteo (Adagrad 1e-2, global batch 256), in
+   spawned worlds: (a) NCCL, a world of one — per policy (none, bf16,
+   int8, auto) ``init_dp_state`` + ``make_dp_train_step`` for 5 steps, the
+   "none" step's gradients, parameters and Adagrad state against
+   ``make_train_step``'s (1e-6 of each leaf's largest |value|), the NCCL
+   calls ``dist.wire`` recorded (0 bytes at n = 1); (b) gloo, a world of
+   4 with every rank on cuda:0 (NCCL takes one rank per card) — per policy
+   5 steps with the replicas' parameters bitwise equal after each (gathered
+   checksums), recorded bytes equal to ``dp_step_wire_bytes`` within 10%,
+   int8 / none below 0.30, ``ef_psum_grads`` on the card equal to the same
+   call on the CPU in the same world (int8 and bf16 bit for bit, none
+   within 1e-6), "none" against one device on the whole batch (1e-4 of
+   each leaf's largest |g|); (c) the "auto" steps through
+   ``Trainer(obs=, step_wire=)`` (counters = 5 × each leaf's accounted
+   bytes, within 10% of the bytes recorded for it) and the training
+   launcher at full width as a world of one; then the tables trained under
+   "auto" scored on the 12 held-out batches through one K1 and one K2 per
+   batch, against the plain path (1e-4).  Wall ms per step per policy and
+   world beside the card's name and power limit;
+17. run the paper's §5 experiment (``repro_torch.benchmarks.paper_tables``)
    on the card for ``PAPER_ROWS``: fig4's six rows (DLRM and DCN x full,
    hash, QR mult) and QR add, concat, feature mode, threshold 2,000 and
    the path-based table at hidden 16, each trained 400 steps at B=256 on
@@ -164,7 +194,7 @@ Phases (any failure exits non-zero, and no result line is printed):
    ``fig4/dlrm/qr_mult`` 400 steps on the machine's CPU and print its
    held-out |Δ| from the card, and profile one DLRM and one DCN row's
    step (device ms, device operations, busy share);
-16. time each kernel, its plain version and a PyTorch yardstick with CUDA
+18. time each kernel, its plain version and a PyTorch yardstick with CUDA
    events, compute each kernel's bound from this run's inputs, and print
    the ``kernels`` JSON line.  The grouped kernels are timed at a full
    26-table wave (K4) and batch (K1 in f32, K5) at 1 to 16 threads per
@@ -177,7 +207,7 @@ Phases (any failure exits non-zero, and no result line is printed):
    entry at the kernel bench's D=128 on int32 ids, int64 ids read in place
    and int64 ids cast first; and grouped K4 at the planned wave of 13.
 
-Each of the paths in 8 to 15 runs with every launch count set to 0
+Each of the paths in 8 to 17 runs with every launch count set to 0
 just before it and read just after; launches made to compare a kernel
 with its plain version count nowhere.  Peak device memory is printed as
 the process's peak and as the peak above what the phase found allocated
@@ -2307,6 +2337,483 @@ def online_full_width(torch, planned, reqs, card):
     return total
 
 
+# [sweep]: the planner-driven compression sweep (examples/compression_sweep.py)
+# on the card at its defaults, held to the JAX package's run on the port's
+# stream (tools/sweep_reference.py)
+SWEEP_REFERENCE = os.path.join(ROOT, "src", "repro_torch", "benchmarks", "reference_sweep.json")
+
+
+def sweep_rows(torch, card):
+    """The [sweep] phase: 9 models (the full tables, then the plan and the
+    uniform-hash control at each of 4 budgets) trained 250 Adagrad steps at
+    B=256 on the card; plans equal to the JAX planner's field for field,
+    held-out losses within each row's tolerance of the reference's."""
+    from repro_torch.examples import compression_sweep as sw
+    from repro_torch.plan import MemoryPlan, plan_differences
+
+    with open(SWEEP_REFERENCE) as f:
+        ref = json.load(f)
+    want = {r["name"]: r for r in ref["rows"]}
+    t0 = time.perf_counter()
+    rows = sw.sweep(device="cuda")
+    secs = time.perf_counter() - t0
+    if [r["name"] for r in rows] != [r["name"] for r in ref["rows"]]:
+        _fail(f"[sweep] rows {[r['name'] for r in rows]} are not the reference's")
+    worst = 0.0
+    out = []
+    for r in rows:
+        w = want[r["name"]]
+        if "plan" in r:
+            diffs = plan_differences(r["plan"], MemoryPlan.from_json(json.dumps(w["plan"])),
+                                     1e-12)
+            if diffs:
+                _fail(f"[sweep] {r['name']}: the plan differs from the JAX package's on the "
+                      f"same stats: {diffs[:5]}")
+        gap = abs(r["loss"] - w["loss"])
+        worst = max(worst, gap)
+        finite = all(math.isfinite(x) for x in r["train_losses"])
+        print(f"  {r['name']:22s} params {r['params']:>9,} proxy {r['proxy']:.6f} held-out "
+              f"{r['loss']:.6f} vs reference {w['loss']:.6f} (|diff| {gap:.6f}, tol "
+              f"{w['tol']:.4f}) | {r['us_per_step'] / 1e3:.3f} ms per step")
+        if not (finite and math.isfinite(r["loss"]) and gap <= w["tol"]):
+            _fail(f"[sweep] {r['name']}: held-out loss {r['loss']:.6f} vs the reference's "
+                  f"{w['loss']:.6f}, tolerance {w['tol']:.4f}")
+        out.append({k: r[k] for k in ("name", "params", "proxy", "loss", "us_per_step")}
+                   | {"reference_loss": w["loss"], "tol": w["tol"], "abs_dloss": gap})
+    agree = sw.agreement(rows)
+    print(f"  every plan equals the JAX package's ({SWEEP_REFERENCE[len(ROOT) + 1:]}); largest "
+          f"held-out |diff| {worst:.6f}; proxy vs trained order per budget: "
+          + ", ".join(f"{f:g}x {'agree' if a else 'disagree'}" for f, a in agree.items()))
+    print(f"  card: {card}; [sweep] {secs:.1f} s for 9 x {sw.STEPS} steps")
+    print(json.dumps({"sweep_profile": {"card": card, "seconds": secs, "rows": out,
+                                        "largest_abs_dloss": worst,
+                                        "agreement": {f"{f:g}": a for f, a in agree.items()}}}))
+
+
+# [dist]: the data-parallel step with compressed gradient exchange at full
+# width.  Worlds are spawned processes (repro_torch.dist.world); their
+# workers are the module-level functions below and report through JSON
+# files under build/dist/.
+DIST_POLICIES = ("none", "bf16", "int8", "auto")
+DIST_STEPS = 5
+DIST_WORLD = 4
+DIST_DIR = os.path.join(ROOT, "build", "dist")
+# (a) the DP step at n = 1 with "none" against make_train_step: the same
+# gradients (an all-reduce of one is the identity), so only the index
+# backward's atomics separate two runs; each leaf within 1e-6 of its
+# largest |value|
+DIST_ONE_TOL = 1e-6
+# (b) "none" at n = 4 against one device on the whole batch: the mean of 4
+# shard means in another f32 order, each leaf within GRAD_TOL of its
+# largest |g|; the reductions card vs CPU on the same per-rank gradients:
+# int8 bit-equal, bf16 bit-equal or within one bf16 ulp (2^-8) of each
+# leaf's largest |value|, none within 1e-6 of it
+DIST_NONE_RTOL = 1e-6
+DIST_WIRE_TOL = 0.10
+DIST_INT8_BAR = 0.30
+
+
+def _dist_setup(torch, device):
+    """Full-width DLRM-Criteo: its api on ``device``, parameters drawn on
+    the CPU (seed 0) and moved, and a CPU-drawn batch function."""
+    from repro_torch import tree
+    from repro_torch.configs import dlrm_criteo
+    from repro_torch.configs.common import Shape
+
+    cfg = dlrm_criteo.config(reduced=False)
+    host = dlrm_criteo.api(cfg, device="cpu")
+    api = dlrm_criteo.api(cfg, device=device)
+    shape = Shape("train", 1, B, "train")
+    params = tree.tree_map(lambda t: t.to(device), host.init(torch.Generator().manual_seed(0)))
+
+    def batch_at(step):
+        return tree.tree_map(lambda t: t.to(device), host.batch_fn(step, shape))
+
+    return api, params, batch_at
+
+
+def _worst_rel(tree_mod, got, want):
+    """The worst leaf's max |diff| over its largest |value|, and its path."""
+    worst, where = 0.0, ""
+    for (path, w), g in zip(tree_mod.flatten_with_path(want), tree_mod.leaves(got)):
+        scale = float(w.abs().max())
+        d = float((g.float() - w.float()).abs().max())
+        rel = d / scale if scale else d
+        if rel > worst:
+            worst, where = rel, "/".join(map(str, path))
+    return worst, where
+
+
+def _timed_steps(torch, step, state, batch_at, steps, after=None):
+    """``steps`` steps, each timed on the host clock between two
+    synchronizes; ``after(state)`` runs outside the timing."""
+    walls, losses = [], []
+    for s in range(steps):
+        batch = batch_at(s)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        state, m = step(state, batch)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t) * 1e3)
+        losses.append(float(m["loss"]))
+        if after is not None:
+            after(state)
+    return state, walls, losses
+
+
+def _dist_one(rank, world_size, out):
+    """(a): NCCL, a world of one, full width: each policy's DP step for
+    DIST_STEPS steps; "none"'s first step against make_train_step."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch import tree
+    from repro_torch.dist import AUTO, compress, wire
+    from repro_torch.train.loop import (init_dp_state, init_state, make_dp_train_step,
+                                        make_train_step, value_and_grad)
+
+    api, params, batch_at = _dist_setup(torch, torch.device("cuda"))
+    res = {"backend": dist.get_backend(), "world": world_size, "policies": {}}
+    batch = batch_at(0)
+    (_, _), grads = value_and_grad(api.loss_fn)(params, batch)
+    reduced, _ = compress.ef_psum_grads(grads, compress.init_error_state(params, "none"),
+                                        group=dist.group.WORLD, mode="none")
+    res["none_grads_vs_plain"] = _worst_rel(tree, reduced, grads)
+    del reduced
+    plain, _ = make_train_step(api.loss_fn, api.optimizer)(init_state(params, api.optimizer),
+                                                          batch)
+    dp, _ = make_dp_train_step(api.loss_fn, api.optimizer, compress="none")(
+        init_dp_state(params, api.optimizer, compress="none"), batch)
+    res["none_params_vs_plain"] = _worst_rel(tree, dp["params"], plain["params"])
+    res["none_acc_vs_plain"] = _worst_rel(tree, [o["acc"] for o in dp["opt"]],
+                                          [o["acc"] for o in plain["opt"]])
+    del plain, dp, grads
+    for name in DIST_POLICIES:
+        pol = AUTO if name == "auto" else name
+        state = init_dp_state(params, api.optimizer, compress=pol)
+        step = make_dp_train_step(api.loss_fn, api.optimizer, compress=pol)
+        wire.reset()
+        state, walls, losses = _timed_steps(torch, step, state, batch_at, DIST_STEPS)
+        # at n = 1 only an int8 leaf's scale max, a "none" leaf's mean and
+        # the metric means are collectives: one call each per step
+        modes = compress.resolve_modes(params, pol)
+        res["policies"][name] = {"wall_ms": walls, "losses": losses, "wire": wire.snapshot(),
+                                 "expected_all_reduces": DIST_STEPS * (
+                                     1 + sum(m in ("int8", "none") for m in modes))}
+        del state
+    with open(out, "w") as f:
+        json.dump(res, f)
+
+
+def _checksums(torch, params):
+    """Per leaf: the int64 sums of the f32 bit patterns, plain and weighted
+    by position, as one int64 tensor on the leaves' device."""
+    from repro_torch import tree
+    sums = []
+    for p in tree.leaves(params):
+        bits = p.detach().reshape(-1).view(torch.int32).to(torch.int64)
+        w = torch.arange(bits.numel(), device=bits.device, dtype=torch.int64) % 65521 + 1
+        sums += [bits.sum(), (bits * w).sum()]
+    return torch.stack(sums)
+
+
+def _replicas_agree(torch, dist, params, label):
+    """Every rank's parameters bitwise equal rank 0's, by gathered
+    checksums (outside ``dist.wire``: checks are not the step's bytes)."""
+    mine = _checksums(torch, params)
+    every = [torch.empty_like(mine) for _ in range(dist.get_world_size())]
+    dist.all_gather(every, mine)
+    if not all(torch.equal(every[0], e) for e in every[1:]):
+        raise SystemExit(f"chip_smoke: FAIL: [dist] {label}: the replicas' parameters differ")
+
+
+def _reduction_card_vs_cpu(torch, dist):
+    """``ef_psum_grads`` on per-rank gradients drawn on the CPU from one seed
+    (the reduced DLRM-Criteo's gradient tree, f32 ~ N(0, 1e-2)), once on
+    the card and once on the CPU, in the same gloo world: per mode the
+    largest difference and the count of differing elements, outputs and
+    residuals."""
+    from repro_torch import tree
+    from repro_torch.configs import dlrm_criteo
+    from repro_torch.dist import compress
+
+    like = dlrm_criteo.api(dlrm_criteo.config(reduced=True), device="cpu").init(
+        torch.Generator().manual_seed(0))
+    gen = torch.Generator().manual_seed(1000 + dist.get_rank())
+    grads = tree.tree_map(lambda p: torch.randn(p.shape, generator=gen) * 1e-2, like)
+    out = {}
+    for mode in ("none", "bf16", "int8"):
+        err = compress.init_error_state(grads, mode)
+        res = {}
+        for where in ("cuda", "cpu"):
+            g = tree.tree_map(lambda t, where=where: t.to(where), grads)
+            e = tree.tree_map(lambda t, where=where: t.to(where), err)
+            o, ne = compress.ef_psum_grads(g, e, group=dist.group.WORLD, mode=mode)
+            res[where] = [t.cpu() for t in tree.leaves(o) + tree.leaves(ne)]
+        diff = rel = 0.0
+        ndiff = 0
+        for a, b in zip(res["cuda"], res["cpu"]):
+            d = (a - b).abs()
+            diff = max(diff, float(d.max()))
+            scale = float(b.abs().max())
+            rel = max(rel, float(d.max()) / scale if scale else float(d.max()))
+            ndiff += int((a != b).sum())
+        out[mode] = {"max_abs": diff, "max_rel": rel, "elements_differing": ndiff,
+                     "elements": sum(t.numel() for t in res["cpu"])}
+    return out
+
+
+def _dist_four(rank, world_size, out, params_out):
+    """(b) and (c): gloo, a world of 4, every rank on cuda:0 — the model,
+    gradients, compression and optimizer on the card, the exchange through
+    gloo.  Per policy DIST_STEPS steps with the replicas checked after each;
+    "auto" through ``Trainer(obs=, step_wire=)``."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch import tree
+    from repro_torch.dist import AUTO, accounting, compress, wire
+    from repro_torch.obs import Obs
+    from repro_torch.train.loop import (TrainConfig, Trainer, init_dp_state, make_dp_train_step,
+                                        value_and_grad)
+
+    torch.cuda.set_device(0)
+    device = torch.device("cuda", 0)
+    torch.set_num_threads(2)
+    res = {"backend": dist.get_backend(), "world": world_size, "policies": {},
+           "reduction_card_vs_cpu": _reduction_card_vs_cpu(torch, dist)}
+    api, params, batch_at = _dist_setup(torch, device)
+
+    # "none" at n = 4 against one device on the whole batch
+    batch = batch_at(0)
+    b = B // world_size
+    local = {k: v[rank * b:(rank + 1) * b] for k, v in batch.items()}
+    (_, _), grads = value_and_grad(api.loss_fn)(params, local)
+    reduced, _ = compress.ef_psum_grads(grads, compress.init_error_state(params, "none"),
+                                        group=dist.group.WORLD, mode="none")
+    del grads
+    if rank == 0:
+        (_, _), whole = value_and_grad(api.loss_fn)(params, batch)
+        res["none_vs_one_device"] = _worst_rel(tree, reduced, whole)
+        del whole
+    del reduced
+    torch.cuda.empty_cache()
+
+    for name in DIST_POLICIES:
+        pol = AUTO if name == "auto" else name
+        state = init_dp_state(params, api.optimizer, compress=pol)
+        step = make_dp_train_step(api.loss_fn, api.optimizer, compress=pol)
+        acct = accounting.dp_step_wire_bytes(params, pol, world_size, scalar_allreduces=3)
+        wire.reset()
+        checked = []
+
+        def check(state, name=name):
+            _replicas_agree(torch, dist, state["params"], f"{name} step {len(checked)}")
+            checked.append(True)
+
+        row = {"accounted_bytes_per_step": acct["total_bytes"]}
+        if name == "auto":
+            obs = Obs()
+            step_wire = accounting.grad_wire_bytes(params, AUTO, world_size)
+            walls = []
+
+            def timed(state, batch, step=step, walls=walls):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                state, m = step(state, batch)
+                torch.cuda.synchronize()
+                walls.append((time.perf_counter() - t) * 1e3)
+                check(state)
+                return state, m
+
+            trainer = Trainer(timed, TrainConfig(num_steps=DIST_STEPS, log_every=1), obs=obs,
+                              step_wire=step_wire, batch_at=batch_at)
+            state, history = trainer.run(state)
+            losses = [loss for _, loss in history]
+            counters = {s["labels"]["leaf"]: s["value"] for s in
+                        obs.registry.snapshot()["train_wire_bytes_total"]["series"]}
+            recorded = wire.snapshot()["per_leaf"]
+            row["trainer_counters"] = {
+                e["path"]: {"counter": counters[e["path"]],
+                            "accounted_per_step": e["wire_bytes"],
+                            "recorded": recorded.get(e["path"], 0.0)}
+                for e in step_wire["per_leaf"]}
+            if rank == 0:
+                torch.save(tree.tree_map(lambda t: t.cpu(), state["params"]), params_out)
+        else:
+            state, walls, losses = _timed_steps(torch, step, state, batch_at, DIST_STEPS, check)
+        row.update({"wall_ms": walls, "losses": losses, "wire": wire.snapshot(),
+                    "replica_checks": len(checked)})
+        res["policies"][name] = row
+        del state
+        torch.cuda.empty_cache()
+    res["peak_memory_bytes"] = torch.cuda.max_memory_allocated()
+    if rank == 0:
+        with open(out, "w") as f:
+            json.dump(res, f)
+
+
+def _dist_launcher(card):
+    """(c): the training launcher at full width as a world of one."""
+    metrics = os.path.join(DIST_DIR, "m.jsonl")
+    if os.path.exists(metrics):
+        os.remove(metrics)
+    cmd = [sys.executable, "-m", "repro_torch.launch.train", "--arch", "dlrm-criteo",
+           "--no-reduced", "--compress-policy", "auto", "--steps", "20",
+           "--metrics-out", os.path.relpath(metrics, ROOT)]
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    t = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True, text=True, timeout=600)
+    secs = time.perf_counter() - t
+    print("  $ python -m repro_torch.launch.train " + " ".join(cmd[3:]))
+    for line in proc.stdout.strip().splitlines():
+        print(f"    {line}")
+    if proc.returncode != 0 or "loss" not in proc.stdout or not os.path.exists(metrics):
+        _fail(f"[dist] the launcher exited {proc.returncode}: {proc.stderr[-2000:]}")
+    with open(metrics) as f:
+        lines = [json.loads(x) for x in f if x.strip()]
+    wire_lines = [x for x in lines if x["name"] == "train_wire_bytes_total"]
+    steps = [x for x in lines if x["name"] == "train_steps_total"]
+    print(f"  launcher: exit 0 in {secs:.1f} s, registry {len(lines)} series "
+          f"({len(wire_lines)} per-leaf wire counters, sum {sum(x['value'] for x in wire_lines)}"
+          f" B: every ring formula gives 0 bytes at n = 1, as the reference's counters read on "
+          f"one device; not asserted), train_steps_total "
+          f"{steps[0]['value'] if steps else 'missing'} | card: {card}")
+    if not wire_lines or not steps or steps[0]["value"] != 20:
+        _fail("[dist] the launcher's registry lacks its step or wire counters")
+    return {"seconds": secs, "series": len(lines), "wire_counters": len(wire_lines)}
+
+
+def dist_full_width(torch, card):
+    """The [dist] phase: (a) NCCL world of one, (b) gloo world of 4 on one
+    card, (c) Trainer(step_wire=) and the launcher; then the tables trained
+    under "auto" in (b) scored through K1 + K2.  Returns the scoring's
+    launch counts."""
+    from repro_torch import tree
+    from repro_torch.configs import dlrm_criteo
+    from repro_torch.configs.common import Shape
+    from repro_torch.dist import world
+    from repro_torch.serve.quantize import table_bytes
+
+    os.makedirs(DIST_DIR, exist_ok=True)
+    t0 = time.perf_counter()
+    one = os.path.join(DIST_DIR, "one.json")
+    t = time.perf_counter()
+    world.spawn(_dist_one, 1, "nccl", one)
+    one_s = time.perf_counter() - t
+    with open(one) as f:
+        a = json.load(f)
+    print(f"  (a) {a['backend']}, world of {a['world']} ({one_s:.1f} s with the spawn): 'none' "
+          f"first step vs make_train_step — reduced gradients worst leaf "
+          f"{a['none_grads_vs_plain'][1]} {a['none_grads_vs_plain'][0]:.3e}, parameters "
+          f"{a['none_params_vs_plain'][0]:.3e}, Adagrad state {a['none_acc_vs_plain'][0]:.3e} "
+          f"of each leaf's largest |value| (tol {DIST_ONE_TOL:.0e})")
+    if max(a["none_grads_vs_plain"][0], a["none_params_vs_plain"][0],
+           a["none_acc_vs_plain"][0]) > DIST_ONE_TOL:
+        _fail("[dist] (a) the DP step at n = 1 disagrees with make_train_step")
+    for name, p in a["policies"].items():
+        kinds = p["wire"]["per_kind"]
+        print(f"  (a) {name:5s}: wall ms per step {sorted(p['wall_ms'])[DIST_STEPS // 2]:.3f} "
+              f"(median of {DIST_STEPS}; first {p['wall_ms'][0]:.3f}), losses "
+              f"{[round(x, 5) for x in p['losses']]}, NCCL calls "
+              + ", ".join(f"{k} {v['calls']}" for k, v in kinds.items())
+              + f", recorded bytes {p['wire']['total_bytes']:.0f} (0 at n = 1) | {card}")
+        if not all(math.isfinite(x) for x in p["losses"]) or (
+                kinds["all_reduce"]["calls"] != p["expected_all_reduces"]
+                or p["wire"]["calls"] != p["expected_all_reduces"]):
+            _fail(f"[dist] (a) {name}: losses not finite, or {p['wire']['calls']} collectives "
+                  f"issued where {p['expected_all_reduces']} all-reduces were expected")
+
+    four = os.path.join(DIST_DIR, "four.json")
+    auto_params = os.path.join(DIST_DIR, "auto_params.pt")
+    t = time.perf_counter()
+    world.spawn(_dist_four, DIST_WORLD, "gloo", four, auto_params)
+    four_s = time.perf_counter() - t
+    with open(four) as f:
+        bres = json.load(f)
+    print(f"  (b) gloo, world of {bres['world']}, every rank on cuda:0 ({four_s:.1f} s with the "
+          f"spawn); peak memory of rank 0 {bres['peak_memory_bytes']} B")
+    for mode, r in bres["reduction_card_vs_cpu"].items():
+        print(f"  (b) ef_psum_grads {mode:4s} card vs CPU, same per-rank gradients: max |diff| "
+              f"{r['max_abs']:.3e} ({r['max_rel']:.3e} of the largest |value|), "
+              f"{r['elements_differing']} of {r['elements']} elements differ")
+        ok = {"int8": r["elements_differing"] == 0,
+              "bf16": r["max_rel"] <= 2.0 ** -8,
+              "none": r["max_rel"] <= DIST_NONE_RTOL}[mode]
+        if not ok:
+            _fail(f"[dist] (b) the {mode} reduction on the card disagrees with the CPU's")
+    worst, where = bres["none_vs_one_device"]
+    print(f"  (b) 'none' first-step reduced gradients vs one device on the whole batch: worst "
+          f"leaf {where} {worst:.3e} of its largest |g| (tol {GRAD_TOL:.0e})")
+    if worst > GRAD_TOL:
+        _fail("[dist] (b) the 'none' reduction at n = 4 disagrees with one device")
+    rec = {}
+    for name, p in bres["policies"].items():
+        per_step = p["wire"]["total_bytes"] / DIST_STEPS
+        rec[name] = per_step
+        ratio = per_step / p["accounted_bytes_per_step"]
+        kinds = p["wire"]["per_kind"]
+        print(f"  (b) {name:5s}: wall ms per step {sorted(p['wall_ms'])[DIST_STEPS // 2]:.3f} "
+              f"(median of {DIST_STEPS}; first {p['wall_ms'][0]:.3f}), losses "
+              f"{[round(x, 5) for x in p['losses']]}, replicas bitwise equal after each of "
+              f"{p['replica_checks']} steps; recorded {per_step:.0f} B per step vs accounted "
+              f"{p['accounted_bytes_per_step']:.0f} (ratio {ratio:.9f}); calls per step "
+              + ", ".join(f"{k} {v['calls'] / DIST_STEPS:g}" for k, v in kinds.items())
+              + f" | {card}")
+        if p["replica_checks"] != DIST_STEPS or not all(math.isfinite(x) for x in p["losses"]):
+            _fail(f"[dist] (b) {name}: replicas unchecked or losses not finite")
+        if abs(ratio - 1) > DIST_WIRE_TOL:
+            _fail(f"[dist] (b) {name}: recorded bytes {per_step:.0f} vs accounted "
+                  f"{p['accounted_bytes_per_step']:.0f}")
+    int8_ratio = rec["int8"] / rec["none"]
+    print(f"  (b) recorded bytes int8 / none {int8_ratio:.6f} (bar {DIST_INT8_BAR})")
+    if int8_ratio >= DIST_INT8_BAR:
+        _fail(f"[dist] (b) int8 / none recorded bytes {int8_ratio:.3f} >= {DIST_INT8_BAR}")
+    counters = bres["policies"]["auto"]["trainer_counters"]
+    worst_c = worst_r = 0.0
+    for path, c in counters.items():
+        want = DIST_STEPS * c["accounted_per_step"]
+        if c["counter"] != want:
+            _fail(f"[dist] (c) Trainer counter {path}: {c['counter']} != {want}")
+        if c["recorded"] or want:
+            worst_r = max(worst_r, abs(c["recorded"] - want) / max(want, 1e-30))
+        worst_c = max(worst_c, abs(c["counter"] - want))
+    print(f"  (c) Trainer(obs=, step_wire=) under 'auto': {len(counters)} per-leaf counters = "
+          f"{DIST_STEPS} x each leaf's accounted bytes; largest relative gap to the bytes "
+          f"dist.wire recorded for the leaf {worst_r:.3e} (tol {DIST_WIRE_TOL})")
+    if worst_r > DIST_WIRE_TOL:
+        _fail("[dist] (c) a Trainer wire counter is off the recorded bytes")
+    launcher = _dist_launcher(card)
+
+    # the tables trained under "auto" in (b), scored through K1 + K2
+    cfg = dlrm_criteo.config(reduced=False)
+    kapi = dlrm_criteo.api(dataclasses.replace(cfg, use_kernel=True))
+    plain = dlrm_criteo.api(cfg)
+    params = tree.tree_map(lambda x: x.to("cuda"), torch.load(auto_params))
+    os.remove(auto_params)
+    shape = Shape("bench", 1, B, "train")
+    batches = [kapi.batch_fn(step, shape) for step in EVAL_STEPS]
+    counts = _eval_run(torch, kapi, plain, params, batches, "dist auto f32", "qr_gather", 1,
+                       table_bytes(params), torch.cuda.memory_allocated())
+    del params
+    secs = time.perf_counter() - t0
+    print(f"  card: {card}; [dist] {secs:.1f} s")
+    def brief(policies):
+        return {name: {"wall_ms": p["wall_ms"], "losses": p["losses"],
+                       "recorded_bytes_per_step": p["wire"]["total_bytes"] / DIST_STEPS,
+                       "accounted_bytes_per_step": p.get("accounted_bytes_per_step"),
+                       "calls": {k: v["calls"] for k, v in p["wire"]["per_kind"].items()}}
+                for name, p in policies.items()}
+
+    print(json.dumps({"dist_profile": {
+        "card": card, "seconds": secs, "launcher": launcher, "int8_vs_none_recorded": int8_ratio,
+        "one": dict({k: v for k, v in a.items() if k != "policies"},
+                    policies=brief(a["policies"])),
+        "four": dict({k: v for k, v in bres.items() if k != "policies"},
+                     policies=brief(bres["policies"]))}}))
+    return counts
+
+
 def _paper_device_profile(torch, pt, spec, warm=3, steps=5):
     """Device ms and device operations per training step of one
     ``paper_tables`` row (``torch.profiler``, ``steps`` steps after
@@ -3021,6 +3528,14 @@ def main() -> int:
           "controller, migration and hot-swap; the migrated model scored and trained")
     counts["online"] = online_full_width(torch, planned, reqs, card)
     del planned
+    print(f"  ({time.perf_counter() - t0:.0f} s so far)")
+    print("[sweep] the planner-driven compression sweep: 9 models trained on the card, held "
+          "against the JAX package's run")
+    sweep_rows(torch, card)
+    print(f"  ({time.perf_counter() - t0:.0f} s so far)")
+    print("[dist] full-width data-parallel step with compressed gradient exchange: NCCL world "
+          "of one, gloo world of 4 on the card, Trainer(step_wire=), the launcher")
+    counts["dist"] = dist_full_width(torch, card)
     print(f"  ({time.perf_counter() - t0:.0f} s so far)")
     print("[paper] paper_tables rows trained on the card, held against the CPU and the reference")
     counts["paper"] = paper_rows(torch, card)

@@ -20,8 +20,8 @@ Fault-tolerance properties:
   * **async** — ``AsyncCheckpointer`` snapshots device tensors to host
     memory, then writes on a background thread (training continues during
     I/O).
-Restoring onto another mesh waits for the multi-GPU port (ROADMAP, modules
-to port: item 16).
+Restoring onto another mesh (sharded restore) waits for the multi-GPU
+port (ROADMAP, modules to port: item 16b).
 """
 
 from __future__ import annotations

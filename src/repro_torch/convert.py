@@ -6,7 +6,9 @@ structure, so dense, bf16 and int8-quantized tables (``{"q", "scale",
 "zp"}``) all map one-to-one onto the port's layout.  A train state
 (``{"params", "opt", "step"}``) carries its optimizer-state list (one dict
 per parameter leaf, in leaf order, as both packages keep it) and its
-int32 step the same way.
+int32 step the same way; a data-parallel state (``init_dp_state``) also
+carries its error-feedback tree ``err`` (shaped like ``params``, 0-d
+placeholders for uncompressed leaves).
 """
 
 from __future__ import annotations
@@ -42,13 +44,18 @@ def params_from_jax(tree, device="cuda"):
 
 
 def state_from_jax(state, device="cuda"):
-    """A JAX train state ``{"params", "opt", "step"}`` (numpy leaves) as the
-    port's, on ``device``: the step a 0-d int32 tensor."""
-    if set(state) != {"params", "opt", "step"}:
-        raise ValueError(f"a train state holds params, opt and step, got {sorted(state)}")
-    return {"params": params_from_jax(state["params"], device),
-            "opt": params_from_jax(list(state["opt"]), device),
-            "step": _tensor(np.asarray(state["step"], dtype=np.int32), device)}
+    """A JAX train state ``{"params", "opt", "step"}`` (numpy leaves), or a
+    data-parallel one with ``err`` as well, as the port's, on ``device``:
+    the step a 0-d int32 tensor."""
+    if set(state) not in ({"params", "opt", "step"}, {"params", "opt", "step", "err"}):
+        raise ValueError("a train state holds params, opt and step (and err for the "
+                         f"data-parallel step), got {sorted(state)}")
+    out = {"params": params_from_jax(state["params"], device),
+           "opt": params_from_jax(list(state["opt"]), device),
+           "step": _tensor(np.asarray(state["step"], dtype=np.int32), device)}
+    if "err" in state:
+        out["err"] = params_from_jax(state["err"], device)
+    return out
 
 
 def state_to_numpy(tree):

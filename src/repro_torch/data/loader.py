@@ -4,7 +4,7 @@
   * moves every tensor of the batch to ``device`` when one is given (one
     process takes the whole global batch; the reference's ``host_slice``
     of it per process waits for the multi-GPU port, ROADMAP, modules to
-    port: item 16);
+    port: item 16b);
   * prefetches ``depth`` batches on a background thread (hides host input
     latency — the straggler-mitigation lever for input-bound steps);
   * is restartable: ``seek(step)`` repositions the stream exactly.

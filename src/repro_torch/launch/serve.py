@@ -20,7 +20,7 @@ Observability and online re-planning, as in the reference launcher:
 re-solving and hot-swapping the plan when drift persists, within
 ``--replan-budget-mb`` (default: the plan's budget, else the f32 table
 footprint).  Each of them turns the engine's observability on.
-``--mesh-devices`` (sharded serving) waits for the port of ``dist``.
+``--mesh-devices`` (sharded serving) waits for ROADMAP item 16c.
 """
 
 from __future__ import annotations
@@ -174,7 +174,7 @@ def main(argv=None):
                     help="max multi-hot ids per categorical feature")
     ap.add_argument("--mesh-devices", type=int, default=None,
                     help="serve the tables sharded across this many devices (not "
-                         "ported yet: ROADMAP item 16)")
+                         "ported yet: ROADMAP item 16c)")
     ap.add_argument("--trace", default=None, metavar="PATH",
                     help="write a Chrome-trace/Perfetto JSON of per-wave stage "
                          "timelines to PATH (implies obs on)")

@@ -173,7 +173,7 @@ class MemoryPlan:
         if self.notes.get("serve_placement") is None:
             return None
         raise NotImplementedError("reading a serving placement needs sharded serving "
-                                  "(ROADMAP, modules to port: item 16)")
+                                  "(ROADMAP, modules to port: item 16c)")
 
     def to_json(self) -> str:
         return json.dumps(

@@ -67,8 +67,9 @@ BATCHING_MODES = ("continuous", "waves")
 # constructor arguments of features still to port -> their ROADMAP item
 # (``plan=`` feeds the reference's sharded placement; a planned model is
 # served by building its config from the plan)
-_NOT_PORTED = {"mesh": "16 (dist/)", "mesh_devices": "16 (dist/)",
-               "placement": "16 (dist/)", "plan": "16 (dist/: sharded placement)"}
+_NOT_PORTED = {"mesh": "16c (sharded serving)", "mesh_devices": "16c (sharded serving)",
+               "placement": "16c (sharded serving)",
+               "plan": "16c (sharded serving: the placement)"}
 
 _FEATURE_SHIFT = 44  # packed key: (feature << 44) | canonical row id
 # ceiling on the device slot map (int32 per cacheable row, 64 MiB):

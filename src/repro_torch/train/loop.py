@@ -16,12 +16,18 @@
   histogram, the steps and straggler counters and, with tracing on, a
   ``train_step`` event; with ``obs=None`` none of it runs.
 
+* **gradient compression** — ``make_dp_train_step`` reduces gradients
+  over a ``torch.distributed`` process group with bf16/int8 error
+  feedback, uniform or per leaf through a ``CompressionPolicy``
+  (``repro_torch.dist.compress`` / ``dist.policy``); with ``step_wire=``
+  the ``Trainer`` counts each leaf's accounted wire bytes per step.
+
 The step is functional, as the reference's jitted step is: it returns a
 new state of plain tensors (no autograd graph) and leaves the old one as
 it was.  Gradients come from ``torch.autograd.grad`` on detached aliases
 of the parameter leaves (``value_and_grad``), dense for every leaf as
-``jax.grad``'s are.  The data-parallel and FSDP steps wait for the
-multi-GPU port (ROADMAP, modules to port: item 16).
+``jax.grad``'s are.  The FSDP step waits for the multi-GPU port (ROADMAP,
+modules to port: item 16b).
 """
 
 from __future__ import annotations
@@ -32,13 +38,14 @@ import time
 from typing import Any, Callable, Optional
 
 import torch
+import torch.distributed as dist
 
 from .. import tree
 from ..ckpt import checkpoint as ckpt
 from ..optim.optimizers import Optimizer, clip_by_global_norm
 
-__all__ = ["TrainConfig", "init_state", "make_train_step", "value_and_grad", "Trainer",
-           "SimulatedFailure"]
+__all__ = ["TrainConfig", "init_state", "make_train_step", "make_dp_train_step",
+           "init_dp_state", "value_and_grad", "Trainer", "SimulatedFailure"]
 
 
 class SimulatedFailure(RuntimeError):
@@ -118,6 +125,86 @@ def make_train_step(loss_fn, optimizer: Optimizer, *, clip_norm=None,
     return step
 
 
+def _resolve_compress(compress):
+    """``"auto"`` / policy / mode string / per-leaf tree → ef_psum_grads mode."""
+    from ..dist.policy import resolve_policy
+    if isinstance(compress, str):
+        return resolve_policy(compress)
+    return compress
+
+
+def _pmean_metrics(loss, metrics, group, n):
+    """The group means of the loss and the metrics (``lax.pmean`` of each):
+    one sum all-reduce of all of them, then a multiply by the f32 ``1/n``
+    (as the compiled reference divides by a constant)."""
+    from ..dist import wire
+    names = list(metrics)
+    vals = [loss] + [metrics[k] for k in names]
+    flat = torch.cat([v.reshape(-1).to(torch.float32) for v in vals])
+    flat = wire.all_reduce(flat, group, leaf="_metrics") * torch.tensor(
+        1.0 / n, dtype=torch.float32, device=flat.device)
+    out, i = [], 0
+    for v in vals:
+        out.append(flat[i:i + v.numel()].reshape(v.shape).to(v.dtype))
+        i += v.numel()
+    return out[0], dict(zip(names, out[1:]))
+
+
+def make_dp_train_step(loss_fn, optimizer: Optimizer, group=None, *,
+                       compress="bf16", clip_norm=None):
+    """Explicit data-parallel step with compressed gradient reduction.
+
+    Every rank of ``group`` (``None``: the default process group) holds
+    the whole state and is handed the **global** batch; it keeps block
+    ``rank`` of dim 0 (``shard_map``'s ``P(axis)``), takes its gradients
+    there and reduces them with bf16/int8 error feedback
+    (``dist.compress.ef_psum_grads``, state carried in ``state["err"]``).
+    Loss and metrics are group means.  ``compress`` is a mode string,
+    ``"auto"``, a ``CompressionPolicy``, or a per-leaf mode tree.  The
+    per-rank update math is identical, so the replicas stay bitwise
+    consistent without a re-broadcast.
+    """
+    from ..dist.compress import ef_psum_grads
+    compress = _resolve_compress(compress)
+    grads_of = value_and_grad(loss_fn)
+
+    def step(state, batch):
+        g = dist.group.WORLD if group is None else group
+        n, rank = dist.get_world_size(g), dist.get_rank(g)
+        local = {}
+        for k, v in batch.items():
+            if v.shape[0] % n:
+                raise ValueError(f"batch {k!r} of {v.shape[0]} rows does not split over "
+                                 f"{n} ranks")
+            b = v.shape[0] // n
+            local[k] = v[rank * b:(rank + 1) * b]
+        (loss, metrics), grads = grads_of(state["params"], local)
+        grads, new_err = ef_psum_grads(grads, state["err"], group=g, mode=compress)
+        loss, metrics = _pmean_metrics(loss, metrics, g, n)
+        if clip_norm is not None:
+            grads, gnorm = clip_by_global_norm(grads, clip_norm)
+            metrics = dict(metrics, grad_norm=gnorm)
+        new_params, new_opt = optimizer.update(grads, state["opt"], state["params"],
+                                               state["step"])
+        new_state = {"params": new_params, "opt": new_opt, "step": state["step"] + 1,
+                     "err": new_err}
+        return new_state, dict(metrics, loss=loss)
+
+    return step
+
+
+def init_dp_state(params, optimizer: Optimizer, compress=None):
+    """State for ``make_dp_train_step``.  Pass the same ``compress`` policy
+    as the step so error-feedback state is allocated only for compressed
+    leaves."""
+    from ..dist.compress import init_error_state
+    err = init_error_state(params,
+                           _resolve_compress(compress) if compress is not None else None)
+    state = init_state(params, optimizer)
+    state["err"] = err
+    return state
+
+
 def _block_until_ready(x: torch.Tensor) -> None:
     if x.is_cuda:
         torch.cuda.synchronize(x.device)
@@ -126,13 +213,15 @@ def _block_until_ready(x: torch.Tensor) -> None:
 class Trainer:
     def __init__(self, train_step, cfg: TrainConfig, *,
                  batch_at: Callable[[int], Any], obs=None, step_wire=None):
-        """``train_step`` from ``make_train_step``; ``batch_at(step)`` the
-        batch of a step.  ``obs`` (a ``repro_torch.obs.Obs``) turns on
-        per-step spans and counters; ``step_wire`` (accounted collective
-        bytes) waits for the port of ``dist`` and raises if given."""
-        if step_wire is not None:
-            raise NotImplementedError("per-leaf wire counters need repro_torch.dist "
-                                      "(ROADMAP, modules to port: item 16)")
+        """``train_step`` from ``make_train_step`` or ``make_dp_train_step``;
+        ``batch_at(step)`` the batch of a step.  ``obs`` (a
+        ``repro_torch.obs.Obs``) turns on per-step spans and counters;
+        ``step_wire`` is an accounted wire-byte report for one step
+        (``dist.accounting.grad_wire_bytes`` / ``dp_step_wire_bytes``
+        output): its per-leaf entries become per-leaf wire counters
+        incremented every step, and what the total holds beyond them (the
+        scalar means) an ``_other/aggregate`` one.  It counts only with
+        ``obs``.  Both default off; the obs-off loop is unchanged."""
         self.train_step = train_step
         self.cfg = cfg
         self.batch_at = batch_at
@@ -146,6 +235,18 @@ class Trainer:
             self._c_strag = obs.counter(
                 "train_straggler_events_total",
                 "steps slower than watchdog_factor x running median").labels()
+            self._wire_handles: list[tuple[Any, float]] = []
+            if step_wire is not None:
+                c = obs.counter("train_wire_bytes_total",
+                                "accounted collective wire bytes (per leaf)")
+                for e in step_wire.get("per_leaf") or []:
+                    self._wire_handles.append((c.labels(leaf=e["path"], mode=e["mode"]),
+                                               float(e["wire_bytes"])))
+                accounted = sum(b for _, b in self._wire_handles)
+                rest = float(step_wire.get("total_bytes", 0.0)) - accounted
+                if rest > 0:  # scalar means, or a report with no per-leaf entries
+                    self._wire_handles.append(
+                        (c.labels(leaf="_other", mode="aggregate"), rest))
 
     def resume_or(self, state):
         """Resume from the newest valid checkpoint, else the given state."""
@@ -183,6 +284,8 @@ class Trainer:
                 self._c_steps.inc()
                 if straggled:
                     self._c_strag.inc()
+                for h, b in self._wire_handles:
+                    h.inc(b)
                 if self._obs.tracer is not None:
                     self._obs.tracer.complete("train_step", t0, dt, step=step)
             if step % cfg.log_every == 0 or step == cfg.num_steps - 1:

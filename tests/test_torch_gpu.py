@@ -1196,3 +1196,126 @@ def test_mixed_radix_tables_keep_one_grouped_k4_per_wave(cuda):
     plain = RecsysEngine(dataclasses.replace(cfg, use_kernel=False), qp, max_batch=32,
                          batching="waves")
     np.testing.assert_allclose(got, _served(plain, reqs), rtol=0, atol=1e-4)
+
+
+# ------------------------------------------------- dist: the data-parallel step
+
+
+def _dp_setup(device, batch=64):
+    """The reduced DLRM-Criteo's api on ``device``, its parameters drawn on
+    the CPU and moved, and a CPU-drawn batch function."""
+    from repro_torch import tree
+    cfg = dlrm_criteo.config(reduced=True)
+    host, api = dlrm_criteo.api(cfg, device="cpu"), dlrm_criteo.api(cfg, device=device)
+    params = tree.tree_map(lambda t: t.to(device), host.init(torch.Generator().manual_seed(0)))
+    shape = Shape("t", 1, batch, "train")
+    return api, params, lambda s: tree.tree_map(lambda t: t.to(device), host.batch_fn(s, shape))
+
+
+@pytest.mark.parametrize("mode", ["bf16", "int8", "auto"])
+def test_local_compression_on_the_card_equals_the_cpu(cuda, mode):
+    """``ef_psum_grads(group=None)`` carried over 5 calls: outputs and
+    residuals on the card bit-equal to the CPU's on the same inputs."""
+    from repro_torch import tree
+    from repro_torch.dist import AUTO, compress
+    _, params, _ = _dp_setup("cpu")
+    pol = AUTO if mode == "auto" else mode
+    gen = torch.Generator().manual_seed(3)
+    errs = {d: compress.init_error_state(tree.tree_map(lambda t, d=d: t.to(d), params), pol)
+            for d in ("cpu", "cuda")}
+    for _ in range(5):
+        g = tree.tree_map(lambda p: torch.randn(p.shape, generator=gen) * 1e-2, params)
+        outs = {}
+        for d in ("cpu", "cuda"):
+            outs[d], errs[d] = compress.ef_psum_grads(tree.tree_map(lambda t, d=d: t.to(d), g),
+                                                      errs[d], group=None, mode=pol)
+        for a, b in zip(tree.leaves(outs["cpu"]) + tree.leaves(errs["cpu"]),
+                        tree.leaves(outs["cuda"]) + tree.leaves(errs["cuda"])):
+            assert torch.equal(a, b.cpu())
+
+
+def test_dp_step_over_nccl_in_a_world_of_one(cuda):
+    """A process group of one over NCCL: the "none" DP step equals
+    ``make_train_step`` (within 1e-6 of each leaf's largest |value|: the
+    index backward's atomics); the int8 step issues its scale maxima and
+    the metric means through ``dist.wire``, at 0 bytes by the ring
+    formulas."""
+    import torch.distributed as dist
+
+    from repro_torch import tree
+    from repro_torch.dist import wire, world
+    from repro_torch.train.loop import (init_dp_state, init_state, make_dp_train_step,
+                                        make_train_step)
+    api, params, batch_at = _dp_setup(cuda)
+    world.local("nccl")
+    try:
+        plain, _ = make_train_step(api.loss_fn, api.optimizer)(init_state(params, api.optimizer),
+                                                               batch_at(0))
+        dp, m = make_dp_train_step(api.loss_fn, api.optimizer, compress="none")(
+            init_dp_state(params, api.optimizer, compress="none"), batch_at(0))
+        for a, b in zip(tree.leaves(plain["params"]), tree.leaves(dp["params"])):
+            assert float((a - b).abs().max()) <= 1e-6 * max(1.0, float(a.abs().max()))
+        wire.reset()
+        st = init_dp_state(params, api.optimizer, compress="int8")
+        step = make_dp_train_step(api.loss_fn, api.optimizer, compress="int8")
+        for s in range(2):
+            st, m = step(st, batch_at(s))
+            assert torch.isfinite(m["loss"])
+        snap = wire.snapshot()
+        n_leaves = len(tree.leaves(params))
+        assert snap["per_kind"]["all_reduce"]["calls"] == 2 * (n_leaves + 1)
+        assert snap["total_bytes"] == 0.0
+    finally:
+        dist.destroy_process_group()
+
+
+def _gloo_two_on_one_card(rank, world_size, out):
+    import json as _json
+
+    import torch.distributed as dist
+
+    from repro_torch import tree
+    from repro_torch.dist import AUTO, accounting, wire
+    from repro_torch.train.loop import init_dp_state, make_dp_train_step
+    torch.cuda.set_device(0)
+    api, params, batch_at = _dp_setup(torch.device("cuda", 0))
+    state = init_dp_state(params, api.optimizer, compress="auto")
+    step = make_dp_train_step(api.loss_fn, api.optimizer, compress="auto")
+    wire.reset()
+    for s in range(3):
+        state, _ = step(state, batch_at(s))
+    flat = torch.cat([p.reshape(-1) for p in tree.leaves(state["params"])])
+    every = [torch.empty_like(flat) for _ in range(world_size)]
+    dist.all_gather(every, flat)
+    if rank == 0:
+        with open(out, "w") as f:
+            _json.dump({"equal": all(torch.equal(every[0], e) for e in every[1:]),
+                        "recorded": wire.snapshot()["total_bytes"],
+                        "accounted": 3 * accounting.dp_step_wire_bytes(
+                            params, AUTO, world_size, scalar_allreduces=3)["total_bytes"]}, f)
+
+
+def test_gloo_world_of_two_on_one_card(cuda, tmp_path):
+    """Two gloo ranks on cuda:0, the "auto" policy, 3 steps: the replicas'
+    parameters bitwise equal, the recorded bytes the accounted ones."""
+    import json as _json
+
+    from repro_torch.dist import world
+    out = tmp_path / "two.json"
+    world.spawn(_gloo_two_on_one_card, 2, "gloo", str(out))
+    res = _json.loads(out.read_text())
+    assert res["equal"]
+    assert res["recorded"] == pytest.approx(res["accounted"], rel=1e-12)
+
+
+def test_train_launcher_and_sweep_on_the_card(cuda, tmp_path, capsys):
+    from repro_torch.examples import compression_sweep
+    from repro_torch.launch import train
+    hist = train.main(["--compress-policy", "int8", "--steps", "3", "--batch", "32",
+                       "--log-every", "1", "--metrics-out", str(tmp_path / "m.jsonl")])
+    assert len(hist) == 3 and all(np.isfinite(x) for _, x in hist)
+    assert (tmp_path / "m.jsonl").exists()
+    rows = compression_sweep.main(["--steps", "3", "--budgets", "0.25"])
+    assert [r["name"] for r in rows] == ["full", "plan/0.25x", "uniform-hash/0.25x"]
+    assert all(np.isfinite(r["loss"]) for r in rows)
+    assert "proxy order vs trained order" in capsys.readouterr().out

@@ -265,9 +265,29 @@ def test_watchdog_flags_straggler(one_thread):
 
 
 def test_trainer_refuses_what_is_not_ported():
+    """``Trainer(step_wire=)`` is ported: with ``obs`` it counts each leaf's
+    accounted bytes per step (and a report's remainder as ``_other``);
+    the FSDP step's price still waits for item 16b."""
+    from repro_torch import obs as tobs
+    from repro_torch.dist import AUTO, accounting
     step = tloop.make_train_step(_loss_fn, topt.adagrad(1e-2))
-    with pytest.raises(NotImplementedError, match="item 16"):
-        tloop.Trainer(step, tloop.TrainConfig(), batch_at=lambda s: None, step_wire={})
+    params = tdlrm.dlrm_init(CFG, torch.Generator().manual_seed(0), "cpu")
+    report = accounting.dp_step_wire_bytes(params, AUTO, 4, scalar_allreduces=3)
+    report["per_leaf"] = accounting.grad_wire_bytes(params, AUTO, 4)["per_leaf"]
+    obs = tobs.Obs()
+    batches = _ref_batches(3, 16)
+    tloop.Trainer(step, tloop.TrainConfig(num_steps=3), batch_at=batches.__getitem__, obs=obs,
+                  step_wire=report).run(tloop.init_state(params, topt.adagrad(1e-2)))
+    got = {s["labels"]["leaf"]: s["value"]
+           for s in obs.registry.snapshot()["train_wire_bytes_total"]["series"]}
+    want = {e["path"]: 3 * e["wire_bytes"] for e in report["per_leaf"]}
+    want["_other"] = 3 * report["overhead_bytes"]
+    assert got == pytest.approx(want, rel=1e-12)
+    # without obs the counters cost nothing and nothing is counted
+    tloop.Trainer(step, tloop.TrainConfig(num_steps=1), batch_at=batches.__getitem__,
+                  step_wire=report).run(tloop.init_state(params, topt.adagrad(1e-2)))
+    with pytest.raises(NotImplementedError, match="item 16b"):
+        accounting.fsdp_step_wire_bytes(params, topt.adagrad(1e-2), None, AUTO)
 
 
 # ------------------------------------------------------- loader and config api
