@@ -175,7 +175,35 @@ Phases (any failure exits non-zero, and no result line is printed):
    "auto" scored on the 12 held-out batches through one K1 and one K2 per
    batch, against the plain path (1e-4).  Wall ms per step per policy and
    world beside the card's name and power limit;
-17. run the paper's §5 experiment (``repro_torch.benchmarks.paper_tables``)
+17. ``[fsdp]``: the full-width model's FSDP step (``make_fsdp_train_step``,
+   Adagrad 1e-2, global batch 256) in two spawned worlds: (a) NCCL, a
+   world of one, deterministic algorithms — 3 "none" steps bit-equal to
+   ``make_train_step``'s, parameters and Adagrad state; (b) gloo, a world
+   of 4 on cuda:0 — 5 steps per lane (none, bf16, int8, auto, and auto
+   with the bf16 parameter gather) with the replicas' parameters bitwise
+   equal after each (the bf16-gather lane's scattered leaves compared at
+   bf16: each rank keeps its own shard exact), the recorded bytes per step
+   equal to ``fsdp_step_wire_bytes`` exactly, each rank's optimizer state
+   1/4 of DP's for the scattered leaves, "none" FSDP's first-step reduced
+   gradients within 1e-6 of "none" DP's, "none" FSDP and DP bit-equal on a
+   loss whose sums are exact, a checkpoint gathered and written at step 2,
+   restored at world 4 and continued to step 5 bit-equal to the
+   uninterrupted run, and restored with world-2 shardings equal to the
+   full leaves cut; peak memory per rank; then the "auto"-trained tables
+   scored through one K1 and one K2 per held-out batch (1e-4 of plain);
+18. ``[serve_dist]``: a gloo world of 4 on cuda:0 serves the 2,048
+   requests of phase 8 (after 256 warm-up ones) from row-sharded tables,
+   ``max_batch=256`` (64 per rank), with the full-width int8 model, again
+   from a 1 << 20-row device cache (1,024 requests twice), and with
+   ``[plan]``'s planned model: the placement (threshold, sharded
+   sub-tables, bytes per rank within ``total/N + replicated + pad``), one
+   grouped K4 and one K2 per wave on every rank (the counters, zeroed just
+   before), scores equal on every rank and within 1e-4 of a single-device
+   engine, the recorded exchange bytes per wave equal to
+   ``serve_wave_wire_bytes``, the cache's hits and its keys from replicated
+   features only; then ``launch/serve.py --mesh-devices 4`` under
+   ``torchrun``;
+19. run the paper's §5 experiment (``repro_torch.benchmarks.paper_tables``)
    on the card for ``PAPER_ROWS``: fig4's six rows (DLRM and DCN x full,
    hash, QR mult) and QR add, concat, feature mode, threshold 2,000 and
    the path-based table at hidden 16, each trained 400 steps at B=256 on
@@ -194,7 +222,7 @@ Phases (any failure exits non-zero, and no result line is printed):
    ``fig4/dlrm/qr_mult`` 400 steps on the machine's CPU and print its
    held-out |Δ| from the card, and profile one DLRM and one DCN row's
    step (device ms, device operations, busy share);
-18. time each kernel, its plain version and a PyTorch yardstick with CUDA
+20. time each kernel, its plain version and a PyTorch yardstick with CUDA
    events, compute each kernel's bound from this run's inputs, and print
    the ``kernels`` JSON line.  The grouped kernels are timed at a full
    26-table wave (K4) and batch (K1 in f32, K5) at 1 to 16 threads per
@@ -207,8 +235,9 @@ Phases (any failure exits non-zero, and no result line is printed):
    entry at the kernel bench's D=128 on int32 ids, int64 ids read in place
    and int64 ids cast first; and grouped K4 at the planned wave of 13.
 
-Each of the paths in 8 to 17 runs with every launch count set to 0
-just before it and read just after; launches made to compare a kernel
+Each of the paths in 8 to 19 runs with every launch count set to 0
+just before it and read just after (in 18, in each rank's process: the
+``kernels`` line sums the ranks); launches made to compare a kernel
 with its plain version count nowhere.  Peak device memory is printed as
 the process's peak and as the peak above what the phase found allocated
 (earlier phases keep their check inputs for the timing phase).
@@ -727,13 +756,30 @@ def check_embedding_bag(torch, shapes):
     return worst
 
 
+def _serve_requests(cfg):
+    """The serving phases' stream: 256 warm-up and 2,048 launcher-style
+    requests (Zipf ids, bags of 1..4, ~10% empty bags, now and then a
+    request with no ids at all), drawn on the host from one seed."""
+    import numpy as np
+
+    from repro_torch.launch.serve import request_stream
+
+    rng = np.random.default_rng(0)
+    reqs = list(request_stream(rng, cfg.table_sizes, cfg.dense_dim, 2304, 4))
+    for k, (_, bags) in enumerate(reqs):               # some empty bags
+        for i in np.flatnonzero(rng.random(len(bags)) < 0.1):
+            bags[i] = []
+        if k % 500 == 7:
+            reqs[k] = (reqs[k][0], [[] for _ in bags])  # a request with no ids at all
+    return reqs[:256], reqs[256:]
+
+
 def serve_full_width(torch):
     """Serve the full-width int8 DLRM-Criteo; returns the main path's launch
     counts, the engine and its requests."""
     import numpy as np
 
     from repro_torch.configs import dlrm_criteo
-    from repro_torch.launch.serve import request_stream
     from repro_torch.models.dlrm import dlrm_init
     from repro_torch.serve.quantize import memory_report, quantize_params
     from repro_torch.serve.recsys import RecsysEngine
@@ -750,14 +796,7 @@ def serve_full_width(torch):
           f"{rep['f32_table_bytes']} B f32 -> {rep['quant_table_bytes']} B int8 "
           f"({rep['ratio']:.4f}x)")
 
-    rng = np.random.default_rng(0)
-    reqs = list(request_stream(rng, cfg.table_sizes, cfg.dense_dim, 2304, 4))
-    for k, (_, bags) in enumerate(reqs):               # some empty bags
-        for i in np.flatnonzero(rng.random(len(bags)) < 0.1):
-            bags[i] = []
-        if k % 500 == 7:
-            reqs[k] = (reqs[k][0], [[] for _ in bags])  # a request with no ids at all
-    warm, main = reqs[:256], reqs[256:]
+    warm, main = _serve_requests(cfg)
 
     engine = RecsysEngine(cfg, qparams, max_batch=256, batching="continuous")
     for dense, bags in warm:
@@ -2814,6 +2853,511 @@ def dist_full_width(torch, card):
     return counts
 
 
+# [fsdp]: the full-width FSDP step (ROADMAP 16b) in (a) a NCCL world of one
+# and (b) a gloo world of 4 on cuda:0, as [dist] runs the DP step; workers
+# report through JSON files under build/fsdp/
+FSDP_LANES = (("none", "float32"), ("bf16", "float32"), ("int8", "float32"),
+              ("auto", "float32"), ("auto", "bfloat16"))
+FSDP_STEPS = 5
+FSDP_CKPT_STEP = 2              # the "none" lane checkpoints after this many steps
+FSDP_LINEAR_STEPS = 2
+FSDP_DIR = os.path.join(ROOT, "build", "fsdp")
+# "none" FSDP vs "none" DP: the first step's reduced gradients (read as
+# Adagrad's accumulator), each leaf within this of its largest |g|; the two
+# sum the ranks' gradients in another order (rank order vs gloo's), so
+# parameters after steps are held on a loss whose sums are exact instead
+FSDP_DP_GRAD_TOL = 1e-6
+# DP's per-rank peak on the same model and world ([dist] (b), PR 21 runs 3-4)
+DP_PEAK_BYTES = 5.94e9
+
+
+def _fsdp_one(rank, world_size, out):
+    """(a): NCCL, a world of one, full width, deterministic algorithms: 3
+    "none" FSDP steps against 3 steps of ``make_train_step``."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch import tree
+    from repro_torch.train.loop import (init_fsdp_state, init_state, make_fsdp_train_step,
+                                        make_train_step)
+
+    torch.use_deterministic_algorithms(True)
+    api, params, batch_at = _dist_setup(torch, torch.device("cuda"))
+    plain, fsdp = init_state(params, api.optimizer), init_fsdp_state(params, api.optimizer,
+                                                                      policy="none")
+    pstep = make_train_step(api.loss_fn, api.optimizer)
+    fstep = make_fsdp_train_step(api.loss_fn, api.optimizer, None, params, policy="none")
+    walls = []
+    for s in range(3):
+        batch = batch_at(s)
+        plain, _ = pstep(plain, batch)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        fsdp, _ = fstep(fsdp, batch)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t) * 1e3)
+    pairs = list(zip(tree.leaves(plain["params"]) + tree.leaves(plain["opt"]),
+                     tree.leaves(fsdp["params"]) + tree.leaves(fsdp["opt"])))
+    res = {"backend": dist.get_backend(), "world": world_size, "wall_ms": walls,
+           "leaves": len(pairs), "differing": sum(not torch.equal(a, b) for a, b in pairs)}
+    with open(out, "w") as f:
+        json.dump(res, f)
+
+
+def _params_agree(torch, dist, params, label, bf16_scattered=None):
+    """Every rank's parameters bitwise equal rank 0's (gathered checksums,
+    outside ``dist.wire``); with a bf16 parameter gather each rank keeps its
+    own shard exact, so the scattered leaves are compared rounded to bf16."""
+    from repro_torch import tree
+    if bf16_scattered is not None:
+        params = [p.to(torch.bfloat16).to(torch.float32) if b else p
+                  for p, b in zip(tree.leaves(params), bf16_scattered)]
+    _replicas_agree(torch, dist, params, label)
+
+
+def _linear_fsdp_vs_dp(torch, dist, params, opt, rank):
+    """"none" FSDP and DP for FSDP_LINEAR_STEPS steps on a loss whose
+    gradient is each rank's own coefficients, integers over 64 (|k| <
+    1024): every sum of four is exact in f32 in any order, so the two
+    steps see the same reduced gradients and must end bit-equal."""
+    from repro_torch import tree
+    from repro_torch.train.loop import (init_dp_state, init_fsdp_state, make_dp_train_step,
+                                        make_fsdp_train_step)
+
+    gen = torch.Generator(device="cuda").manual_seed(100 + rank)
+    coefs = [torch.randint(-1024, 1024, tuple(p.shape), generator=gen, device="cuda")
+             .to(torch.float32) / 64 for p in tree.leaves(params)]
+
+    def loss_fn(p, batch):
+        return sum(torch.sum(x * c) for x, c in zip(tree.leaves(p), coefs)), {}
+
+    batch = {"k": torch.zeros(DIST_WORLD, device="cuda")}
+    fstate = init_fsdp_state(params, opt, policy="none")
+    fstep = make_fsdp_train_step(loss_fn, opt, None, params, policy="none")
+    dstate = init_dp_state(params, opt, compress="none")
+    dstep = make_dp_train_step(loss_fn, opt, compress="none")
+    for _ in range(FSDP_LINEAR_STEPS):
+        fstate, _ = fstep(fstate, batch)
+        dstate, _ = dstep(dstate, batch)
+    worst = _worst_rel(tree, fstate["params"], dstate["params"])
+    differing = sum(not torch.equal(a, b) for a, b in zip(tree.leaves(fstate["params"]),
+                                                          tree.leaves(dstate["params"])))
+    return {"worst": worst, "leaves_differing": differing}
+
+
+def _fsdp_four(rank, world_size, out_dir):
+    """(b): gloo, a world of 4, every rank on cuda:0: each lane's FSDP steps
+    with the replicas checked after each, the recorded bytes, the sharded
+    optimizer state, a checkpoint restart, the elastic restore, and "none"
+    FSDP against "none" DP."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch import tree
+    from repro_torch.ckpt import checkpoint as ckpt
+    from repro_torch.dist import AUTO, accounting, wire
+    from repro_torch.train.loop import (fsdp_plan, fsdp_state_shardings, gather_fsdp_state,
+                                        init_dp_state, init_fsdp_state, make_dp_train_step,
+                                        make_fsdp_train_step)
+
+    torch.cuda.set_device(0)
+    torch.set_num_threads(2)
+    api, params, batch_at = _dist_setup(torch, torch.device("cuda", 0))
+    opt = api.optimizer
+    res = {"rank": rank, "backend": dist.get_backend(), "world": world_size, "lanes": {}}
+    # "none" DP's first step, for its reduced gradients
+    dstate, _ = make_dp_train_step(api.loss_fn, opt, compress="none")(
+        init_dp_state(params, opt, compress="none"), batch_at(0))
+    dp_acc = [o["acc"] for o in dstate["opt"]]
+    del dstate
+    ckdir = os.path.join(out_dir, "ckpt")
+    for pol, gd in FSDP_LANES:
+        lane = f"{pol}/{gd}"
+        step = make_fsdp_train_step(api.loss_fn, opt, None, params, policy=pol,
+                                    param_gather_dtype=gd)
+        plan = step.plan
+        scattered = [dim is not None for (_, _, _, dim) in plan]
+        state = init_fsdp_state(params, opt, policy=pol)
+        acct = accounting.fsdp_step_wire_bytes(params, opt, world_size,
+                                               AUTO if pol == "auto" else pol,
+                                               scalar_allreduces=3, param_gather_dtype=gd)
+        local = sum(x.numel() * x.element_size() for o, sc in zip(state["opt"], scattered)
+                    if sc for x in tree.leaves(o))
+        full = sum(math.prod(shape) * 4 for (_, shape, _, dim) in plan if dim is not None)
+        row = {"accounted_bytes_per_step": acct["total_bytes"],
+               "n_scattered": acct["n_scattered"], "n_leaves": acct["n_leaves"],
+               "opt_bytes_scattered_local": local, "opt_bytes_scattered_full": full}
+        wire.reset()
+        walls, losses = [], []
+        for s in range(FSDP_STEPS):
+            batch = batch_at(s)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            state, m = step(state, batch)
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t) * 1e3)
+            losses.append(float(m["loss"]))
+            _params_agree(torch, dist, state["params"], f"[fsdp] {lane} step {s}",
+                          scattered if gd == "bfloat16" else None)
+            if pol == "none" and s == 0:
+                acc = [o["acc"] for o in gather_fsdp_state(state, plan)["opt"]]
+                row["first_step_grads_vs_dp"] = _worst_rel(
+                    tree, [a.sqrt() for a in acc], [a.sqrt() for a in dp_acc])
+                del acc
+            if pol == "none" and s == FSDP_CKPT_STEP - 1:
+                t = time.perf_counter()
+                whole = gather_fsdp_state(state, plan)
+                if rank == 0:
+                    ckpt.save(ckdir, FSDP_CKPT_STEP, whole)
+                del whole
+                dist.barrier()
+                row["checkpoint_s"] = time.perf_counter() - t
+        recorded = wire.snapshot()["per_leaf"]
+        row.update({"wall_ms": walls, "losses": losses,
+                    "recorded_bytes_per_step": sum(
+                        b for leaf, b in recorded.items() if leaf != "_checkpoint") / FSDP_STEPS})
+        if pol == "none":
+            # restart from the checkpoint at world 4 and run to the end
+            t = time.perf_counter()
+            resumed, _ = ckpt.restore(ckdir, FSDP_CKPT_STEP, state, shardings=fsdp_state_shardings(
+                state, plan, rank, world_size))
+            row["restore_s"] = time.perf_counter() - t
+            for s in range(FSDP_CKPT_STEP, FSDP_STEPS):
+                resumed, _ = step(resumed, batch_at(s))
+            row["restart_leaves_differing"] = sum(
+                not torch.equal(a, b) for a, b in zip(tree.leaves(resumed), tree.leaves(state)))
+            del resumed
+            # the elastic restore: ranks 0 and 1 as the ranks of a world of 2
+            if rank < 2:
+                plan2 = fsdp_plan(params, opt, 2, policy="none")
+                sh = fsdp_state_shardings(state, plan2, rank, 2)
+                part, _ = ckpt.restore(ckdir, FSDP_CKPT_STEP, state, shardings=sh)
+                whole, _ = ckpt.restore(ckdir, FSDP_CKPT_STEP, state)
+                row["world2_leaves_differing"] = sum(
+                    not torch.equal(a, s_.take(w)) for a, s_, w in zip(
+                        tree.leaves(part), tree.leaves(sh), tree.leaves(whole)))
+                row["world2_leaves_cut"] = sum(s_.count > 1 for s_ in tree.leaves(sh))
+                del part, whole
+            dist.barrier()
+        if pol == "auto" and gd == "float32" and rank == 0:
+            torch.save(tree.tree_map(lambda t: t.cpu(), state["params"]),
+                       os.path.join(out_dir, "auto_params.pt"))
+        res["lanes"][lane] = row
+        del state
+        torch.cuda.empty_cache()
+    res["linear_none_vs_dp"] = _linear_fsdp_vs_dp(torch, dist, params, opt, rank)
+    res["peak_memory_bytes"] = torch.cuda.max_memory_allocated()
+    with open(os.path.join(out_dir, f"four{rank}.json"), "w") as f:
+        json.dump(res, f)
+
+
+def fsdp_full_width(torch, card):
+    """The [fsdp] phase: (a) a NCCL world of one, (b) a gloo world of 4 on
+    one card; then the tables trained under "auto" in (b) scored through
+    K1 + K2.  Returns the scoring's launch counts."""
+    import shutil
+
+    from repro_torch import tree
+    from repro_torch.configs import dlrm_criteo
+    from repro_torch.configs.common import Shape
+    from repro_torch.dist import world
+    from repro_torch.serve.quantize import table_bytes
+
+    shutil.rmtree(FSDP_DIR, ignore_errors=True)
+    os.makedirs(FSDP_DIR)
+    t0 = time.perf_counter()
+    one = os.path.join(FSDP_DIR, "one.json")
+    world.spawn(_fsdp_one, 1, "nccl", one)
+    with open(one) as f:
+        a = json.load(f)
+    print(f"  (a) {a['backend']}, world of {a['world']}, deterministic algorithms: 'none' FSDP "
+          f"vs make_train_step over 3 steps, {a['differing']} of {a['leaves']} parameter and "
+          f"Adagrad leaves differ (bit for bit expected); wall ms per step "
+          f"{[round(x, 3) for x in a['wall_ms']]} | {card}")
+    if a["differing"]:
+        _fail("[fsdp] (a) the FSDP step at n = 1 is not make_train_step's bit for bit")
+
+    t = time.perf_counter()
+    world.spawn(_fsdp_four, DIST_WORLD, "gloo", FSDP_DIR)
+    four_s = time.perf_counter() - t
+    ranks = []
+    for r in range(DIST_WORLD):
+        with open(os.path.join(FSDP_DIR, f"four{r}.json")) as f:
+            ranks.append(json.load(f))
+    b = ranks[0]
+    print(f"  (b) {b['backend']}, world of {b['world']}, every rank on cuda:0 ({four_s:.1f} s "
+          f"with the spawn); peak memory per rank "
+          f"{[r['peak_memory_bytes'] for r in ranks]} B (DP's: {DP_PEAK_BYTES:.3g} B)")
+    for lane, row in b["lanes"].items():
+        ratio = row["recorded_bytes_per_step"] / row["accounted_bytes_per_step"]
+        opt_ratio = row["opt_bytes_scattered_local"] / row["opt_bytes_scattered_full"]
+        print(f"  (b) {lane:13s}: wall ms per step {sorted(row['wall_ms'])[FSDP_STEPS // 2]:.3f} "
+              f"(median of {FSDP_STEPS}; first {row['wall_ms'][0]:.3f}), losses "
+              f"{[round(x, 5) for x in row['losses']]}, replicas bitwise equal after every step"
+              f"{' (scattered leaves at bf16)' if lane.endswith('bfloat16') else ''}; recorded "
+              f"{row['recorded_bytes_per_step']:.0f} B per step vs accounted "
+              f"{row['accounted_bytes_per_step']:.0f} (ratio {ratio:.9f}); optimizer bytes of "
+              f"the {row['n_scattered']} of {row['n_leaves']} scattered leaves per rank "
+              f"{row['opt_bytes_scattered_local']} = {opt_ratio:.6f} of DP's | {card}")
+        if not all(math.isfinite(x) for x in row["losses"]):
+            _fail(f"[fsdp] (b) {lane}: losses not finite")
+        if row["recorded_bytes_per_step"] != row["accounted_bytes_per_step"]:
+            _fail(f"[fsdp] (b) {lane}: recorded bytes {row['recorded_bytes_per_step']} != "
+                  f"accounted {row['accounted_bytes_per_step']}")
+        if any(r["lanes"][lane]["opt_bytes_scattered_local"] * DIST_WORLD
+               != row["opt_bytes_scattered_full"] for r in ranks):
+            _fail(f"[fsdp] (b) {lane}: a rank's optimizer state is not 1/{DIST_WORLD} of DP's")
+    none = b["lanes"]["none/float32"]
+    worst, where = none["first_step_grads_vs_dp"]
+    print(f"  (b) 'none' FSDP vs 'none' DP, first step's reduced gradients: worst leaf {where} "
+          f"{worst:.3e} of its largest |g| (tol {FSDP_DP_GRAD_TOL:.0e}; rank-order vs gloo's "
+          f"summation)")
+    if worst > FSDP_DP_GRAD_TOL:
+        _fail("[fsdp] (b) 'none' FSDP's reduced gradients disagree with DP's")
+    lin = b["linear_none_vs_dp"]
+    print(f"  (b) 'none' FSDP vs 'none' DP on a loss with exact sums, {FSDP_LINEAR_STEPS} steps: "
+          f"{lin['leaves_differing']} parameter leaves differ, worst {lin['worst'][0]:.3e} of "
+          f"the leaf's largest |param| (tol {DIST_NONE_RTOL:.0e}; bit for bit expected)")
+    if lin["worst"][0] > DIST_NONE_RTOL or any(r["linear_none_vs_dp"]["leaves_differing"]
+                                               for r in ranks):
+        _fail("[fsdp] (b) 'none' FSDP's parameters disagree with DP's on exact sums")
+    print(f"  (b) checkpoint of the 'none' state at step {FSDP_CKPT_STEP} (gathered, written "
+          f"by rank 0) in {none['checkpoint_s']:.2f} s, restored at world {DIST_WORLD} in "
+          f"{none['restore_s']:.2f} s: the continued run's leaves differing from the "
+          f"uninterrupted run's {[r['lanes']['none/float32']['restart_leaves_differing'] for r in ranks]}"
+          f"; restored at world 2 (ranks 0, 1): leaves differing from the full leaves cut "
+          f"{[r['lanes']['none/float32']['world2_leaves_differing'] for r in ranks[:2]]} of "
+          f"{none['world2_leaves_cut']} cut")
+    if any(r["lanes"]["none/float32"]["restart_leaves_differing"] for r in ranks) or any(
+            r["lanes"]["none/float32"]["world2_leaves_differing"] for r in ranks[:2]) \
+            or not none["world2_leaves_cut"]:
+        _fail("[fsdp] (b) the checkpoint restart or the elastic restore is not exact")
+
+    cfg = dlrm_criteo.config(reduced=False)
+    kapi = dlrm_criteo.api(dataclasses.replace(cfg, use_kernel=True))
+    plain = dlrm_criteo.api(cfg)
+    auto_params = os.path.join(FSDP_DIR, "auto_params.pt")
+    params = tree.tree_map(lambda x: x.to("cuda"), torch.load(auto_params))
+    os.remove(auto_params)
+    shutil.rmtree(os.path.join(FSDP_DIR, "ckpt"), ignore_errors=True)
+    shape = Shape("bench", 1, B, "train")
+    batches = [kapi.batch_fn(step, shape) for step in EVAL_STEPS]
+    counts = _eval_run(torch, kapi, plain, params, batches, "fsdp auto f32", "qr_gather", 1,
+                       table_bytes(params), torch.cuda.memory_allocated())
+    del params
+    secs = time.perf_counter() - t0
+    print(f"  card: {card}; [fsdp] {secs:.1f} s")
+    print(json.dumps({"fsdp_profile": {
+        "card": card, "seconds": secs, "one": a,
+        "four": ranks}}))
+    return counts
+
+
+# [serve_dist]: sharded serving (ROADMAP 16c) in a gloo world of 4 on cuda:0
+SERVE_DIST_DIR = os.path.join(ROOT, "build", "serve_dist")
+SERVE_DIST_CACHE_ROWS = 1 << 20
+SERVE_DIST_CACHE_REQUESTS = 1024
+
+
+def _sharded_lane(torch, label, cfg, qparams, placement, warm, main, single, cache=None):
+    """Serve ``main`` through a sharded engine after ``warm`` with every
+    launch count set to 0 just before and read just after; scores vs the
+    single-device engine's (rank 0 passes them in ``single``)."""
+    import numpy as np
+
+    from repro_torch.dist import wire
+    from repro_torch.serve.recsys import RecsysEngine
+
+    engine = RecsysEngine(cfg, qparams, max_batch=256, batching="waves", device="cuda",
+                          mesh_devices=DIST_WORLD, placement=placement, cache=cache)
+    _serve_all(engine, warm)
+    engine.reset_metrics()
+    torch.cuda.synchronize()
+    _zero_counts()
+    wire.reset()
+    t = time.perf_counter()
+    scores = _serve_all(engine, main)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    counts = _read_counts()
+    snap = wire.snapshot()
+    m = engine.metrics()
+    row = {"label": label, "waves": m["waves"], "requests": m["requests"],
+           "buckets": m["buckets"], "wall_ms_per_wave": wall / max(m["waves"], 1) * 1e3,
+           "qps": m["qps"], "p50_ms": m["p50_ms"], "p99_ms": m["p99_ms"], "counts": counts,
+           "exchange_bytes": sum(b for leaf, b in snap["per_leaf"].items()
+                                 if leaf.startswith("tables/")),
+           "score_gather_bytes": snap["per_leaf"].get("_scores", 0.0),
+           "finite": bool(np.isfinite(scores).all()),
+           "checksum": float(scores.sum())}
+    if single is not None:
+        row["max_abs_vs_single"] = float(np.abs(scores - single).max())
+    if cache is not None:
+        from repro_torch.serve.recsys import _FEATURE_SHIFT
+        keys, _ = cache.slot_items()
+        feats = set((np.asarray(keys) >> _FEATURE_SHIFT).tolist())
+        repl = set(np.flatnonzero(engine.placement.replicated_features(
+            len(cfg.table_sizes))).tolist())
+        row.update({"hit_rate": m["cache"]["hit_rate"], "cache_paths": m["cache_paths"],
+                    "cached_features": sorted(feats),
+                    "cached_replicated_only": bool(feats) and feats <= repl})
+    del engine
+    return row
+
+
+def _single_scores(cfg, qparams, reqs):
+    """The single-device engine's scores on the same stream (kernels on)."""
+    from repro_torch.serve.recsys import RecsysEngine
+    return _serve_all(RecsysEngine(cfg, qparams, max_batch=256, device="cuda"), reqs)
+
+
+def _serve_dist_four(rank, world_size, plan_path, out_dir):
+    """Rank ``rank`` of the gloo world of 4 on cuda:0: the full-width int8
+    model and the [plan] model served sharded; results to ``out_dir``."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.configs import dlrm_criteo
+    from repro_torch.dist.accounting import serve_wave_wire_bytes
+    from repro_torch.dist.serve_placement import plan_placement
+    from repro_torch.models.dlrm import dlrm_init
+    from repro_torch.plan import MemoryPlan
+    from repro_torch.serve.cache import DeviceHotRowCache
+    from repro_torch.serve.quantize import memory_report, quantize_params
+
+    torch.cuda.set_device(0)
+    torch.set_num_threads(2)
+    res = {"rank": rank, "backend": dist.get_backend(), "lanes": {}}
+    plan = MemoryPlan.load(plan_path)
+    for name, cfg_plan in (("uniform", None), ("planned", plan)):
+        base = dlrm_criteo.config(reduced=False, plan=cfg_plan) if cfg_plan is not None \
+            else dlrm_criteo.config(reduced=False)
+        cfg = dataclasses.replace(base, use_kernel=True)
+        params = dlrm_init(cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
+        qparams = quantize_params(params, mode="int8")
+        placement = plan_placement(qparams, world_size, plan=cfg_plan)
+        rep = memory_report(params, qparams, placement=placement)
+        del params
+        warm, main = _serve_requests(cfg)
+        single = _single_scores(cfg, qparams, main) if rank == 0 else None
+        res[f"placement/{name}"] = {
+            **placement.summary(),
+            "sharded": [[e.feature, e.table_key, e.rows] for e in placement.sharded],
+            "table_bytes_per_device": rep["placement"]["table_bytes_per_device"],
+            "bound_bytes": ((cfg_plan.total_bytes if cfg_plan is not None
+                             else placement.total_bytes()) // world_size
+                            + placement.replicated_bytes() + placement.pad_bytes()),
+            "wave_bytes": serve_wave_wire_bytes(placement, B // world_size, L)["total_bytes"]}
+        torch.cuda.reset_peak_memory_stats()
+        res["lanes"][name] = _sharded_lane(torch, name, cfg, qparams, placement, warm,
+                                           main, single)
+        res["lanes"][name]["peak_memory_bytes"] = torch.cuda.max_memory_allocated()
+        if name == "uniform":
+            cache = DeviceHotRowCache(SERVE_DIST_CACHE_ROWS, device="cuda")
+            res["lanes"]["uniform_cache"] = _sharded_lane(
+                torch, "uniform cache", cfg, qparams, placement,
+                main[:SERVE_DIST_CACHE_REQUESTS], main[:SERVE_DIST_CACHE_REQUESTS],
+                None if single is None else single[:SERVE_DIST_CACHE_REQUESTS], cache=cache)
+            del cache
+        del qparams
+        torch.cuda.empty_cache()
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(res, f)
+
+
+def _serve_dist_launcher(card):
+    """``launch/serve.py --mesh-devices 4`` under torchrun, every rank on the card."""
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node",
+           str(DIST_WORLD), "-m", "repro_torch.launch.serve", "--mesh-devices", str(DIST_WORLD),
+           "--requests", "64", "--batch-size", "14"]
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    t = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True, text=True, timeout=600)
+    secs = time.perf_counter() - t
+    print(f"  $ torchrun --standalone --nproc_per_node {DIST_WORLD} -m repro_torch.launch.serve "
+          + " ".join(cmd[8:]))
+    for line in proc.stdout.strip().splitlines():
+        print(f"    {line}")
+    if proc.returncode != 0 or "placement: " not in proc.stdout \
+            or "served 64 requests" not in proc.stdout:
+        _fail(f"[serve_dist] the launcher exited {proc.returncode}: {proc.stderr[-2000:]}")
+    print(f"  launcher: exit 0 in {secs:.1f} s | card: {card}")
+    return secs
+
+
+def serve_dist_full_width(torch, card):
+    """The [serve_dist] phase: the full-width int8 model and the [plan]
+    model served sharded over a gloo world of 4 on one card, then the
+    launcher under torchrun; returns the launch counts of the served waves,
+    summed over the ranks."""
+    import shutil
+
+    from repro_torch.dist import world
+
+    t0 = time.perf_counter()
+    plan_path = os.path.join(SERVE_DIST_DIR, "plan.json")
+    for name in os.listdir(SERVE_DIST_DIR):
+        if name != "plan.json":
+            os.remove(os.path.join(SERVE_DIST_DIR, name))
+    world.spawn(_serve_dist_four, DIST_WORLD, "gloo", plan_path, SERVE_DIST_DIR)
+    ranks = []
+    for r in range(DIST_WORLD):
+        with open(os.path.join(SERVE_DIST_DIR, f"rank{r}.json")) as f:
+            ranks.append(json.load(f))
+    shutil.rmtree(SERVE_DIST_DIR, ignore_errors=True)
+    total = {name: 0 for name in _kernels()}
+    r0 = ranks[0]
+    for name in ("uniform", "planned"):
+        p = r0[f"placement/{name}"]
+        print(f"  {name}: placement over {p['n_devices']} ranks: threshold "
+              f"{p['threshold_bytes']} B, {p['row_sharded']} row-sharded sub-tables "
+              f"{[tuple(x) for x in p['sharded']]}, {p['replicated']} replicated "
+              f"({p['replicated_bytes']} B), {p['pad_bytes']} B of row padding, "
+              f"{p['table_bytes_per_device']} B per rank of {p['total_bytes']} (bound "
+              f"{p['bound_bytes']}); the wave's exchange {p['wave_bytes']:.0f} B per rank at "
+              f"{B // DIST_WORLD} requests per rank and bags of {L}")
+        if p["table_bytes_per_device"] > p["bound_bytes"] or not p["row_sharded"]:
+            _fail(f"[serve_dist] {name}: the placement shards nothing or breaks its bound")
+    for lane in ("uniform", "uniform_cache", "planned"):
+        rows = [r["lanes"][lane] for r in ranks]
+        row = rows[0]
+        waves = row["waves"]
+        wave_bytes = r0[f"placement/{lane.split('_')[0]}"]["wave_bytes"]
+        print(f"  {row['label']}: {row['requests']} requests in {waves} waves {row['buckets']}, "
+              f"wall {row['wall_ms_per_wave']:.3f} ms per wave, qps {row['qps']:.1f}, p50 "
+              f"{row['p50_ms']:.3f} ms, p99 {row['p99_ms']:.3f} ms; launches per rank "
+              f"{[{k: v for k, v in x['counts'].items() if v} for x in rows]}; exchange bytes "
+              f"per wave per rank {row['exchange_bytes'] / max(waves, 1):.0f} (accounted "
+              f"{wave_bytes:.0f}); max |score - single device| "
+              f"{row['max_abs_vs_single']:.3e} (tol {SCORE_TOL:.0e}); peak memory per rank "
+              f"{[x.get('peak_memory_bytes') for x in rows]} B | {card}")
+        if "hit_rate" in row:
+            print(f"    cache: hit rate {row['hit_rate']:.4f}, paths {row['cache_paths']}, "
+                  f"cached features {row['cached_features']} (replicated only: "
+                  f"{row['cached_replicated_only']})")
+            if not (row["hit_rate"] > 0 and row["cached_replicated_only"]):
+                _fail("[serve_dist] the sharded cache saw no hits or cached a sharded feature")
+        if not all(x["finite"] for x in rows) or len({x["checksum"] for x in rows}) != 1:
+            _fail(f"[serve_dist] {lane}: scores not finite or not the same on every rank")
+        if not row["max_abs_vs_single"] <= SCORE_TOL:
+            _fail(f"[serve_dist] {lane}: sharded scores disagree with the single-device engine")
+        if any(x["exchange_bytes"] != waves * wave_bytes for x in rows) \
+                or any(tuple(b) != (B, L) for b in row["buckets"]):
+            _fail(f"[serve_dist] {lane}: recorded exchange bytes are not the accounted "
+                  f"{wave_bytes:.0f} per wave")
+        for i, x in enumerate(rows):
+            # per wave: one grouped K4 over the replicated features, one K2
+            _check_counts(f"serve_dist {lane} rank {i}", x["counts"],
+                          {"fused_serve_pool": waves, "dot_interaction": waves})
+            _add_counts(total, x["counts"])
+    launcher_s = _serve_dist_launcher(card)
+    secs = time.perf_counter() - t0
+    print(f"  card: {card}; [serve_dist] {secs:.1f} s")
+    print(json.dumps({"serve_dist_profile": {"card": card, "seconds": secs,
+                                             "launcher_s": launcher_s, "ranks": ranks}}))
+    return total
+
+
 def _paper_device_profile(torch, pt, spec, warm=3, steps=5):
     """Device ms and device operations per training step of one
     ``paper_tables`` row (``torch.profiler``, ``steps`` steps after
@@ -3523,6 +4067,8 @@ def main() -> int:
           "served, scored, trained, swapped in")
     counts["plan"], plan_err, plan_wave, planned = plan_full_width(torch, engine, reqs, card)
     del engine
+    os.makedirs(SERVE_DIST_DIR, exist_ok=True)
+    planned[0].save(os.path.join(SERVE_DIST_DIR, "plan.json"))   # [serve_dist] serves it
     print(f"  ({time.perf_counter() - t0:.0f} s so far)")
     print("[online] the planned model served with observability on, through drift, the "
           "controller, migration and hot-swap; the migrated model scored and trained")
@@ -3536,6 +4082,14 @@ def main() -> int:
     print("[dist] full-width data-parallel step with compressed gradient exchange: NCCL world "
           "of one, gloo world of 4 on the card, Trainer(step_wire=), the launcher")
     counts["dist"] = dist_full_width(torch, card)
+    print(f"  ({time.perf_counter() - t0:.0f} s so far)")
+    print("[fsdp] full-width FSDP step with sharded optimizer state: NCCL world of one, gloo "
+          "world of 4 on the card, checkpoint restart and elastic restore")
+    counts["fsdp"] = fsdp_full_width(torch, card)
+    print(f"  ({time.perf_counter() - t0:.0f} s so far)")
+    print("[serve_dist] full-width int8 and planned DLRM-Criteo served from row-sharded tables "
+          "over an all-to-all row exchange: gloo world of 4 on the card, the launcher")
+    counts["serve_dist"] = serve_dist_full_width(torch, card)
     print(f"  ({time.perf_counter() - t0:.0f} s so far)")
     print("[paper] paper_tables rows trained on the card, held against the CPU and the reference")
     counts["paper"] = paper_rows(torch, card)

@@ -1,9 +1,11 @@
-"""Wire bytes vs step time for the compression policies: the data-parallel
-lane of the JAX package's ``benchmarks/dist_bench.py``.
+"""Wire bytes vs step time for the compression policies, as the JAX
+package's ``benchmarks/dist_bench.py``.
 
 Runs the paper's DLRM (reduced Criteo config, global batch 256) in a
-world of ``--world`` processes under each compression policy through
-``make_dp_train_step`` (replicated parameters, compressed all-reduce).
+world of ``--world`` processes under each compression policy, along each
+path of ``--paths``: ``dp`` (``make_dp_train_step``: replicated
+parameters, compressed all-reduce) and ``fsdp`` (``make_fsdp_train_step``:
+compressed reduce-scatter, sharded optimizer state, parameter all-gather).
 Per policy it reports the **accounted** per-device collective wire bytes
 (``repro_torch.dist.accounting``), the **recorded** bytes — the ring
 bytes of every tensor the step really handed to a collective
@@ -21,7 +23,7 @@ Artifacts: ``artifacts/bench_torch/BENCH_dist.json`` + CSV on stdout
 (``name,us_per_call,derived``).  Exits 1 — with ``/ERROR`` rows — if the
 run raises, if accounted and recorded bytes disagree by more than 10%,
 or if the int8 policy fails to cut the recorded bytes below 0.3× of
-``none``.  The FSDP lane waits for ROADMAP item 16b.
+``none`` on the dp path.
 
 Usage::
 
@@ -54,15 +56,17 @@ def _sync(device) -> None:
         torch.cuda.synchronize(device)
 
 
-def _rank(rank, world, steps, policies, device_type, out):
-    """One rank: every policy's lane; rank 0 writes the rows to ``out``."""
+def _rank(rank, world, steps, policies, paths, device_type, out):
+    """One rank: every (path, policy) lane; rank 0 writes the rows to
+    ``out``."""
     import torch
 
     from .. import tree
     from ..configs import dlrm_criteo
     from ..configs.common import Shape
     from ..dist import AUTO, accounting, wire
-    from ..train.loop import init_dp_state, make_dp_train_step
+    from ..train.loop import (init_dp_state, init_fsdp_state, make_dp_train_step,
+                              make_fsdp_train_step)
 
     if device_type == "cuda":
         device = torch.device("cuda", rank % torch.cuda.device_count())
@@ -80,12 +84,18 @@ def _rank(rank, world, steps, policies, device_type, out):
         return tree.tree_map(lambda t: t.to(device), host.batch_fn(i, shape))
 
     rows = []
-    for name in policies:
+    for path, name in [(path, name) for path in paths for name in policies]:
         pol = AUTO if name == "auto" else name
-        state = init_dp_state(params, api.optimizer, compress=pol)
-        step = make_dp_train_step(api.loss_fn, api.optimizer, compress=pol)
-        acct = accounting.dp_step_wire_bytes(params, pol, world,
-                                             scalar_allreduces=SCALAR_ALLREDUCES)
+        if path == "dp":
+            state = init_dp_state(params, api.optimizer, compress=pol)
+            step = make_dp_train_step(api.loss_fn, api.optimizer, compress=pol)
+            acct = accounting.dp_step_wire_bytes(params, pol, world,
+                                                 scalar_allreduces=SCALAR_ALLREDUCES)
+        else:
+            state = init_fsdp_state(params, api.optimizer, policy=pol)
+            step = make_fsdp_train_step(api.loss_fn, api.optimizer, None, params, policy=pol)
+            acct = accounting.fsdp_step_wire_bytes(params, api.optimizer, world, pol,
+                                                   scalar_allreduces=SCALAR_ALLREDUCES)
         state, m = step(state, batcher(0))          # first step outside the window
         _sync(device)
         wire.reset()
@@ -97,7 +107,7 @@ def _rank(rank, world, steps, policies, device_type, out):
         us = (time.perf_counter() - t0) / timed * 1e6
         rec = wire.snapshot()
         rows.append({
-            "path": "dp", "policy": name, "devices": world,
+            "path": path, "policy": name, "devices": world,
             "wire_bytes": acct["total_bytes"], "wire_bytes_grads": acct["grad_bytes"],
             "wire_bytes_param_gather": acct["param_gather_bytes"],
             "recorded_wire_bytes": rec["total_bytes"] / timed,
@@ -110,17 +120,17 @@ def _rank(rank, world, steps, policies, device_type, out):
 
 
 def bench(steps: int, policies: list[str], paths: list[str], *, world_size: int = 8,
-          backend: str = "gloo", device: str = "cpu") -> dict:
+          backend: str = "gloo", device: str = "cuda") -> dict:
     from ..dist import world
 
-    if "fsdp" in paths:
-        raise NotImplementedError("the fsdp lane needs the FSDP step (ROADMAP, modules to "
-                                  "port: item 16b)")
+    unknown = set(paths) - {"dp", "fsdp"}
+    if unknown:
+        raise ValueError(f"unknown paths {sorted(unknown)}; expected dp and/or fsdp")
     if steps < 2:
         raise ValueError("--steps must be at least 2: the first step is not timed")
     with tempfile.TemporaryDirectory(prefix="dist_bench_") as d:
         out = os.path.join(d, "rows.json")
-        world.spawn(_rank, world_size, backend, steps, policies, device, out)
+        world.spawn(_rank, world_size, backend, steps, policies, paths, device, out)
         with open(out) as f:
             rows = json.load(f)
     return {"arch": "dlrm-criteo(reduced)", "batch": BATCH, "devices": world_size,
@@ -153,7 +163,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--steps", type=int, default=30, help="training steps per policy")
     ap.add_argument("--policies", default="none,bf16,int8,auto")
-    ap.add_argument("--paths", default="dp")
+    ap.add_argument("--paths", default="dp,fsdp")
     ap.add_argument("--world", type=int, default=8, help="processes in the world")
     ap.add_argument("--device", default="cuda", help="cuda or cpu")
     ap.add_argument("--backend", default=None,

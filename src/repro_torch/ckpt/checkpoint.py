@@ -19,9 +19,12 @@ Fault-tolerance properties:
     newest *valid* checkpoint (``restore_latest`` walks backwards);
   * **async** — ``AsyncCheckpointer`` snapshots device tensors to host
     memory, then writes on a background thread (training continues during
-    I/O).
-Restoring onto another mesh (sharded restore) waits for the multi-GPU
-port (ROADMAP, modules to port: item 16b).
+    I/O);
+  * **elastic restore** — ``restore(..., shardings=...)`` hands each rank
+    its block of every leaf (``dist.sharding.Shard``), so a state saved
+    with full leaves restores onto a world of another size.  An FSDP state
+    is saved full (``train.loop.gather_fsdp_state``, written by one rank)
+    and restored through ``train.loop.fsdp_state_shardings``.
 """
 
 from __future__ import annotations
@@ -151,10 +154,15 @@ def _load(path, entry) -> torch.Tensor:
     return torch.from_numpy(arr)
 
 
-def restore(ckpt_dir: str, step: int, like, *, verify: bool = True):
+def restore(ckpt_dir: str, step: int, like, *, shardings=None, verify: bool = True):
     """Load checkpoint ``step`` into the structure of ``like``: each leaf a
     tensor in the dtype and on the device of ``like``'s leaf (a leaf that
-    is no tensor keeps the stored dtype, on the CPU)."""
+    is no tensor keeps the stored dtype, on the CPU).
+
+    ``shardings``: a tree like ``like`` of ``dist.sharding.Shard`` (or one
+    ``Shard`` for every leaf) — each leaf is cut to this rank's block
+    before it moves to the device, which is how a checkpoint restores
+    onto another world size."""
     path = os.path.join(ckpt_dir, f"step_{step:08d}")
     if not _valid(path, verify):
         raise IOError(f"checkpoint at {path} is missing or corrupt")
@@ -164,22 +172,34 @@ def restore(ckpt_dir: str, step: int, like, *, verify: bool = True):
     entries = manifest["leaves"]
     if len(entries) != len(leaves_like):
         raise ValueError(f"checkpoint has {len(entries)} leaves, expected {len(leaves_like)}")
+    if shardings is None:
+        shard_leaves = [None] * len(entries)
+    else:
+        shard_leaves = tree.leaves(shardings)
+        if len(shard_leaves) == 1 and len(entries) > 1:
+            shard_leaves = shard_leaves * len(entries)
+        if len(shard_leaves) != len(entries):
+            raise ValueError(f"shardings has {len(shard_leaves)} leaves, the checkpoint "
+                             f"{len(entries)}")
     out = []
-    for entry, like_leaf in zip(entries, leaves_like):
+    for entry, like_leaf, shd in zip(entries, leaves_like, shard_leaves):
         t = _load(path, entry)
+        if shd is not None and shd.count > 1:
+            t = shd.take(t).clone()     # the block alone, not a view of the whole leaf
         if torch.is_tensor(like_leaf):
             t = t.to(device=like_leaf.device, dtype=like_leaf.dtype)
         out.append(t)
     return tree.unflatten(like, out), manifest
 
 
-def restore_latest(ckpt_dir: str, like, *, verify: bool = True):
+def restore_latest(ckpt_dir: str, like, *, shardings=None, verify: bool = True):
     """Restore the newest checkpoint whose integrity check passes:
     ``(step, state, manifest)``, or three Nones."""
     for step in reversed(available_steps(ckpt_dir)):
         path = os.path.join(ckpt_dir, f"step_{step:08d}")
         if _valid(path, verify):
-            state, manifest = restore(ckpt_dir, step, like, verify=False)
+            state, manifest = restore(ckpt_dir, step, like, shardings=shardings,
+                                      verify=False)
             return step, state, manifest
     return None, None, None
 

@@ -7,6 +7,11 @@ dict of tensors) and ``apply(params, idx) -> embeddings``.  Every
 
 Pooled ("bag") lookups for multi-hot features sum masked rows; the fused
 serving kernel in ``repro_torch.kernels`` implements the same contract.
+
+``apply`` and ``bag_pool`` take a ``gather`` hook that replaces each
+sub-table's local row fetch: the sharded serving path fetches rows that
+live on other ranks through it (``dist.serve_placement.exchange_rows``),
+through the same combine code as the local path.
 """
 
 from __future__ import annotations
@@ -59,6 +64,15 @@ def table_rows(table, idx):
     return table[idx]
 
 
+def _gather(gather, table, idx, key):
+    """Route one sub-table lookup through ``gather`` when given:
+    ``gather(table_leaf, row_ids, sub_key) -> rows`` replaces the local
+    ``table_rows``."""
+    if gather is None:
+        return table_rows(table, idx)
+    return gather(table, idx, key)
+
+
 @dataclasses.dataclass(frozen=True)
 class FullEmbedding:
     """The baseline |S| x D table (paper Fig. 1 / 'Full')."""
@@ -72,8 +86,8 @@ class FullEmbedding:
         return {"table": _uniform(generator, (self.num_categories, self.dim), scale,
                                   self.param_dtype, device)}
 
-    def apply(self, params, idx):
-        return table_rows(params["table"], idx)
+    def apply(self, params, idx, gather=None):
+        return _gather(gather, params["table"], idx, "table")
 
     @property
     def num_params(self) -> int:
@@ -98,8 +112,8 @@ class HashEmbedding:
         return {"table": _uniform(generator, (self.m, self.dim), scale,
                                   self.param_dtype, device)}
 
-    def apply(self, params, idx):
-        return table_rows(params["table"], torch.as_tensor(idx) % self.m)
+    def apply(self, params, idx, gather=None):
+        return _gather(gather, params["table"], torch.as_tensor(idx) % self.m, "table")
 
     @property
     def num_params(self) -> int:
@@ -162,14 +176,14 @@ class CompositionalEmbedding:
             for j, (p, d) in enumerate(zip(self.partitions, self.dims))
         }
 
-    def partition_embeddings(self, params, idx):
+    def partition_embeddings(self, params, idx, gather=None):
         """Per-partition rows (the 'feature generation' mode, paper §4)."""
         idx = torch.as_tensor(idx)
-        return [table_rows(params[f"table_{j}"], p.bucket(idx))
+        return [_gather(gather, params[f"table_{j}"], p.bucket(idx), f"table_{j}")
                 for j, p in enumerate(self.partitions)]
 
-    def apply(self, params, idx):
-        zs = self.partition_embeddings(params, idx)
+    def apply(self, params, idx, gather=None):
+        zs = self.partition_embeddings(params, idx, gather=gather)
         if self.op == "concat":
             return torch.cat(zs, dim=-1)
         if self.op == "add":
@@ -210,13 +224,16 @@ def qr_embedding(
     )
 
 
-def bag_pool(module, params, idx, mask=None):
+def bag_pool(module, params, idx, mask=None, gather=None):
     """Sum-pooled multi-hot lookup: ``sum_l emb(idx[..., l]) * mask[..., l]``.
 
     ``idx``: int tensor ``(..., L)``; ``mask``: optional ``(..., L)`` (1 keeps
-    the row).  Returns ``(..., dim)`` in the row dtype.
+    the row).  Returns ``(..., dim)`` in the row dtype.  ``gather``
+    substitutes the row fetch (``_gather``); a module whose ``apply`` takes
+    no hook (path-based tables) refuses one, as the reference's does.
     """
-    emb = module.apply(params, idx)  # (..., L, D)
+    emb = module.apply(params, idx) if gather is None \
+        else module.apply(params, idx, gather=gather)  # (..., L, D)
     # pool in f32, round once: a bf16 running sum would round every one
     # of the L adds
     pooled = emb.to(torch.float32)

@@ -1,10 +1,11 @@
-"""Prefetching host → device data loader for one process.
+"""Sharded, prefetching host → device data loader.
 
 ``ShardedLoader`` wraps a stateless ``batch_at(step)`` function and:
-  * moves every tensor of the batch to ``device`` when one is given (one
-    process takes the whole global batch; the reference's ``host_slice``
-    of it per process waits for the multi-GPU port, ROADMAP, modules to
-    port: item 16b);
+  * slices out this process's rows of the global batch (``host_slice``:
+    dim 0 split evenly over the processes of the default
+    ``torch.distributed`` group, or the whole batch when no group is
+    initialized), so each process feeds only its own rank;
+  * moves every tensor of the batch to ``device`` when one is given;
   * prefetches ``depth`` batches on a background thread (hides host input
     latency — the straggler-mitigation lever for input-bound steps);
   * is restartable: ``seek(step)`` repositions the stream exactly.
@@ -18,12 +19,31 @@ from typing import Callable, Optional
 
 import torch
 
-__all__ = ["ShardedLoader"]
+__all__ = ["ShardedLoader", "host_slice"]
+
+
+def host_slice(batch, *, process_index=None, process_count=None):
+    """This process's rows of a global batch: dim 0 split into
+    ``process_count`` blocks, block ``process_index``.  Both default to
+    the default process group's rank and size (0 and 1 without one)."""
+    import torch.distributed as dist
+    grouped = dist.is_available() and dist.is_initialized()
+    pi = (dist.get_rank() if grouped else 0) if process_index is None else process_index
+    pc = (dist.get_world_size() if grouped else 1) if process_count is None else process_count
+    if pc == 1:
+        return batch
+    per = {k: v.shape[0] // pc for k, v in batch.items()}
+    return {k: v[pi * per[k]:(pi + 1) * per[k]] for k, v in batch.items()}
 
 
 class ShardedLoader:
     def __init__(self, batch_at: Callable[[int], dict], *, device=None,
                  depth: int = 2, start_step: int = 0):
+        """``batch_at(step)`` gives the global batch of a step; the process
+        index and count of ``host_slice`` are read here, once."""
+        import torch.distributed as dist
+        grouped = dist.is_available() and dist.is_initialized()
+        self._process = ((dist.get_rank(), dist.get_world_size()) if grouped else (0, 1))
         self._batch_at = batch_at
         self._device = None if device is None else torch.device(device)
         self._depth = depth
@@ -39,7 +59,8 @@ class ShardedLoader:
     def _produce(self, start: int):
         step = start
         while not self._stop.is_set():
-            batch = self._batch_at(step)
+            batch = host_slice(self._batch_at(step), process_index=self._process[0],
+                               process_count=self._process[1])
             if self._device is not None:
                 batch = {k: v.to(self._device) for k, v in batch.items()}
             while not self._stop.is_set():

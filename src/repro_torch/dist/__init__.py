@@ -7,22 +7,30 @@ small or precision-critical leaves).
 
 ``repro_torch.dist.compress`` implements bf16/int8 error-feedback
 gradient reduction with int8 and bf16 on the wire, used by
-``train.loop.make_dp_train_step``.
+``train.loop.make_dp_train_step`` (all-reduce) and
+``make_fsdp_train_step`` (reduce-scatter).
+
+``repro_torch.dist.sharding`` is the path+shape rule engine: the FSDP
+step's scatter dims and the serving placement's specs.
+
+``repro_torch.dist.serve_placement`` places serving tables over the ranks
+of a group (replicate small sub-tables, row-shard big ones) and fetches
+remote rows through a two-phase all-to-all.
 
 ``repro_torch.dist.accounting`` prices a step's collectives in wire bytes
 per device; ``repro_torch.dist.wire`` issues the collectives and counts
 the bytes each really hands over, so the two cross-check.
 
-The reference's ``sharding`` (FSDP, ROADMAP item 16b) and
-``serve_placement`` (sharded serving, item 16c) are not ported yet.
+A rank of a ``torch.distributed`` process group stands where a device of
+the reference's mesh stood.
 """
 
-from . import accounting, compress, policy, wire
+from . import accounting, compress, policy, serve_placement, sharding, wire
 from .compress import ef_psum_grads, init_error_state, quantize_int8, resolve_modes
 from .policy import AUTO, CompressionPolicy, resolve_policy
 
 __all__ = [
-    "compress", "policy", "accounting", "wire",
+    "compress", "policy", "accounting", "wire", "sharding", "serve_placement",
     "quantize_int8", "init_error_state", "ef_psum_grads", "resolve_modes",
     "AUTO", "CompressionPolicy", "resolve_policy",
 ]

@@ -26,8 +26,9 @@ formulas are pure arithmetic and give the reference's floats exactly.
 ``dist.wire`` applies the same formulas to the tensors each collective
 really hands over, so ``benchmarks/dist_bench.py`` cross-checks the two.
 
-The FSDP step's bytes and the sharded serving wave's wait for the
-multi-GPU port (ROADMAP items 16b and 16c).
+``fsdp_step_wire_bytes`` prices the FSDP step (reduce-scatter of the
+scattered leaves, all-reduce of the rest, the parameter all-gather) and
+``serve_wave_wire_bytes`` the sharded serving wave's row exchange.
 """
 
 from __future__ import annotations
@@ -139,10 +140,24 @@ def serve_exchange_wire_bytes(lookups: int, width: int, n: int, *,
 
 
 def serve_wave_wire_bytes(placement, batch_per_device: int, bag_len: int) -> dict:
-    """Per-device wire bytes of one sharded serve wave: needs the sharded
-    serving placement, not ported yet."""
-    raise NotImplementedError("serve_wave_wire_bytes needs sharded serving "
-                              "(ROADMAP, modules to port: item 16c)")
+    """Per-device wire bytes of one sharded serve wave: the sum of
+    ``serve_exchange_wire_bytes`` over the placement's row-sharded
+    sub-tables, each fetching ``batch_per_device · bag_len`` rows.
+    Replicated sub-tables cost nothing."""
+    n = placement.n_devices
+    lookups = batch_per_device * bag_len
+    per_entry = []
+    total = 0.0
+    for e in placement.sharded:
+        # stored element width of a dense sub-table (4 f32, 2 bf16), from
+        # the placement's byte accounting
+        dtype_bytes = (e.bytes_total // max(e.rows * e.width, 1) if not e.quantized else 4)
+        b = serve_exchange_wire_bytes(lookups, e.width, n, quantized=e.quantized,
+                                      row_dtype_bytes=dtype_bytes)
+        per_entry.append({"path": e.path, "width": e.width, "quantized": e.quantized, **b})
+        total += b["total_bytes"]
+    return {"total_bytes": total, "lookups_per_device": lookups, "n_devices": n,
+            "per_entry": per_entry}
 
 
 def _scalar_overhead(n: int, n_scalars: int) -> float:
@@ -161,8 +176,26 @@ def dp_step_wire_bytes(params_like, policy, n: int, *, scalar_allreduces: int = 
             "per_mode": grads["per_mode"], "n_devices": n}
 
 
-def fsdp_step_wire_bytes(params_like, optimizer, mesh, policy, **kw) -> dict:
-    """Accounted wire bytes for one FSDP step: needs the FSDP step, not
-    ported yet."""
-    raise NotImplementedError("fsdp_step_wire_bytes needs the FSDP step "
-                              "(ROADMAP, modules to port: item 16b)")
+def fsdp_step_wire_bytes(params_like, optimizer, mesh, policy, *, axis: str = "data",
+                         scalar_allreduces: int = 0, param_gather_dtype="float32") -> dict:
+    """Accounted wire bytes for one ``make_fsdp_train_step`` step:
+    compressed gradient reduce-scatter + all-gather of every scattered
+    parameter shard (f32, or 2 B/elem with ``param_gather_dtype=
+    "bfloat16"``).  ``mesh`` is the axis sizes (``dist.sharding.
+    axis_sizes``)."""
+    from ..train.loop import _gather_dtype, fsdp_plan
+    from .sharding import axis_sizes
+    n = axis_sizes(mesh, axis).get(axis, 1)
+    plan = fsdp_plan(params_like, optimizer, mesh, policy=policy, axis=axis)
+    scattered = [dim is not None for (_, _, _, dim) in plan]
+    grads = grad_wire_bytes(params_like, policy, n, pattern="reduce_scatter",
+                            scattered=scattered)
+    gbytes = float(_gather_dtype(param_gather_dtype).itemsize)
+    gather = sum(ring_all_gather_bytes(gbytes * math.prod(shape), n)
+                 for (_, shape, _, dim) in plan if dim is not None)
+    overhead = _scalar_overhead(n, scalar_allreduces)
+    return {"grad_bytes": grads["total_bytes"], "param_gather_bytes": gather,
+            "overhead_bytes": overhead,
+            "total_bytes": grads["total_bytes"] + gather + overhead,
+            "per_mode": grads["per_mode"], "n_devices": n,
+            "n_scattered": sum(scattered), "n_leaves": len(plan)}

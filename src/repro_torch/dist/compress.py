@@ -36,8 +36,13 @@ feedback** charges each rank ``n×`` its own shard's phase-2
 requantization residual, so the emitted-gradient sum telescopes over
 both compression levels (``two_level=True``, the default).
 
-The FSDP path's reduce-scatter (``_reduce_scatter_leaf`` in the
-reference) waits for ROADMAP item 16b.
+The FSDP path's building block is ``_reduce_scatter_leaf`` (used by
+``train.loop.make_fsdp_train_step``): the same compression, but the
+reduction lands as this rank's shard along one dim, so phase 2 is
+skipped.  Its ``none`` mode is an all-to-all plus a rank-order f32 sum
+rather than the backend's reduce-scatter, whose summation order is the
+backend's: the card and the CPU then sum alike, and the ring bytes are a
+reduce-scatter's.
 """
 
 from __future__ import annotations
@@ -207,6 +212,58 @@ def _reduce_leaf(g, e, group, mode, two_level=True, leaf="_unnamed"):
             deq = q.to(torch.float32) * scale
             out = deq
         return out.to(g.dtype), v - deq
+    raise ValueError(f"unknown compression mode {mode!r}; expected one of {MODES}")
+
+
+def _fused_residual(v, q, scale):
+    """``v - q·scale`` rounded once, as the compiled reference computes it
+    (XLA fuses it into a multiply-add): in f64 the product of an int8 and
+    an f32 is exact, and so is the difference (``|v - q·scale| ≤ scale/2``
+    and ``|v| ≤ 127.5·scale`` span few binades), so one cast to f32 is the
+    one rounding of the fused form."""
+    return (v.to(torch.float64) - q.to(torch.float64) * scale.to(torch.float64)).to(torch.float32)
+
+
+def _exchange_blocks(x, group, dim, leaf):
+    """Split ``x`` into ``n`` blocks along ``dim``, send block ``r`` to rank
+    ``r``, and return what came back as ``(n, *block_shape)``: row ``r`` is
+    rank ``r``'s block of this rank's position (``lax.all_to_all(split_axis=
+    dim, concat_axis=dim, tiled=True)``, with the peers stacked in front)."""
+    n = dist.get_world_size(group)
+    moved = x.movedim(dim, 0)
+    block = (moved.shape[0] // n,) + tuple(moved.shape[1:])
+    mine = wire.all_to_all(moved.reshape(n, -1), group, leaf=leaf)
+    return mine.reshape((n,) + block).movedim(1, dim + 1)
+
+
+def _reduce_scatter_leaf(g, e, group, mode, dim, leaf="_unnamed"):
+    """Compressed mean-reduce-scatter of one leaf along ``dim``.
+
+    Returns ``(shard, new_err)``: this rank's shard of the mean gradient
+    (``shape[dim] / n`` along ``dim``, f32) and the full-shape residual.
+    The compressed modes stop after phase 1 of the two-phase exchange — the
+    shard sum *is* the reduce-scatter, so only (n−1)/n · {2, 1} B/elem
+    cross the wire.  ``none`` sums the peers' f32 blocks in rank order.
+    """
+    n = dist.get_world_size(group)
+    v = g.to(torch.float32) + e
+    if n == 1:
+        red, new_e = _reduce_leaf(g, e, None, mode)
+        return red.to(torch.float32), new_e
+    if mode == "none":
+        mine = _exchange_blocks(v, group, dim, leaf)
+        return _rank_order_sum(mine) * _f32(1.0 / n, v), torch.zeros_like(e)
+    if mode == "bf16":
+        c = v.to(torch.bfloat16)                # bf16 on the wire
+        mine = _exchange_blocks(c, group, dim, leaf)
+        return _rank_order_sum(mine) * _f32(1.0 / n, v), v - c.to(torch.float32)
+    if mode == "int8":
+        scale = _shared_scale(v, group, leaf)
+        q = _quant(v, scale)
+        mine = _exchange_blocks(q, group, dim, leaf)
+        shard_sum = torch.sum(mine.to(torch.int32), dim=0)      # exact: ≤ 127·n
+        return (shard_sum.to(torch.float32) * (scale * _f32(1.0 / n, scale)),
+                _fused_residual(v, q, scale))
     raise ValueError(f"unknown compression mode {mode!r}; expected one of {MODES}")
 
 

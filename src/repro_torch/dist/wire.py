@@ -1,9 +1,11 @@
-"""The collectives of the data-parallel path, each counting the bytes it
+"""The collectives of the multi-process paths, each counting the bytes it
 hands over: the port's counterpart of the reference's HLO cross-check
-(``launch.hlo_analysis.analyze_hlo`` on the compiled step).
+(``launch.hlo_analysis.analyze_hlo`` on the compiled step or wave).
 
-Every collective that ``compress`` and ``train.loop.make_dp_train_step``
-issue goes through the thin functions here.  Each call adds the
+Every collective that ``compress``, the data-parallel and FSDP steps
+(``train.loop``), the FSDP checkpoint gather, the sharded serving
+exchange (``serve_placement.exchange_rows``) and the sharded engine issue
+goes through the thin functions here.  Each call adds the
 per-device ring bytes of the tensor it really hands over — its
 ``numel() × element_size()``, through the ``accounting`` formula of its
 call kind — to the process's log (``LOG``; one per process, as each rank
@@ -18,8 +20,9 @@ Layouts are those of the reference's ``lax`` collectives:
 * ``all_to_all`` — ``x`` of shape ``(n, k)``: row ``r`` goes to rank
   ``r``, and row ``r`` of the result came from rank ``r``
   (``lax.all_to_all(split_axis=0, concat_axis=0)``);
-* ``all_gather`` — every rank's ``x`` concatenated along dim 0 in rank
-  order (``lax.all_gather(tiled=True)``), through the list form of
+* ``all_gather`` — every rank's ``x`` concatenated along ``dim`` (0 by
+  default) in rank order (``lax.all_gather(axis=dim, tiled=True)``),
+  through the list form of
   ``torch.distributed.all_gather``, which NCCL and gloo both take for
   CPU and CUDA tensors;
 * ``all_reduce`` — ``"sum"`` or ``"max"`` (``psum`` / ``pmax``).
@@ -99,14 +102,15 @@ def all_to_all(x: torch.Tensor, group, *, leaf: str = "_unnamed") -> torch.Tenso
     return out
 
 
-def all_gather(x: torch.Tensor, group, *, leaf: str = "_unnamed") -> torch.Tensor:
-    """Every rank's ``x`` concatenated along dim 0, in rank order."""
+def all_gather(x: torch.Tensor, group, *, dim: int = 0,
+               leaf: str = "_unnamed") -> torch.Tensor:
+    """Every rank's ``x`` concatenated along ``dim``, in rank order."""
     n = dist.get_world_size(group)
     x = x.contiguous()
     parts = [torch.empty_like(x) for _ in range(n)]
     dist.all_gather(parts, x, group=group)
     LOG.record("all_gather", leaf, accounting.ring_all_gather_bytes(n * _nbytes(x), n))
-    return torch.cat(parts)
+    return torch.cat(parts, dim=dim)
 
 
 def all_reduce(x: torch.Tensor, group, *, op: str = "sum",

@@ -20,7 +20,16 @@ Observability and online re-planning, as in the reference launcher:
 re-solving and hot-swapping the plan when drift persists, within
 ``--replan-budget-mb`` (default: the plan's budget, else the f32 table
 footprint).  Each of them turns the engine's observability on.
-``--mesh-devices`` (sharded serving) waits for ROADMAP item 16c.
+
+``--mesh-devices N`` serves the tables sharded over N ranks
+(``dist.serve_placement``: replicate small sub-tables, row-shard big ones,
+fetch remote rows over the all-to-all exchange).  It runs under
+``torchrun`` with a world of N, every rank on the same request stream
+(gloo on the CPU; on the card NCCL when there is a card per rank, else
+gloo with every rank's tensors on its card), and raises otherwise; rank 0
+prints:
+
+    torchrun --nproc_per_node 2 -m repro_torch.launch.serve --device cpu --mesh-devices 2
 """
 
 from __future__ import annotations
@@ -28,9 +37,11 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import itertools
+import os
 
 import numpy as np
 import torch
+import torch.distributed
 
 from .plan_cli import add_plan_args
 
@@ -52,17 +63,47 @@ def request_stream(rng: np.random.Generator, sizes, dense_dim: int, n: int,
         yield dense, bags
 
 
+def _join_serving(device_arg: str, n: int) -> torch.device:
+    """Join the ``torchrun`` world of ``--mesh-devices n`` ranks; returns
+    this rank's device."""
+    import torch.distributed as dist
+    if "WORLD_SIZE" not in os.environ and not dist.is_initialized():
+        raise SystemExit(f"--mesh-devices {n} serves one rank per device: run it under "
+                         f"torchrun --nproc_per_node {n} -m repro_torch.launch.serve ...")
+    world = dist.get_world_size() if dist.is_initialized() else int(os.environ["WORLD_SIZE"])
+    if world != n:
+        raise SystemExit(f"--mesh-devices {n} but the torchrun world has {world} ranks")
+    device = torch.device(device_arg)
+    if device.type == "cuda":
+        count = torch.cuda.device_count()
+        device = torch.device("cuda", int(os.environ.get("LOCAL_RANK", 0)) % count)
+        torch.cuda.set_device(device)
+        # NCCL takes one rank per card; more ranks than cards share them through gloo
+        backend = "nccl" if world <= count else "gloo"
+    else:
+        backend = "gloo"
+    if not dist.is_initialized():
+        kw = {"device_id": device} if backend == "nccl" else {}
+        dist.init_process_group(backend, init_method="env://", **kw)
+    return device
+
+
 def _serve_rec(mod, args):
     from ..serve.cache import DeviceHotRowCache, HotRowCache
     from ..serve.quantize import memory_report, quantize_params
     from ..serve.recsys import RecsysEngine
     from .plan_cli import resolve_plan_args
 
-    device = torch.device(args.device)
     sharded = bool(args.mesh_devices and args.mesh_devices > 1)
     if args.replan_interval and sharded:
         raise SystemExit("--replan-interval is single-host "
                          "(swap_plan contract); drop --mesh-devices")
+    if sharded and args.cache_impl == "host" and args.cache_rows != 0:
+        raise SystemExit("--mesh-devices needs --cache-impl device (or --cache-rows 0)")
+    device = _join_serving(args.device, args.mesh_devices) if sharded \
+        else torch.device(args.device)
+    rank0 = not sharded or torch.distributed.get_rank() == 0
+    say = print if rank0 else (lambda *a, **k: None)
     obs = None
     if args.trace or args.metrics_out or args.replan_interval:
         from ..obs import Obs
@@ -77,7 +118,7 @@ def _serve_rec(mod, args):
     params = mod.api(cfg, device).init(torch.Generator(device=device).manual_seed(0))
     qparams = quantize_params(params, mode=args.quantize)
     rep = memory_report(params, qparams)
-    print(f"{args.arch}: tables {rep['f32_table_bytes']} B f32 -> "
+    say(f"{args.arch}: tables {rep['f32_table_bytes']} B f32 -> "
           f"{rep['quant_table_bytes']} B {args.quantize} ({rep['ratio']:.3f}x); "
           f"table widths {rep['table_dims']}")
 
@@ -95,9 +136,25 @@ def _serve_rec(mod, args):
                                       device=device)
         else:
             cache = HotRowCache(capacity_rows=cache_rows, capacity_bytes=cache_bytes)
-    engine = RecsysEngine(cfg, qparams, max_batch=args.batch_size, cache=cache,
-                          batching=args.batching, device=device, obs=obs,
-                          mesh_devices=args.mesh_devices if sharded else None)
+    if sharded:
+        # each rank takes an equal slice of a wave: round the batch up to a
+        # multiple of the ranks rather than refuse it
+        n = args.mesh_devices
+        batch = -(-args.batch_size // n) * n
+        if batch != args.batch_size:
+            say(f"  note: --batch-size {args.batch_size} -> {batch} "
+                f"(must be a multiple of --mesh-devices {n})")
+        engine = RecsysEngine(cfg, qparams, max_batch=batch, cache=cache,
+                              batching=args.batching, device=device, obs=obs,
+                              mesh_devices=n, plan=plan)
+        pl = engine.placement
+        prep = memory_report(params, qparams, placement=pl)
+        say(f"  placement: {len(pl.sharded)} sharded / {len(pl.replicated)} replicated "
+            f"sub-tables over {pl.n_devices} devices, "
+            f"{prep['placement']['table_bytes_per_device']} B/device")
+    else:
+        engine = RecsysEngine(cfg, qparams, max_batch=args.batch_size, cache=cache,
+                              batching=args.batching, device=device, obs=obs)
 
     ctrl = None
     if args.replan_interval:
@@ -112,7 +169,7 @@ def _serve_rec(mod, args):
         else:
             budget = full_table_bytes(cfg.table_sizes, cfg.emb_dim)
         ctrl = ReplanController(engine, budget_bytes=budget, quantize=args.quantize)
-        print(f"  replan: every {args.replan_interval} requests, budget {budget} B")
+        say(f"  replan: every {args.replan_interval} requests, budget {budget} B")
 
     rng = np.random.default_rng(0)
     stream = request_stream(rng, cfg.table_sizes, cfg.dense_dim, args.requests, args.max_bag)
@@ -126,28 +183,31 @@ def _serve_rec(mod, args):
             decision = ctrl.check()
             if decision is not None and decision.fired:
                 rep = ctrl.replans[-1]
-                print(f"  replan: drift on features {decision.over} -> swapped plan "
+                say(f"  replan: drift on features {decision.over} -> swapped plan "
                       f"({rep['plan']['total_bytes']} B, kinds {rep['plan']['kinds']})")
     if ctrl is not None:
-        print(f"  replan: {ctrl.checks} windows checked, {len(ctrl.replans)} plan swaps")
+        say(f"  replan: {ctrl.checks} windows checked, {len(ctrl.replans)} plan swaps")
     m = engine.metrics()
-    print(f"{args.arch}: served {len(done)} requests in {m['waves']} waves | "
+    say(f"{args.arch}: served {len(done)} requests in {m['waves']} waves | "
           f"p50 {m['p50_ms']:.1f} ms  p99 {m['p99_ms']:.1f} ms  qps {m['qps']:.1f}")
     if cache is not None:
         c = m["cache"]
-        print(f"  cache: hit_rate {c['hit_rate']:.3f} ({c['hits']}/{c['lookups']}), "
+        say(f"  cache: hit_rate {c['hit_rate']:.3f} ({c['hits']}/{c['lookups']}), "
               f"{c['bytes_cached']} B resident")
     if obs is not None:
         ss = engine.stage_summary()
         parts = "  ".join(f"{s} {ss[s]['sum'] * 1e3 / max(1, ss[s]['count']):.2f}ms"
                           for s in ("probe", "dense", "inflight", "miss_gather", "flush"))
-        print(f"  stages (mean/wave): {parts}")
-        obs.save(metrics_path=args.metrics_out, trace_path=args.trace)
+        say(f"  stages (mean/wave): {parts}")
+        if rank0:
+            obs.save(metrics_path=args.metrics_out, trace_path=args.trace)
         for p in (args.metrics_out, args.trace):
             if p:
-                print(f"  obs: wrote {p}")
+                say(f"  obs: wrote {p}")
     for uid in sorted(done)[:3]:
-        print(f"  req {uid}: score {done[uid].score:+.4f}")
+        say(f"  req {uid}: score {done[uid].score:+.4f}")
+    if sharded:
+        torch.distributed.destroy_process_group()
     return done
 
 
@@ -173,8 +233,8 @@ def main(argv=None):
     ap.add_argument("--max-bag", type=int, default=4,
                     help="max multi-hot ids per categorical feature")
     ap.add_argument("--mesh-devices", type=int, default=None,
-                    help="serve the tables sharded across this many devices (not "
-                         "ported yet: ROADMAP item 16c)")
+                    help="serve the tables sharded across this many ranks, one per "
+                         "device, under torchrun with a world of this size")
     ap.add_argument("--trace", default=None, metavar="PATH",
                     help="write a Chrome-trace/Perfetto JSON of per-wave stage "
                          "timelines to PATH (implies obs on)")

@@ -137,7 +137,7 @@ def _qr2(mod) -> bool:
         and mod.op in ("mult", "add")
 
 
-def _embed_grouped(table_params, sparse_idx, modules, mask, proj):
+def _embed_grouped(table_params, sparse_idx, modules, mask, proj, gathers=None):
     """The embed stage in one kernel launch — K4 over every table for
     multi-hot ids, K5 (int8) or K1 (dense) for one-hot ids — as a ``(B, F,
     D)`` tensor, or None where the per-table route stays: a set of tables
@@ -145,11 +145,15 @@ def _embed_grouped(table_params, sparse_idx, modules, mask, proj):
     only QR pairs, all int8 or all dense of one dtype).  Multi-hot tables of
     a kind K4 does not take (a mixed-radix, CRT or path-based table, a
     concat pair) pool through ``bag_pool`` beside the one launch over all
-    the others; one-hot, any such table keeps the per-table route."""
+    the others, and so do features with a ``gathers`` hook; one-hot, any
+    such table keeps the per-table route."""
     specs, rest = [], []
     for i, (mod, tp) in enumerate(zip(modules, table_params)):
         w = None if proj is None else proj.get(str(i))
-        if _qr2(mod):
+        if gathers is not None and gathers[i] is not None and sparse_idx.dim() == 3:
+            specs.append(None)
+            rest.append(i)
+        elif _qr2(mod):
             specs.append((tp["table_0"], tp["table_1"], 0, mod.op, w))
         elif isinstance(mod, (FullEmbedding, HashEmbedding)):
             m = mod.m if isinstance(mod, HashEmbedding) else 0
@@ -174,11 +178,13 @@ def _embed_grouped(table_params, sparse_idx, modules, mask, proj):
         idx = sparse_idx[:, i, :]
         mk = mask[:, i, :] if mask is not None \
             else torch.ones(idx.shape, dtype=torch.float32, device=idx.device)
-        feats[i] = _project(bag_pool(modules[i], table_params[i], idx, mk), proj, i)
+        g = None if gathers is None else gathers[i]
+        feats[i] = _project(bag_pool(modules[i], table_params[i], idx, mk, gather=g), proj, i)
     return torch.stack([feats[i] for i in range(len(modules))], dim=1)
 
 
-def embed_features(table_params, sparse_idx, cfg, modules=None, mask=None, proj=None):
+def embed_features(table_params, sparse_idx, cfg, modules=None, mask=None, proj=None,
+                   gathers=None):
     """Per-feature pooled embeddings — the serving stack's embed stage.
 
     ``sparse_idx``: one-hot ``(B, F)`` or multi-hot ``(B, F, L)`` with
@@ -194,12 +200,19 @@ def embed_features(table_params, sparse_idx, cfg, modules=None, mask=None, proj=
     through ``ops.qr_lookup`` (K1 dense, K5 int8), and the result is a list
     of ``(B, D)`` features (feature mode expands per partition, one-hot
     only).
+
+    ``gathers`` (optional, one per feature, entries may be ``None``)
+    substitutes each multi-hot feature's row fetch
+    (``core.compositional._gather``) — the sharded serving path fetches
+    remote rows through it.  A feature with a hook takes the plain
+    ``bag_pool``, never a kernel (which gathers locally); every other
+    feature keeps its kernel route, the grouped K4 included.
     """
     modules = tables_for(cfg) if modules is None else modules
     multihot = sparse_idx.dim() == 3
     use_kernel = getattr(cfg, "use_kernel", False)
     if use_kernel and not _feature_mode(cfg):
-        grouped = _embed_grouped(table_params, sparse_idx, modules, mask, proj)
+        grouped = _embed_grouped(table_params, sparse_idx, modules, mask, proj, gathers)
         if grouped is not None:
             return grouped
     feats = []
@@ -213,8 +226,9 @@ def embed_features(table_params, sparse_idx, cfg, modules=None, mask=None, proj=
             if _feature_mode(cfg) and isinstance(mod, CompositionalEmbedding):
                 raise NotImplementedError(
                     "feature-generation mode has no multi-hot serving path")
+            g = None if gathers is None else gathers[i]
             single = isinstance(mod, (FullEmbedding, HashEmbedding))
-            if use_kernel and (qr2 or single):
+            if use_kernel and g is None and (qr2 or single):
                 w = None if proj is None else proj.get(str(i))
                 if qr2:
                     pooled = ops.serve_bag_pool(idx, mk, tp["table_0"], tp["table_1"],
@@ -224,7 +238,7 @@ def embed_features(table_params, sparse_idx, cfg, modules=None, mask=None, proj=
                     pooled = ops.serve_bag_pool(fold, mk, tp["table"], proj=w)
                 feats.append(pooled)
             else:
-                feats.append(_project(bag_pool(mod, tp, idx, mk), proj, i))
+                feats.append(_project(bag_pool(mod, tp, idx, mk, gather=g), proj, i))
             continue
         idx = sparse_idx[:, i]
         if _feature_mode(cfg) and isinstance(mod, CompositionalEmbedding):

@@ -167,13 +167,13 @@ class MemoryPlan:
         self.notes["serve_placement"] = placement.as_dict()
 
     def serve_placement(self):
-        """The annotated serving placement, or ``None``.  A placement is
-        read back as the sharded serving stack's ``ServePlacement``, which
-        the port does not have yet."""
-        if self.notes.get("serve_placement") is None:
+        """The annotated serving placement (written by either package), or
+        ``None``."""
+        d = self.notes.get("serve_placement")
+        if d is None:
             return None
-        raise NotImplementedError("reading a serving placement needs sharded serving "
-                                  "(ROADMAP, modules to port: item 16c)")
+        from ..dist.serve_placement import ServePlacement
+        return ServePlacement.from_dict(d)
 
     def to_json(self) -> str:
         return json.dumps(

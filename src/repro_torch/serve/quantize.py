@@ -156,13 +156,26 @@ def table_shapes(params, patterns: Sequence[str] = (TABLE_PATTERN,)
     return out
 
 
-def memory_report(params, qparams) -> dict:
+def memory_report(params, qparams, placement=None) -> dict:
     """Bytes vs f32 for the table leaves: the number the paper and the
-    serving stack exist to shrink."""
+    serving stack exist to shrink.
+
+    With a ``placement`` (``dist.serve_placement.ServePlacement``) the
+    report adds the sharded serving view: per-rank table bytes under that
+    placement (replicated sub-tables in full, row-sharded ones their padded
+    1/N block) and the per-rank ratio against an even f32 split."""
     base = table_bytes(params)
     quant = table_bytes(qparams)
-    return {"f32_table_bytes": base, "quant_table_bytes": quant,
-            "ratio": quant / base if base else 1.0,
-            "table_dims": sorted({w for _, _, w in table_shapes(params)}),
-            "model_bytes_f32": sum(_leaf_bytes(leaf) for _, leaf in _walk(params)),
-            "model_bytes_quant": sum(_leaf_bytes(leaf) for _, leaf in _walk(qparams))}
+    report = {"f32_table_bytes": base, "quant_table_bytes": quant,
+              "ratio": quant / base if base else 1.0,
+              "table_dims": sorted({w for _, _, w in table_shapes(params)}),
+              "model_bytes_f32": sum(_leaf_bytes(leaf) for _, leaf in _walk(params)),
+              "model_bytes_quant": sum(_leaf_bytes(leaf) for _, leaf in _walk(qparams))}
+    if placement is not None:
+        n = placement.n_devices
+        per_dev = placement.bytes_per_device()
+        report["placement"] = {"n_devices": n, "table_bytes_per_device": per_dev,
+                               "replicated_bytes": placement.replicated_bytes(),
+                               "pad_bytes": placement.pad_bytes(),
+                               "ratio_per_device": (per_dev / (base / n)) if base else 1.0}
+    return report

@@ -40,9 +40,23 @@ variable-length multi-hot id bag per categorical feature.  The engine:
   device).  With ``obs=None`` the engine makes no extra clock read and
   does no registry work.
 
+* serves **sharded** with ``mesh_devices=N``: every rank of a
+  ``torch.distributed`` group of N runs the engine on the same request
+  stream (a rank stands where a device of the reference's mesh stood).
+  The tables are placed by ``dist.serve_placement`` (replicate small
+  sub-tables, row-shard big ones; ``placement=`` or ``plan=`` steer it);
+  each rank serves its slice of every padded wave, fetching remote rows
+  of the sharded sub-tables through the two-phase all-to-all exchange
+  (``exchange_rows``, the ``gather=`` hook of ``embed_features``), and
+  the per-rank scores are gathered so every rank returns the whole wave.
+  Replicated features keep the fused kernel (one grouped launch); a
+  ``DeviceHotRowCache`` is mirrored per rank and holds replicated
+  features only.
+
 Deterministic given (params, request stream): no sampling, logical-clock
-cache, fixed bucket grid, sorted unique keys.  Sharded serving is not
-ported yet; its constructor arguments raise when given.
+cache, fixed bucket grid, sorted unique keys.  ``mesh=`` (the reference's
+GSPMD re-layout of the parameters) raises: its DTensor counterpart is
+ROADMAP item 18.
 """
 
 from __future__ import annotations
@@ -57,19 +71,13 @@ import torch
 
 from ..core import CompositionalEmbedding, HashEmbedding, is_quantized_table
 from ..models.dcn import DCNConfig, dcn_forward_from_features
-from ..models.dlrm import DLRMConfig, dlrm_forward_from_features, embed_features, tables_for
+from ..models.dlrm import (DLRMConfig, _project, dlrm_forward_from_features, embed_features,
+                           tables_for)
 from .cache import CacheStats, DeviceHotRowCache, HotRowCache, RowRef
 
 __all__ = ["RecRequest", "RecsysEngine", "BATCHING_MODES"]
 
 BATCHING_MODES = ("continuous", "waves")
-
-# constructor arguments of features still to port -> their ROADMAP item
-# (``plan=`` feeds the reference's sharded placement; a planned model is
-# served by building its config from the plan)
-_NOT_PORTED = {"mesh": "16c (sharded serving)", "mesh_devices": "16c (sharded serving)",
-               "placement": "16c (sharded serving)",
-               "plan": "16c (sharded serving: the placement)"}
 
 _FEATURE_SHIFT = 44  # packed key: (feature << 44) | canonical row id
 # ceiling on the device slot map (int32 per cacheable row, 64 MiB):
@@ -87,6 +95,7 @@ STAGES = ("queue_wait", "pad") + STAGE_PARTITION
 
 # the programs whose input-shape signatures ``compile_count`` reports
 _PROGRAMS = ("embed", "dense", "slab", "fast")
+_SHARDED_PROGRAMS = ("sharded_embed", "sharded_dense", "sharded_fast")
 # the branches a device-cache wave is served by (``metrics()["cache_paths"]``);
 # ``probe_missed`` counts fast probes whose wave was recomputed exactly
 _CACHE_PATHS = ("fast", "exact", "ingraph", "probe_missed", "host")
@@ -149,13 +158,11 @@ class RecsysEngine:
                  plan=None, obs=None, device="cuda"):
         if batching not in BATCHING_MODES:
             raise ValueError(f"batching={batching!r} not in {BATCHING_MODES}")
-        given = {"mesh": mesh, "mesh_devices": mesh_devices,
-                 "placement": placement, "plan": plan}
-        for name, value in given.items():
-            if value is not None:
-                raise NotImplementedError(
-                    f"RecsysEngine({name}=...) is not ported yet "
-                    f"(ROADMAP, modules to port: item {_NOT_PORTED[name]})")
+        if mesh is not None:
+            raise NotImplementedError(
+                "RecsysEngine(mesh=...) re-lays the parameters under GSPMD in the reference; "
+                "its DTensor counterpart is not ported yet (ROADMAP, modules to port: item 18). "
+                "Sharded serving is mesh_devices=N")
         if cfg.embedding.kind == "feature":
             raise NotImplementedError(
                 "feature-generation mode has no serving path (F varies)")
@@ -168,7 +175,20 @@ class RecsysEngine:
         self.batching = batching
         self.max_inflight = max_inflight
         self.lookahead = lookahead or 4 * max_batch
+        self._n_shards = int(mesh_devices or 1)
+        self._gathers = None
+        if self._n_shards > 1:
+            if cache is not None and not isinstance(cache, DeviceHotRowCache):
+                raise NotImplementedError(
+                    "sharded serving supports DeviceHotRowCache only (host cache rows are "
+                    "not locally resident on every rank)")
+            if max_batch % self._n_shards or max_batch < self._n_shards:
+                raise ValueError(f"max_batch={max_batch} must be a positive multiple of "
+                                 f"mesh_devices={self._n_shards}")
+            params = self._init_sharded(cfg, params, placement, plan)
         self._install_model(cfg, params)
+        if self._n_shards > 1:
+            self._build_sharded()
         self._queue: deque[RecRequest] = deque()
         self._inflight: deque[tuple] = deque()
         self._next_uid = 0
@@ -196,6 +216,10 @@ class RecsysEngine:
                 "dispatch->ready wall time per wave").labels()
             self._c_req = obs.counter("serve_requests_total", "requests scored").labels()
             self._c_waves = obs.counter("serve_waves_total", "waves dispatched").labels()
+            self._c_wire = obs.counter(
+                "serve_wire_bytes_total", "serve-exchange bytes moved between ranks").labels(
+                    collective="serve_exchange") if self._n_shards > 1 else None
+            self._wire_by_bucket: dict[tuple[int, int], int] = {}
 
     # ------------------------------------------------------------- model
 
@@ -235,16 +259,17 @@ class RecsysEngine:
                                           device=self.device)[None, :, None]
         self._off_arr = torch.as_tensor(self._flat_offsets, dtype=torch.int32,
                                         device=self.device)[None, :, None]
-        self._signatures = {name: set() for name in _PROGRAMS}
+        self._signatures = {name: set() for name in
+                            (_SHARDED_PROGRAMS if self._n_shards > 1 else _PROGRAMS)}
 
     def _seen(self, program: str, *tensors) -> None:
         self._signatures[program].add(tuple((tuple(t.shape), t.dtype) for t in tensors))
 
     def _embed_fwd(self, idx, mask):
-        self._seen("embed", idx, mask)
+        self._seen("embed" if self._gathers is None else "sharded_embed", idx, mask)
         feats = embed_features(self.params["tables"], idx, self.cfg,
                                modules=self.modules, mask=mask,
-                               proj=self.params.get("proj"))
+                               proj=self.params.get("proj"), gathers=self._gathers)
         return feats if torch.is_tensor(feats) else torch.stack(feats, dim=1)
 
     def _dense_fwd(self, dense, feats):
@@ -297,7 +322,13 @@ class RecsysEngine:
            selection as ``_dispatch``, off the wave path (it admits each
            feature's row 0 into the cache, and no metrics see it).
 
-        The queue, uid space, metrics history and completed map survive."""
+        The queue, uid space, metrics history and completed map survive.
+        Single-host only: a sharded swap would also re-solve the placement
+        and reshard the tables."""
+        if self._n_shards > 1:
+            raise NotImplementedError(
+                "swap_plan is single-host only: a sharded swap must also re-solve placement "
+                "and reshard the tables")
         if cfg.embedding.kind == "feature":
             raise NotImplementedError(
                 "feature-generation mode has no serving path (F varies)")
@@ -340,6 +371,140 @@ class RecsysEngine:
                 else:
                     feats = self._embed_fwd(self._host(idx), self._host(mask))
                 self._dense_fwd(self._host(dense), feats).to("cpu")
+
+    # ------------------------------------------------------------- sharding
+
+    def _init_sharded(self, cfg, params, placement, plan):
+        """Place the tables over the ranks of the default process group per
+        the plan-aware placement (``dist.serve_placement``): sub-tables below
+        the replication threshold stay whole on every rank, big ones keep
+        this rank's row block.  Returns this rank's parameters."""
+        import torch.distributed as dist
+
+        from ..dist.serve_placement import place_params, plan_placement
+        n = self._n_shards
+        if not dist.is_initialized():
+            raise RuntimeError(
+                f"mesh_devices={n}: sharded serving runs one rank per device in a "
+                "torch.distributed group, and none is initialized (run under torchrun, or "
+                "call torch.distributed.init_process_group)")
+        if dist.get_world_size() != n:
+            raise ValueError(f"mesh_devices={n} but the process group has "
+                             f"{dist.get_world_size()} ranks")
+        self._rank = dist.get_rank()
+        if placement is None:
+            placement = plan_placement(params, n, plan=plan)
+        if placement.n_devices != n:
+            raise ValueError(f"placement built for {placement.n_devices} devices, engine "
+                             f"asked for {n}")
+        self.placement = placement
+        placed, _ = place_params(params, placement, self._rank)
+        # only fully replicated features are cacheable: a row-sharded
+        # feature's rows are not resident on every rank
+        self._repl_live = placement.replicated_features(len(tables_for(cfg)))
+        return placed
+
+    def _build_sharded(self) -> None:
+        """The ``gather=`` hooks of the sharded embed: a row-sharded
+        sub-table fetches its rows through the exchange, a replicated
+        sub-table of a sharded feature gathers locally, and a fully
+        replicated feature has no hook (its kernel route stays)."""
+        from ..core.compositional import table_rows
+        from ..dist.serve_placement import exchange_rows
+        n = self._n_shards
+        rpd = {(e.feature, e.table_key): self.placement.rows_per_device(e)
+               for e in self.placement.sharded}
+
+        def gather_for(i):
+            if self._repl_live[i]:
+                return None
+
+            def g(leaf, ids, key):
+                r = rpd.get((i, key))
+                if r is None:
+                    return table_rows(leaf, ids)
+                return exchange_rows(leaf, ids, n, r, leaf_path=f"tables/{i}/{key}")
+            return g
+
+        self._gathers = [gather_for(i) for i in range(len(self.modules))]
+
+    def _local(self, array: np.ndarray) -> torch.Tensor:
+        """This rank's block of a padded wave's host array, on the device."""
+        per = array.shape[0] // self._n_shards
+        return self._host(np.ascontiguousarray(array[self._rank * per:(self._rank + 1) * per]))
+
+    def _sharded_dense(self, dense: np.ndarray, feats):
+        """The dense stage on this rank's block, then every rank's scores
+        gathered in rank order: each rank returns the whole wave."""
+        from ..dist import wire
+        d = self._local(dense)
+        self._seen("sharded_dense", d, feats)
+        return wire.all_gather(self._dense_stage(self.params, d, feats, self.cfg), None,
+                               leaf="_scores")
+
+    def _sharded_fast_fwd(self, smap, idx, mask, slabs):
+        """The fast path on this rank's block: replicated features from the
+        slabs through the slot map, sharded features from their tables (they
+        are never cached); the miss count covers cacheable slots only and
+        is summed over the group, so every rank takes the same branch."""
+        from ..core.compositional import bag_pool
+        from ..dist import wire
+        self._seen("sharded_fast", smap, idx, mask, *slabs)
+        slots = smap[idx % self._space_arr + self._off_arr]
+        m = mask.to(torch.float32)
+        proj = self.params.get("proj")
+        feats, nmiss = [], torch.zeros((), dtype=torch.int64, device=idx.device)
+        for i, mod in enumerate(self.modules):
+            if self._repl_live[i]:
+                rows = slabs[self._w_index[self._feat_width[i]]][slots[:, i, :]]
+                pooled = torch.sum(rows * m[:, i, :, None], dim=-2,
+                                   dtype=torch.float32).to(self._row_dtypes[i])
+                nmiss = nmiss + torch.sum((slots[:, i, :] < 0) & (mask[:, i, :] > 0))
+            else:
+                pooled = bag_pool(mod, self.params["tables"][i], idx[:, i, :], mask[:, i, :],
+                                  gather=self._gathers[i])
+            feats.append(_project(pooled, proj, i))
+        return torch.stack(feats, dim=1), wire.all_reduce(nmiss, None, leaf="_nmiss")
+
+    def _admit_cacheable(self, idx: np.ndarray, mask: np.ndarray) -> None:
+        """Sharded admission: look up and admit the whole wave's *cacheable*
+        (replicated-feature) rows with full per-key accounting, computing
+        only the miss rows from the local tables.  Every rank admits the
+        same keys, so the per-rank caches stay mirrors."""
+        cache = self.cache
+        f = idx.shape[1]
+        live = (mask > 0) & self._repl_live[None, :, None]
+        packed = self._canonical(idx) + (np.arange(f, dtype=np.int64)[None, :, None]
+                                         << _FEATURE_SHIFT)
+        keys_live = packed[live]
+        if not keys_live.size:
+            return
+        uniq, counts = np.unique(keys_live, return_counts=True)
+        key_list = uniq.tolist()
+        _, miss_u = cache.lookup_many(key_list, counts)
+        if miss_u.any():
+            rows = self._compute_miss_rows(uniq[miss_u])
+            cache.put_many(uniq[miss_u].tolist(), rows, pinned=key_list)
+
+    def _dispatch_sharded(self, dense, idx, mask):
+        """One wave through the sharded path; returns ``(logits, check,
+        ta)`` with the single-host device-cache path's speculative-probe
+        contract (``ta`` is the probe/dense stage boundary, None when obs
+        is off)."""
+        check = None
+        if (isinstance(self.cache, DeviceHotRowCache) and not self.cache.record_events
+                and self._flat_total <= _SLOT_MAP_ROWS_MAX and self._repl_live.any()):
+            slabs = tuple(self.cache.slab(d) for d in self._widths)
+            feats, nmiss = self._sharded_fast_fwd(self._sync_slot_map(), self._local(idx),
+                                                  self._local(mask), slabs)
+            check = (dense, idx, mask, nmiss)
+        else:
+            if self.cache is not None:
+                self._admit_cacheable(idx, mask)
+                self.cache_paths["ingraph"] += 1
+            feats = self._embed_fwd(self._local(idx), self._local(mask))
+        ta = time.monotonic() if self._obs is not None else None
+        return self._sharded_dense(dense, feats), check, ta
 
     # ------------------------------------------------------------- intake
 
@@ -404,7 +569,14 @@ class RecsysEngine:
         the padded slots carry mask 0, so they pool to zero vectors."""
         f = len(self.modules)
         lb = _next_pow2(max((len(b) for r in wave for b in r.bags), default=1) or 1)
-        bb = min(_next_pow2(len(wave)), self.max_batch)
+        if self._n_shards > 1:
+            # bucket the *per-rank* batch: each rank serves Bb/n rows, and
+            # parity with a single-device engine holds when that equals its
+            # bucket
+            per = -(-len(wave) // self._n_shards)
+            bb = min(_next_pow2(per), self.max_batch // self._n_shards) * self._n_shards
+        else:
+            bb = min(_next_pow2(len(wave)), self.max_batch)
         dense = np.zeros((bb, wave[0].dense.shape[0]), np.float32)
         idx = np.zeros((bb, f, lb), np.int32)
         mask = np.zeros((bb, f, lb), np.float32)
@@ -608,21 +780,25 @@ class RecsysEngine:
             else None
         check = None
         with torch.inference_mode():
-            if isinstance(self.cache, DeviceHotRowCache):
-                fast = None if self.cache.record_events else self._embed_device_fast(idx, mask)
-                if fast is not None:
-                    feats, nmiss = fast
-                    check = (dense, idx, mask, nmiss)
-                else:
-                    feats, branch = self._embed_device(idx, mask)
-                    self.cache_paths[branch] += 1
-            elif self.cache is not None:
-                feats = self._host(self._embed_cached(idx, mask))
-                self.cache_paths["host"] += 1
+            if self._n_shards > 1:
+                logits, check, ta = self._dispatch_sharded(dense, idx, mask)
             else:
-                feats = self._embed_fwd(self._host(idx), self._host(mask))
-            ta = time.monotonic() if obs is not None else None
-            logits = self._dense_fwd(self._host(dense), feats)
+                if isinstance(self.cache, DeviceHotRowCache):
+                    fast = None if self.cache.record_events \
+                        else self._embed_device_fast(idx, mask)
+                    if fast is not None:
+                        feats, nmiss = fast
+                        check = (dense, idx, mask, nmiss)
+                    else:
+                        feats, branch = self._embed_device(idx, mask)
+                        self.cache_paths[branch] += 1
+                elif self.cache is not None:
+                    feats = self._host(self._embed_cached(idx, mask))
+                    self.cache_paths["host"] += 1
+                else:
+                    feats = self._embed_fwd(self._host(idx), self._host(mask))
+                ta = time.monotonic() if obs is not None else None
+                logits = self._dense_fwd(self._host(dense), feats)
         self._t_first = t0 if self._t_first is None else self._t_first
         oi = None
         if obs is not None:
@@ -631,6 +807,14 @@ class RecsysEngine:
             oi = {"tq": tq, "t0": t0, "ta": ta, "tb": tb,
                   "queue_wait": max(waits) if waits else 0.0,
                   "n": len(wave), "bb": idx.shape[0], "lb": idx.shape[2], "span": span}
+            if self._c_wire is not None:
+                bucket = (idx.shape[0] // self._n_shards, idx.shape[2])
+                wb = self._wire_by_bucket.get(bucket)
+                if wb is None:
+                    from ..dist.accounting import serve_wave_wire_bytes
+                    wb = int(serve_wave_wire_bytes(self.placement, *bucket)["total_bytes"])
+                    self._wire_by_bucket[bucket] = wb
+                self._c_wire.inc(wb)
         self._inflight.append((wave, logits, t0, check, oi))
 
     def _reap(self) -> list[RecRequest]:
@@ -640,14 +824,27 @@ class RecsysEngine:
             # settle the speculative probe: its miss count is ready once the
             # wave's own launches have run
             dense, idx, mask, nmiss = check
-            if int(nmiss):
+            if int(nmiss) and self._n_shards > 1:
+                # a cacheable row was not resident: admit it with exact
+                # accounting, then recompute from the tables (every rank saw
+                # the same summed count, so every rank recomputes)
+                with torch.inference_mode():
+                    self._admit_cacheable(idx, mask)
+                    feats = self._embed_fwd(self._local(idx), self._local(mask))
+                    logits = self._sharded_dense(dense, feats)
+                self.cache_paths["probe_missed"] += 1
+                self.cache_paths["ingraph"] += 1
+            elif int(nmiss):
                 with torch.inference_mode():
                     feats, branch = self._embed_device(idx, mask)   # exact: admit+count
                     logits = self._dense_fwd(self._host(dense), feats)
                 self.cache_paths["probe_missed"] += 1
                 self.cache_paths[branch] += 1
             else:
-                self.cache.stats.hits += int((mask > 0).sum())
+                live = mask > 0
+                if self._n_shards > 1:  # only cacheable slots were probed
+                    live = live & self._repl_live[None, :, None]
+                self.cache.stats.hits += int(live.sum())
                 self.cache_paths["fast"] += 1
         td = time.monotonic() if oi is not None else None
         logits = logits.to("cpu", torch.float32).numpy()  # waits for the device

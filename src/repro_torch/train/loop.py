@@ -21,13 +21,21 @@
   feedback, uniform or per leaf through a ``CompressionPolicy``
   (``repro_torch.dist.compress`` / ``dist.policy``); with ``step_wire=``
   the ``Trainer`` counts each leaf's accounted wire bytes per step.
+* **reduce-scatter FSDP grad path** — ``make_fsdp_train_step``
+  reduce-scatters compressed gradients, applies the optimizer on each
+  rank's shard (optimizer state sharded: per-rank optimizer memory ÷ N),
+  and all-gathers the updated parameters.  Scatter dims come from the
+  sharding rule engine (``dist.sharding.scatter_dims``).
 
 The step is functional, as the reference's jitted step is: it returns a
 new state of plain tensors (no autograd graph) and leaves the old one as
 it was.  Gradients come from ``torch.autograd.grad`` on detached aliases
 of the parameter leaves (``value_and_grad``), dense for every leaf as
-``jax.grad``'s are.  The FSDP step waits for the multi-GPU port (ROADMAP,
-modules to port: item 16b).
+``jax.grad``'s are.
+
+A rank of a ``torch.distributed`` process group stands where a device of
+the reference's ``shard_map`` mesh stood: every rank runs the same step
+on the same global batch and keeps its own block of it.
 """
 
 from __future__ import annotations
@@ -45,7 +53,9 @@ from ..ckpt import checkpoint as ckpt
 from ..optim.optimizers import Optimizer, clip_by_global_norm
 
 __all__ = ["TrainConfig", "init_state", "make_train_step", "make_dp_train_step",
-           "init_dp_state", "value_and_grad", "Trainer", "SimulatedFailure"]
+           "make_fsdp_train_step", "init_dp_state", "init_fsdp_state", "fsdp_plan",
+           "fsdp_state_shardings", "gather_fsdp_state", "value_and_grad", "Trainer",
+           "SimulatedFailure"]
 
 
 class SimulatedFailure(RuntimeError):
@@ -150,6 +160,19 @@ def _pmean_metrics(loss, metrics, group, n):
     return out[0], dict(zip(names, out[1:]))
 
 
+def _rank_block(batch, n, rank):
+    """Block ``rank`` of ``n`` of every tensor of the global batch, along
+    dim 0 (``shard_map``'s ``P(axis)`` in_spec)."""
+    local = {}
+    for k, v in batch.items():
+        if v.shape[0] % n:
+            raise ValueError(f"batch {k!r} of {v.shape[0]} rows does not split over "
+                             f"{n} ranks")
+        b = v.shape[0] // n
+        local[k] = v[rank * b:(rank + 1) * b]
+    return local
+
+
 def make_dp_train_step(loss_fn, optimizer: Optimizer, group=None, *,
                        compress="bf16", clip_norm=None):
     """Explicit data-parallel step with compressed gradient reduction.
@@ -171,14 +194,7 @@ def make_dp_train_step(loss_fn, optimizer: Optimizer, group=None, *,
     def step(state, batch):
         g = dist.group.WORLD if group is None else group
         n, rank = dist.get_world_size(g), dist.get_rank(g)
-        local = {}
-        for k, v in batch.items():
-            if v.shape[0] % n:
-                raise ValueError(f"batch {k!r} of {v.shape[0]} rows does not split over "
-                                 f"{n} ranks")
-            b = v.shape[0] // n
-            local[k] = v[rank * b:(rank + 1) * b]
-        (loss, metrics), grads = grads_of(state["params"], local)
+        (loss, metrics), grads = grads_of(state["params"], _rank_block(batch, n, rank))
         grads, new_err = ef_psum_grads(grads, state["err"], group=g, mode=compress)
         loss, metrics = _pmean_metrics(loss, metrics, g, n)
         if clip_norm is not None:
@@ -203,6 +219,214 @@ def init_dp_state(params, optimizer: Optimizer, compress=None):
     state = init_state(params, optimizer)
     state["err"] = err
     return state
+
+
+# --------------------------------------------------------------- FSDP path
+
+
+def _group_of(group):
+    if not dist.is_initialized():
+        raise RuntimeError("the FSDP step runs over a torch.distributed process group, and "
+                           "none is initialized: call torch.distributed.init_process_group")
+    return dist.group.WORLD if group is None else group
+
+
+def fsdp_plan(params_like, optimizer: Optimizer, mesh, *, policy="auto", axis: str = "data"):
+    """Per-leaf FSDP plan: ``[(path, shape, mode, scatter_dim | None)]``.
+
+    ``mesh`` is the axis sizes (``dist.sharding.axis_sizes``: a mapping,
+    an int, or a process group).  The scatter dim is the first
+    ``sharding.scatter_dims`` candidate along which every optimizer-state
+    leaf of that parameter is sliceable (its size there equals the
+    parameter's — row-wise Adagrad's ``(rows, 1)`` accumulator admits dim
+    0 only, Adafactor's factored stats admit none, so those leaves fall
+    back to the replicated all-reduce path)."""
+    from ..dist.compress import resolve_modes
+    from ..dist.sharding import scatter_dims
+    from ..optim.optimizers import leaf_paths, state_structs
+    modes = resolve_modes(params_like, _resolve_compress(policy))
+    plan = []
+    for path, leaf, mode, entry in zip(leaf_paths(params_like), tree.leaves(params_like), modes,
+                                       state_structs(optimizer, params_like)):
+        shape = tuple(leaf.shape)
+        dim = None
+        for d in scatter_dims(path, shape, mesh, axis):
+            if all(s.dim() > d and s.shape[d] == shape[d] for s in tree.leaves(entry)):
+                dim = d
+                break
+        plan.append((path, shape, mode, dim))
+    return plan
+
+
+def _gather_dtype(param_gather_dtype) -> torch.dtype:
+    names = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+    dt = names.get(param_gather_dtype, param_gather_dtype)
+    if dt not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"param_gather_dtype must be float32 or bfloat16, "
+                         f"got {param_gather_dtype!r}")
+    return dt
+
+
+def make_fsdp_train_step(loss_fn, optimizer: Optimizer, group, params_like, *,
+                         policy="auto", clip_norm=None, axis: str = "data",
+                         param_gather_dtype="float32"):
+    """Reduce-scatter FSDP step over ``group`` (``None``: the default
+    process group, which must be initialized): compressed gradients land
+    as shards.
+
+    Per leaf (scatter dim from ``fsdp_plan``): reduce-scatter the
+    compressed gradient (``dist.compress._reduce_scatter_leaf``), apply the
+    optimizer to this rank's parameter shard against its **sharded
+    optimizer state** (per-rank optimizer memory ÷ N), then all-gather the
+    updated shards back into replicated parameters for the next forward.
+    Leaves with no viable scatter dim take the replicated compressed
+    all-reduce path; the two coexist in one step.  Every rank is handed
+    the global batch and keeps block ``rank`` of it.
+
+    The state (``init_fsdp_state``) holds the parameters whole, each
+    optimizer-state leaf sliced on its parameter's scatter dim, and this
+    rank's row ``(1, *shape)`` of the reference's per-device residuals
+    ``(n, *shape)`` (``(1,)`` for an uncompressed leaf).  Supported
+    optimizers are those whose update is element-wise or row-preserving
+    along the scatter dim (SGD / Adagrad / Adam; row-wise Adagrad scatters
+    rows); Adafactor leaves fall back to the all-reduce.
+
+    ``param_gather_dtype="bfloat16"`` halves the parameter all-gather's
+    bytes: updated shards cross as bf16 and each rank then overwrites its
+    own slice with its exact f32 shard, so the master shard never loses
+    precision; only the copies of other ranks' shards are bf16-rounded.
+    ``clip_norm`` clips by the global norm, shard-aware: the scattered
+    leaves' shard energies are summed over the group (one scalar
+    all-reduce), the replicated leaves' are the same on every rank.
+    """
+    from ..dist import wire
+    from ..dist.compress import _reduce_leaf, _reduce_scatter_leaf
+    from ..dist.sharding import axis_sizes
+    g = _group_of(group)
+    n = axis_sizes(g, axis)[axis]
+    gather_dtype = _gather_dtype(param_gather_dtype)
+    plan = fsdp_plan(params_like, optimizer, {axis: n}, policy=policy, axis=axis)
+    grads_of = value_and_grad(loss_fn)
+
+    def step(state, batch):
+        rank = dist.get_rank(g)
+        (loss, metrics), grads = grads_of(state["params"], _rank_block(batch, n, rank))
+        red, new_err, p_local = [], [], []
+        for gr, p, e_blk, (path, shape, mode, dim) in zip(
+                tree.leaves(grads), tree.leaves(state["params"]), tree.leaves(state["err"]),
+                plan):
+            e = e_blk.reshape(e_blk.shape[1:])      # drop the rank dim
+            if dim is None:
+                r, ne = _reduce_leaf(gr, e, g, mode, leaf=path)
+                r, p_loc = r.to(torch.float32), p
+            else:
+                r, ne = _reduce_scatter_leaf(gr, e, g, mode, dim, leaf=path)
+                shard = shape[dim] // n
+                p_loc = p.narrow(dim, rank * shard, shard)
+            red.append(r)
+            new_err.append(ne.reshape((1,) + tuple(ne.shape)))
+            p_local.append(p_loc)
+        del grads
+
+        if clip_norm is not None:
+            scattered = [torch.sum(torch.square(r)) for r, pl in zip(red, plan)
+                         if pl[3] is not None]
+            scat = (wire.all_reduce(sum(scattered[1:], scattered[0]), g, leaf="_clip")
+                    if scattered else 0.0)
+            rep = sum(torch.sum(torch.square(r)) for r, pl in zip(red, plan) if pl[3] is None)
+            gnorm = torch.sqrt(scat + rep)
+            scale = torch.clamp(clip_norm / (gnorm + 1e-9), max=1.0)
+            red = [r * scale for r in red]
+            metrics = dict(metrics, grad_norm=gnorm)
+
+        params = state["params"]
+        new_p_local, new_opt = optimizer.update(tree.unflatten(params, red), state["opt"],
+                                                tree.unflatten(params, p_local), state["step"])
+        new_params = []
+        for np_loc, (path, shape, _, dim) in zip(tree.leaves(new_p_local), plan):
+            if dim is None:
+                new_params.append(np_loc)
+            elif gather_dtype == torch.bfloat16:
+                full = wire.all_gather(np_loc.to(torch.float32).to(torch.bfloat16), g,
+                                       dim=dim, leaf=path).to(np_loc.dtype)
+                # this rank's master shard stays exact
+                shard = shape[dim] // n
+                full.narrow(dim, rank * shard, shard).copy_(np_loc)
+                new_params.append(full)
+            else:
+                new_params.append(wire.all_gather(np_loc, g, dim=dim, leaf=path))
+        loss, metrics = _pmean_metrics(loss, metrics, g, n)
+        new_state = {"params": tree.unflatten(params, new_params), "opt": new_opt,
+                     "step": state["step"] + 1, "err": tree.unflatten(params, new_err)}
+        return new_state, dict(metrics, loss=loss)
+
+    step.plan = plan
+    return step
+
+
+def _local_shards(plan, rank, n):
+    """This rank's ``Shard`` of each leaf's optimizer state (the whole leaf
+    where the leaf is not scattered)."""
+    from ..dist.sharding import REPLICATED, Shard
+    return [REPLICATED if dim is None else Shard(dim, rank, n) for (_, _, _, dim) in plan]
+
+
+def init_fsdp_state(params, optimizer: Optimizer, group=None, *, policy="auto",
+                    axis: str = "data"):
+    """State for ``make_fsdp_train_step`` on this rank of ``group``: the
+    parameters whole, the optimizer state of each leaf's shard (initialised
+    on the shard: every supported optimizer's state is zeros shaped like
+    its parameter, or row-wise along dim 0), and this rank's residual row,
+    ``(1, *shape)`` for a compressed leaf, ``(1,)`` otherwise (the
+    reference's ``(n,)`` placeholder, one entry per device)."""
+    from ..dist.compress import resolve_modes
+    g = _group_of(group)
+    n, rank = dist.get_world_size(g), dist.get_rank(g)
+    plan = fsdp_plan(params, optimizer, {axis: n}, policy=policy, axis=axis)
+    shards = _local_shards(plan, rank, n)
+    local = tree.unflatten(params, [s.take(p) for s, p in zip(shards, tree.leaves(params))])
+    modes = resolve_modes(params, _resolve_compress(policy))
+    err = [torch.zeros((1,) if m == "none" else (1,) + tuple(p.shape), dtype=torch.float32,
+                       device=p.device)
+           for p, m in zip(tree.leaves(params), modes)]
+    state = init_state(params, optimizer)
+    state["opt"] = optimizer.init(local)
+    state["err"] = tree.unflatten(params, err)
+    return state
+
+
+def fsdp_state_shardings(state_like, plan, rank: int, n: int):
+    """The ``shardings`` tree for ``ckpt.restore`` of an FSDP state onto
+    rank ``rank`` of ``n`` (``state_like``: a state of the same structure,
+    e.g. this rank's ``init_fsdp_state``): parameters and step whole, each
+    optimizer-state leaf's block along its parameter's scatter dim, and
+    block ``rank`` of every residual's leading (rank) dim.  ``n`` may differ
+    from the world that saved (the elastic restore)."""
+    from ..dist.sharding import REPLICATED, Shard
+    opt = [tree.tree_map(lambda _, s=s: s, entry)
+           for entry, s in zip(state_like["opt"], _local_shards(plan, rank, n))]
+    return {"params": tree.tree_map(lambda _: REPLICATED, state_like["params"]),
+            "opt": opt, "step": REPLICATED,
+            "err": tree.tree_map(lambda _: Shard(0, rank, n), state_like["err"])}
+
+
+def gather_fsdp_state(state, plan, group=None):
+    """The full-leaf form of an FSDP state, for a checkpoint: each
+    optimizer-state shard gathered along its scatter dim and the residual
+    rows stacked in rank order (``(n, *shape)``), so its leaves have the
+    shapes of the reference's ``init_fsdp_state``.  Every rank calls it
+    (collectives, logged under ``_checkpoint``); each gets the whole
+    state."""
+    from ..dist import wire
+    g = _group_of(group)
+
+    def full(x, dim):
+        return wire.all_gather(x, g, dim=dim, leaf="_checkpoint")
+
+    opt = [entry if dim is None else tree.tree_map(lambda x, d=dim: full(x, d), entry)
+           for entry, (_, _, _, dim) in zip(state["opt"], plan)]
+    err = tree.tree_map(lambda e: full(e, 0), state["err"])
+    return {"params": state["params"], "opt": opt, "step": state["step"], "err": err}
 
 
 def _block_until_ready(x: torch.Tensor) -> None:

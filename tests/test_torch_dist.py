@@ -6,7 +6,9 @@ the CPU.  (The gloo world of 8 against the reference's 8-device
 * ``policy``: every leaf's mode equal to the reference's on the DLRM and
   DCN trees (uniform and planned, mixed width);
 * ``accounting``: the reference's floats exactly, every policy, n ∈ {1, 2,
-  4, 8}; the FSDP and sharded-serving prices raise citing 16b / 16c;
+  4, 8}; the FSDP and sharded-serving prices of trees with nothing to
+  scatter or shard (the full prices: ``tests/test_torch_fsdp.py``,
+  ``tests/test_torch_serve_dist.py``);
 * ``quantize_int8`` and local ``ef_psum_grads`` (``group=None``)
   bit-equal to the reference's, residual state included, over repeated
   calls;
@@ -139,10 +141,12 @@ def test_accounting_closed_forms_and_refusals():
                     == jacc.serve_exchange_wire_bytes(64, 16, n, quantized=q))
     with pytest.raises(ValueError, match="unknown compression mode"):
         accounting.leaf_reduce_bytes("fp4", 10, 2)
-    with pytest.raises(NotImplementedError, match="item 16b"):
-        accounting.fsdp_step_wire_bytes({}, None, None, "auto")
-    with pytest.raises(NotImplementedError, match="item 16c"):
-        accounting.serve_wave_wire_bytes(None, 8, 4)
+    from repro_torch.dist.serve_placement import ServePlacement
+    from repro_torch.optim.optimizers import adagrad
+    empty = accounting.fsdp_step_wire_bytes({}, adagrad(1e-2), 4, "none", scalar_allreduces=1)
+    assert (empty["total_bytes"], empty["n_leaves"]) == (accounting.ring_all_reduce_bytes(4.0, 4),
+                                                         0)
+    assert accounting.serve_wave_wire_bytes(ServePlacement(4, 1), 8, 4)["total_bytes"] == 0
 
 
 def _np_tree(seed):
@@ -353,19 +357,26 @@ def test_launcher_under_torchrun_with_two_gloo_ranks(tmp_path):
 
 
 def test_dist_bench_acceptance_on_a_gloo_world_of_8(tmp_path):
-    """``dist_bench`` end to end (2 steps, the none and int8 lanes, as the
-    reference's own acceptance test runs it): exits 0, recorded bytes
-    equal the accounted bytes on every lane, int8 < 0.3× none."""
+    """``dist_bench`` end to end (2 steps, the none and int8 lanes of both
+    paths, as the reference's own acceptance test runs them): exits 0,
+    recorded bytes equal the accounted bytes on every lane, int8 < 0.3×
+    none on the dp path; the library entry runs on the card unless told
+    otherwise, as the CLI does, and an unknown path exits 1."""
+    import inspect
+
     from repro_torch.benchmarks import dist_bench
     out = tmp_path / "BENCH_dist.json"
     assert dist_bench.main(["--world", "8", "--backend", "gloo", "--device", "cpu",
-                            "--steps", "2", "--policies", "none,int8", "--out", str(out)]) == 0
+                            "--steps", "2", "--policies", "none,int8", "--paths", "dp,fsdp",
+                            "--out", str(out)]) == 0
     report = json.loads(out.read_text())
     assert report["checks_failed"] == []
     assert report["int8_vs_none_ratio"] < dist_bench.INT8_RATIO_BAR
+    assert [(r["path"], r["policy"]) for r in report["rows"]] == [
+        ("dp", "none"), ("dp", "int8"), ("fsdp", "none"), ("fsdp", "int8")]
     for row in report["rows"]:
         assert row["recorded_wire_bytes"] == pytest.approx(row["wire_bytes"], rel=1e-12)
-    assert dist_bench.main(["--device", "cpu", "--paths", "dp,fsdp", "--out",
+    assert report["rows"][2]["wire_bytes_param_gather"] > 0
+    assert inspect.signature(dist_bench.bench).parameters["device"].default == "cuda"
+    assert dist_bench.main(["--device", "cpu", "--paths", "dp,tp", "--out",
                             str(tmp_path / "x.json")]) == 1
-    with pytest.raises(NotImplementedError, match="item 16b"):
-        dist_bench.bench(2, ["none"], ["fsdp"])

@@ -1319,3 +1319,121 @@ def test_train_launcher_and_sweep_on_the_card(cuda, tmp_path, capsys):
     assert [r["name"] for r in rows] == ["full", "plan/0.25x", "uniform-hash/0.25x"]
     assert all(np.isfinite(r["loss"]) for r in rows)
     assert "proxy order vs trained order" in capsys.readouterr().out
+
+
+# ------------------------------------------------- dist: FSDP and sharded serving
+
+
+def test_fsdp_step_over_nccl_in_a_world_of_one_equals_the_plain_step(cuda):
+    """A process group of one over NCCL, deterministic algorithms: 3 "none"
+    FSDP steps equal ``make_train_step``'s bit for bit (at n = 1 every leaf
+    scatters whole, the reduction is the identity and the gather a copy)."""
+    import torch.distributed as dist
+
+    from repro_torch import tree
+    from repro_torch.dist import world
+    from repro_torch.train.loop import (init_fsdp_state, init_state, make_fsdp_train_step,
+                                        make_train_step)
+    api, params, batch_at = _dp_setup(cuda)
+    world.local("nccl")
+    torch.use_deterministic_algorithms(True)
+    try:
+        plain = init_state(params, api.optimizer)
+        fsdp = init_fsdp_state(params, api.optimizer, policy="none")
+        pstep = make_train_step(api.loss_fn, api.optimizer)
+        fstep = make_fsdp_train_step(api.loss_fn, api.optimizer, None, params, policy="none")
+        for s in range(3):
+            plain, pm = pstep(plain, batch_at(s))
+            fsdp, fm = fstep(fsdp, batch_at(s))
+            assert torch.equal(pm["loss"], fm["loss"])
+        for a, b in zip(tree.leaves(plain["params"]) + tree.leaves(plain["opt"]),
+                        tree.leaves(fsdp["params"]) + tree.leaves(fsdp["opt"])):
+            assert torch.equal(a, b)
+    finally:
+        torch.use_deterministic_algorithms(False)
+        dist.destroy_process_group()
+
+
+def _exchange_two_on_one_card(rank, world_size, out):
+    import json as _json
+
+    from repro_torch.core.compositional import table_rows
+    from repro_torch.dist import accounting, wire
+    from repro_torch.dist.serve_placement import exchange_rows
+    torch.cuda.set_device(0)
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator().manual_seed(7)
+    table = torch.randn((64, 12), generator=gen)
+    qt = quantize_table(table)
+    ids = torch.randint(0, 64, (2, 40, 3), generator=gen, dtype=torch.int32)[rank]
+    res = {}
+    for name, full in (("f32", table), ("int8", qt)):
+        full = {k: v.to(dev) for k, v in full.items()} if name == "int8" else full.to(dev)
+        mine = ({k: v[rank * 32:(rank + 1) * 32] for k, v in full.items()} if name == "int8"
+                else full[rank * 32:(rank + 1) * 32])
+        wire.reset()
+        got = exchange_rows(mine, ids.to(dev), world_size, 32, leaf_path="x")
+        res[name] = {"equal": bool(torch.equal(got, table_rows(full, ids.to(dev)))),
+                     "on_card": got.is_cuda, "recorded": wire.snapshot()["total_bytes"],
+                     "accounted": accounting.serve_exchange_wire_bytes(
+                         120, 12, world_size, quantized=name == "int8")["total_bytes"]}
+    if rank == 0:
+        with open(out, "w") as f:
+            _json.dump(res, f)
+
+
+def test_exchange_rows_in_a_gloo_world_of_two_on_one_card(cuda, tmp_path):
+    """Two gloo ranks on cuda:0: the exchanged rows bit-equal to a local
+    gather, f32 and int8, and the recorded bytes the accounted ones."""
+    import json as _json
+
+    from repro_torch.dist import world
+    out = tmp_path / "ex.json"
+    world.spawn(_exchange_two_on_one_card, 2, "gloo", str(out))
+    for name, r in _json.loads(out.read_text()).items():
+        assert r["equal"] and r["on_card"], name
+        assert r["recorded"] == r["accounted"], name
+
+
+def _sharded_engine_two_on_one_card(rank, world_size, out):
+    import json as _json
+
+    from repro_torch.kernels import launch_counters
+    from repro_torch.launch.serve import request_stream
+    torch.cuda.set_device(0)
+    cfg = dataclasses.replace(dlrm_criteo.config(reduced=True), use_kernel=True)
+    params = dlrm_criteo.api(cfg, device="cpu").init(torch.Generator().manual_seed(0))
+    qp = quantize_params(params, mode="int8")
+    engine = RecsysEngine(cfg, qp, max_batch=64, batching="waves", device="cuda",
+                          mesh_devices=world_size)
+    reqs = list(request_stream(np.random.default_rng(0), cfg.table_sizes, 13, 256, 4))
+    for fn in launch_counters().values():
+        fn.launches = 0
+    uids = [engine.submit(*r) for r in reqs]
+    done = engine.run_until_drained()
+    counts = {name: fn.launches for name, fn in launch_counters().items()}
+    single = RecsysEngine(cfg, qp, max_batch=32, batching="waves", device="cuda")
+    suids = [single.submit(*r) for r in reqs]
+    sdone = single.run_until_drained()
+    diff = max(abs(done[u].score - sdone[v].score) for u, v in zip(uids, suids))
+    if rank == 0:
+        with open(out, "w") as f:
+            _json.dump({"counts": counts, "waves": engine.metrics()["waves"],
+                        "sharded": len(engine.placement.sharded), "diff": diff}, f)
+
+
+def test_sharded_engine_launches_one_k4_and_one_k2_per_wave_per_rank(cuda, tmp_path):
+    """The reduced int8 DLRM-Criteo sharded over two gloo ranks on cuda:0:
+    each rank's wave is one grouped K4 over the replicated features and one
+    K2; the scores within 1e-4 of a single-device engine."""
+    import json as _json
+
+    from repro_torch.dist import world
+    out = tmp_path / "eng.json"
+    world.spawn(_sharded_engine_two_on_one_card, 2, "gloo", str(out))
+    res = _json.loads(out.read_text())
+    assert res["sharded"] > 0 and res["waves"] == 4
+    assert res["counts"]["fused_serve_pool"] == res["waves"]
+    assert res["counts"]["dot_interaction"] == res["waves"]
+    assert sum(res["counts"].values()) == 2 * res["waves"]
+    assert res["diff"] <= 1e-4

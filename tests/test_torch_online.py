@@ -586,7 +586,7 @@ def test_launcher_obs_and_replan_flags(tmp_path, monkeypatch, capsys):
     assert {"serve_stage_seconds", "serve_requests_total", "serve_cache_stat"} <= names
     with pytest.raises(SystemExit, match="single-host .* drop --mesh-devices"):
         serve.main(["--device", "cpu", "--replan-interval", "5", "--mesh-devices", "2"])
-    with pytest.raises(NotImplementedError, match="item 16"):
+    with pytest.raises(SystemExit, match="run it under torchrun"):
         serve.main(["--device", "cpu", "--mesh-devices", "2"])
 
 

@@ -240,8 +240,12 @@ def test_plan_json_interchanges_both_ways(tmp_path):
     stats = _stats(10)
     jp = jplan.build_plan(stats, DIM, 300_000, arch="x", dims=(4, 8, 16))
     tp = tplan.build_plan(_port_stats(stats), DIM, 300_000, arch="x", dims=(4, 8, 16))
-    tp.annotate_placement(type("Placement", (), {"as_dict": lambda self: {"devices": 2}})())
-    jp.notes["serve_placement"] = {"devices": 2}
+    from repro.dist.serve_placement import ServePlacement as JPlacement
+    from repro_torch.dist.serve_placement import ServePlacement, SubTablePlacement
+    placement = ServePlacement(2, 5, [SubTablePlacement(0, "table_0", "tables/0/table_0", 9,
+                                                        10, 4, 54, "row_shard", True)])
+    tp.annotate_placement(placement)
+    jp.annotate_placement(JPlacement.from_dict(placement.as_dict()))
     # the port writes, the JAX package reads — and the reverse
     loaded_j = jplan.MemoryPlan.load(tp.save(str(tmp_path / "port.json")))
     loaded_t = tplan.MemoryPlan.load(jp.save(str(tmp_path / "jax.json")))
@@ -255,8 +259,9 @@ def test_plan_json_interchanges_both_ways(tmp_path):
         loaded_t.spec_for(0, SIZES[0] + 1)
     with pytest.raises(ValueError, match="regenerate"):
         loaded_t.validate_sizes(SIZES[:-1])
-    with pytest.raises(NotImplementedError, match="item 16"):
-        loaded_t.serve_placement()
+    # the annotated placement reads back in either package
+    assert loaded_t.serve_placement().as_dict() == placement.as_dict()
+    assert loaded_j.serve_placement().as_dict() == placement.as_dict()
     assert tplan.PLAN_DIR == jplan.PLAN_DIR == os.path.join("artifacts", "plans")
     assert tplan.plan_path("a", 2 ** 20) == jplan.plan_path("a", 2 ** 20)
 

@@ -266,8 +266,9 @@ def test_watchdog_flags_straggler(one_thread):
 
 def test_trainer_refuses_what_is_not_ported():
     """``Trainer(step_wire=)`` is ported: with ``obs`` it counts each leaf's
-    accounted bytes per step (and a report's remainder as ``_other``);
-    the FSDP step's price still waits for item 16b."""
+    accounted bytes per step (and a report's remainder as ``_other``); an
+    FSDP step's price, with its parameter gathers, is counted the same
+    way."""
     from repro_torch import obs as tobs
     from repro_torch.dist import AUTO, accounting
     step = tloop.make_train_step(_loss_fn, topt.adagrad(1e-2))
@@ -286,8 +287,14 @@ def test_trainer_refuses_what_is_not_ported():
     # without obs the counters cost nothing and nothing is counted
     tloop.Trainer(step, tloop.TrainConfig(num_steps=1), batch_at=batches.__getitem__,
                   step_wire=report).run(tloop.init_state(params, topt.adagrad(1e-2)))
-    with pytest.raises(NotImplementedError, match="item 16b"):
-        accounting.fsdp_step_wire_bytes(params, topt.adagrad(1e-2), None, AUTO)
+    fsdp = accounting.fsdp_step_wire_bytes(params, topt.adagrad(1e-2), 4, AUTO,
+                                           scalar_allreduces=3)
+    obs = tobs.Obs()
+    tloop.Trainer(step, tloop.TrainConfig(num_steps=2), batch_at=batches.__getitem__, obs=obs,
+                  step_wire=fsdp).run(tloop.init_state(params, topt.adagrad(1e-2)))
+    got = sum(s["value"] for s in obs.registry.snapshot()["train_wire_bytes_total"]["series"])
+    assert fsdp["param_gather_bytes"] > 0
+    assert got == pytest.approx(2 * fsdp["total_bytes"], rel=1e-12)
 
 
 # ------------------------------------------------------- loader and config api
