@@ -203,7 +203,23 @@ Phases (any failure exits non-zero, and no result line is printed):
    ``serve_wave_wire_bytes``, the cache's hits and its keys from replicated
    features only; then ``launch/serve.py --mesh-devices 4`` under
    ``torchrun``;
-19. run the paper's §5 experiment (``repro_torch.benchmarks.paper_tables``)
+19. ``[analysis]``: the port's static analyzer (``repro_torch.analysis``)
+   on the card, in this process as ``python -m repro_torch.analysis
+   --device cuda --world 4 --plan build/serve_dist/plan.json --format json
+   --out build/analysis/report.json`` runs it: exit 0 with the ten passes
+   clean — ACC-002's eight programs on the card (K1 to K5 each launched,
+   the results within rtol 5e-3 of their terms' magnitude against an f64
+   oracle, at L=16, D=128 too, where a bf16 running sum fails), WIRE-001's
+   eight exchanges in a gloo world of 4 on cuda:0 (bytes intercepted at
+   ``torch.distributed`` = ``dist.wire``'s = the closed forms), JIT-002 on
+   the small engine, INJ-001 on the 16 swept plans and the full-width plan
+   (26 tables, 33,762,577 categories, all exact); JIT-002 again on the
+   full-width int8 engine (``max_batch=256``: signatures within the bucket
+   bound, none added by the replay, one grouped K4 and one K2 per wave);
+   the injected run (``REPRO_ANALYSIS_INJECT=wire --select WIRE-001``)
+   exits 1; ``python -m benchmarks.summary_md --analysis ... --no-bench``
+   renders the report;
+20. run the paper's §5 experiment (``repro_torch.benchmarks.paper_tables``)
    on the card for ``PAPER_ROWS``: fig4's six rows (DLRM and DCN x full,
    hash, QR mult) and QR add, concat, feature mode, threshold 2,000 and
    the path-based table at hidden 16, each trained 400 steps at B=256 on
@@ -222,7 +238,7 @@ Phases (any failure exits non-zero, and no result line is printed):
    ``fig4/dlrm/qr_mult`` 400 steps on the machine's CPU and print its
    held-out |Δ| from the card, and profile one DLRM and one DCN row's
    step (device ms, device operations, busy share);
-20. time each kernel, its plain version and a PyTorch yardstick with CUDA
+21. time each kernel, its plain version and a PyTorch yardstick with CUDA
    events, compute each kernel's bound from this run's inputs, and print
    the ``kernels`` JSON line.  The grouped kernels are timed at a full
    26-table wave (K4) and batch (K1 in f32, K5) at 1 to 16 threads per
@@ -235,7 +251,7 @@ Phases (any failure exits non-zero, and no result line is printed):
    entry at the kernel bench's D=128 on int32 ids, int64 ids read in place
    and int64 ids cast first; and grouped K4 at the planned wave of 13.
 
-Each of the paths in 8 to 19 runs with every launch count set to 0
+Each of the paths in 8 to 20 runs with every launch count set to 0
 just before it and read just after (in 18, in each rank's process: the
 ``kernels`` line sums the ranks); launches made to compare a kernel
 with its plain version count nowhere.  Peak device memory is printed as
@@ -3290,8 +3306,6 @@ def serve_dist_full_width(torch, card):
     model served sharded over a gloo world of 4 on one card, then the
     launcher under torchrun; returns the launch counts of the served waves,
     summed over the ranks."""
-    import shutil
-
     from repro_torch.dist import world
 
     t0 = time.perf_counter()
@@ -3304,7 +3318,8 @@ def serve_dist_full_width(torch, card):
     for r in range(DIST_WORLD):
         with open(os.path.join(SERVE_DIST_DIR, f"rank{r}.json")) as f:
             ranks.append(json.load(f))
-    shutil.rmtree(SERVE_DIST_DIR, ignore_errors=True)
+    for r in range(DIST_WORLD):    # plan.json stays: [analysis] certifies it
+        os.remove(os.path.join(SERVE_DIST_DIR, f"rank{r}.json"))
     total = {name: 0 for name in _kernels()}
     r0 = ranks[0]
     for name in ("uniform", "planned"):
@@ -3356,6 +3371,150 @@ def serve_dist_full_width(torch, card):
     print(json.dumps({"serve_dist_profile": {"card": card, "seconds": secs,
                                              "launcher_s": launcher_s, "ranks": ranks}}))
     return total
+
+
+# [analysis]: the port's static analyzer on the card (ROADMAP 17)
+ANALYSIS_DIR = os.path.join(ROOT, "build", "analysis")
+ANALYSIS_WORLD = 4              # WIRE-001's gloo ranks, all on cuda:0
+ANALYSIS_KERNELS = ("fused_serve_pool", "dot_interaction", "qr_gather", "qr_gather_quant",
+                    "qr_embedding_bag")
+FULL_WIDTH_CATEGORIES = 33_762_577   # the 26 Kaggle tables
+
+
+def _analysis_cli(plan_path, report_path):
+    """``python -m repro_torch.analysis --device cuda --world 4 --plan ...
+    --format json --out ...``, run in this process (``cli.run`` is what the
+    module's ``main`` calls) so the launch counters see ACC-002's kernels;
+    its JSON goes to a file beside the report.  Returns (exit code, the
+    report, the run's launch counts)."""
+    import contextlib
+
+    from repro_torch.analysis.cli import run
+
+    argv = ["--root", ROOT, "--device", "cuda", "--world", str(ANALYSIS_WORLD), "--plan",
+            plan_path, "--format", "json", "--out", report_path]
+    _zero_counts()
+    with open(os.path.join(ANALYSIS_DIR, "stdout.json"), "w") as f, \
+            contextlib.redirect_stdout(f):
+        rc = run(argv)
+    counts = _read_counts()
+    with open(report_path) as f:
+        return rc, json.load(f), counts
+
+
+def _analysis_jit_full_width(torch):
+    """JIT-002 on the full-width int8 DLRM-Criteo engine of [serve]
+    (``max_batch=256``): the canonical stream, its ids drawn over the 26
+    Kaggle table sizes, twice."""
+    from repro_torch.analysis.jit_audit import replay_and_audit
+    from repro_torch.configs import dlrm_criteo
+    from repro_torch.models.dlrm import dlrm_init
+    from repro_torch.serve.quantize import quantize_params
+    from repro_torch.serve.recsys import RecsysEngine
+
+    cfg = dataclasses.replace(dlrm_criteo.config(reduced=False), use_kernel=True)
+    qparams = quantize_params(dlrm_init(cfg, torch.Generator(device="cuda").manual_seed(0),
+                                        "cuda"), mode="int8")
+    engine = RecsysEngine(cfg, qparams, max_batch=256, batching="continuous")
+    _zero_counts()
+    findings, tel = replay_and_audit(engine)
+    counts = _read_counts()
+    return findings, tel, counts
+
+
+def analysis_full_width(torch, card):
+    """The [analysis] phase: the analyzer's ten passes on the card (ACC-002
+    over the five kernels, WIRE-001 in a gloo world of 4 on cuda:0, JIT-002
+    on the small engine, INJ-001 over the 16 swept plans and the full-width
+    plan [plan] solved), JIT-002 again on the full-width engine, the
+    injected WIRE-001 run, and the report rendered by
+    ``benchmarks/summary_md.py``.  Returns the launch counts of the CLI run
+    and of the full-width replay."""
+    t0 = time.perf_counter()
+    os.makedirs(ANALYSIS_DIR, exist_ok=True)
+    plan_path = os.path.join(SERVE_DIST_DIR, "plan.json")
+    report_path = os.path.join(ANALYSIS_DIR, "report.json")
+    rc, rep, counts = _analysis_cli(plan_path, report_path)
+    cli_s = time.perf_counter() - t0
+    for p in rep["passes"]:
+        print(f"  {p['id']} ({p['name']}): {p['findings']} finding(s) in {p['seconds']} s")
+    for f in rep["findings"]:
+        print(f"    {f['rule']} {f['path']}:{f['line']} {f['message']}")
+    if rc != 0 or not rep["ok"]:
+        _fail(f"[analysis] the analyzer exited {rc} with {rep['counts']}")
+    if {p["id"] for p in rep["passes"]} != {
+            "ACC-001", "JIT-001", "OBS-001", "DET-001", "EXC-001", "DON-001", "ACC-002",
+            "WIRE-001", "JIT-002", "INJ-001"}:
+        _fail("[analysis] the report does not hold the ten passes")
+    notes = {p["id"]: p["notes"] for p in rep["passes"]}
+    progs = notes["ACC-002"]["programs"]
+    by_kernel = {k: sum(r.get("launches", 0) for r in progs if r["kernel"] == k)
+                 for k in ANALYSIS_KERNELS}
+    for r in progs:
+        print(f"    ACC-002 {r['name']}: |err| / magnitude {r['program_rel_err']:.3e}"
+              + (f", at L=16 D=128 {r['audit_rel_err']:.3e} (bf16 running sum "
+                 f"{r['control_rel_err']:.3e}, rtol {AUDIT_RTOL})" if "audit_rel_err" in r
+                 else "") + (f", {r['launches']} launch(es)" if "launches" in r else ""))
+    print(f"  launches (analysis CLI): {counts}; ACC-002's by kernel {by_kernel}")
+    if any(by_kernel[k] < 1 or counts[k] < by_kernel[k] for k in ANALYSIS_KERNELS):
+        _fail(f"[analysis] ACC-002 did not launch every kernel: {by_kernel}")
+    wire = notes["WIRE-001"]
+    for r in wire["exchanges"]:
+        print(f"    WIRE-001 {r['name']}: {r['intercepted_bytes']:.0f} B intercepted, "
+              f"{r['wire_bytes']:.0f} B recorded, {r['closed_form_bytes']:.0f} B closed form, "
+              f"{r['calls']} calls, {r['ranks']} ranks")
+    if wire["world"] != ANALYSIS_WORLD or len(wire["exchanges"]) != 8:
+        _fail("[analysis] WIRE-001 did not run its 8 exchanges in a world of 4")
+    inj = notes["INJ-001"]
+    rel = os.path.relpath(plan_path, ROOT)
+    full = [r for r in inj["plans"] if r["plan"] == rel]
+    swept = [r for r in inj["plans"] if r["plan"].startswith("analysis://plan/")]
+    print(f"  INJ-001: {inj['tables_certified']} tables certified, "
+          f"{inj['exact_certificates']} exactly, over {len(inj['plans'])} plans")
+    if len(swept) != 16 or any(r["exact"] != r["tables"] for r in swept) or len(full) != 1 \
+            or full[0]["tables"] != 26 or full[0]["exact"] != 26 \
+            or sum(c["size"] for c in full[0]["certificates"]) != FULL_WIDTH_CATEGORIES:
+        _fail("[analysis] INJ-001 did not certify the 16 swept plans and the full-width "
+              "plan's 26 tables exactly")
+    jit = notes["JIT-002"]
+    print(f"  JIT-002 (small engine): {jit['first_pass']['per_program']} for buckets "
+          f"{jit['buckets_seen']}, replay total {jit['replay']['total']}")
+
+    t = time.perf_counter()
+    found, tel, jcounts = _analysis_jit_full_width(torch)
+    jit_s = time.perf_counter() - t
+    waves = tel["waves"]
+    print(f"  JIT-002 full width: {tel['first_pass']['per_program']} for buckets "
+          f"{tel['buckets_seen']} (bounds {tel['bounds']}), replay total "
+          f"{tel['replay']['total']}, {tel['requests']} requests in {waves} waves, "
+          f"{jit_s:.1f} s")
+    if found or tel["replay"] != tel["first_pass"]:
+        _fail(f"[analysis] JIT-002 at full width: {[f.message for f in found]}")
+    _check_counts("analysis JIT-002 full width", jcounts,
+                  {"fused_serve_pool": waves, "dot_interaction": waves})
+
+    t = time.perf_counter()
+    env = dict(os.environ, REPRO_ANALYSIS_INJECT="wire",
+               PYTHONPATH=os.path.join(ROOT, "src"))
+    proc = subprocess.run([sys.executable, "-m", "repro_torch.analysis", "--device", "cuda",
+                           "--world", str(ANALYSIS_WORLD), "--select", "WIRE-001"],
+                          cwd=ROOT, env=env, capture_output=True, text=True, timeout=600)
+    inject_s = time.perf_counter() - t
+    print(f"  injected WIRE-001 run: exit {proc.returncode}, "
+          f"{proc.stdout.count('WIRE-001')} finding(s), {inject_s:.1f} s")
+    if proc.returncode != 1 or "drifted apart" not in proc.stdout:
+        _fail(f"[analysis] the injected WIRE-001 run exited {proc.returncode}: "
+              f"{proc.stdout[-1000:]} {proc.stderr[-2000:]}")
+    md = subprocess.run([sys.executable, "-m", "benchmarks.summary_md", "--analysis",
+                         report_path, "--no-bench"], cwd=ROOT, capture_output=True, text=True,
+                        timeout=120)
+    if md.returncode != 0 or "**PASS**" not in md.stdout:
+        _fail(f"[analysis] summary_md exited {md.returncode}: {md.stderr[-2000:]}")
+    print("  " + "\n  ".join(md.stdout.strip().splitlines()[:16]))
+    secs = time.perf_counter() - t0
+    print(f"  card: {card}; [analysis] {secs:.1f} s (the CLI run {cli_s:.1f} s, full-width "
+          f"JIT-002 {jit_s:.1f} s, injected run {inject_s:.1f} s)")
+    return counts, jcounts
 
 
 def _paper_device_profile(torch, pt, spec, warm=3, steps=5):
@@ -4090,6 +4249,11 @@ def main() -> int:
     print("[serve_dist] full-width int8 and planned DLRM-Criteo served from row-sharded tables "
           "over an all-to-all row exchange: gloo world of 4 on the card, the launcher")
     counts["serve_dist"] = serve_dist_full_width(torch, card)
+    print(f"  ({time.perf_counter() - t0:.0f} s so far)")
+    print("[analysis] the port's static analyzer on the card: ten passes, ACC-002 over the "
+          "five kernels, WIRE-001 in a gloo world of 4, INJ-001 on the full-width plan; "
+          "JIT-002 on the full-width engine")
+    counts["analysis"], counts["analysis_jit"] = analysis_full_width(torch, card)
     print(f"  ({time.perf_counter() - t0:.0f} s so far)")
     print("[paper] paper_tables rows trained on the card, held against the CPU and the reference")
     counts["paper"] = paper_rows(torch, card)

@@ -1437,3 +1437,54 @@ def test_sharded_engine_launches_one_k4_and_one_k2_per_wave_per_rank(cuda, tmp_p
     assert res["counts"]["dot_interaction"] == res["waves"]
     assert sum(res["counts"].values()) == 2 * res["waves"]
     assert res["diff"] <= 1e-4
+
+
+# ------------------------------------------------- the analyzer on the card
+
+def _acc_programs():
+    from repro_torch.analysis.programs import kernel_programs
+    return kernel_programs()
+
+
+@pytest.mark.parametrize("prog", _acc_programs(), ids=lambda p: p.name)
+def test_acc_audit_on_the_card(cuda, prog):
+    """ACC-002 on the card: each program's result within rtol 5e-3 of the
+    magnitude of its terms against an f64 oracle (at the L=16, D=128
+    accumulation shape too, where it pools or contracts), its kernel
+    launched, and a bf16 running sum of the same bag failing the bound."""
+    from repro_torch.analysis.acc_audit import RTOL, audit_program
+    findings, row = audit_program(prog, cuda)
+    assert findings == [], [f.message for f in findings]
+    assert row["program_rel_err"] <= RTOL
+    if prog.kernel is not None:
+        assert row["launches"] >= 1
+    if prog.audit is not None:
+        assert row["audit_rel_err"] <= RTOL < row["control_rel_err"]
+
+
+def test_jit_audit_on_the_card(cuda):
+    """JIT-002 on a card engine: the canonical stream twice, signatures
+    within the pow2-bucket bound, none added by the replay, and one grouped
+    K4 and one K2 per wave."""
+    from repro_torch.analysis import jit_audit
+    from repro_torch.kernels import launch_counters
+    engine = jit_audit._build_engine("cuda")
+    for fn in launch_counters().values():
+        fn.launches = 0
+    findings, tel = jit_audit.replay_and_audit(engine)
+    counts = {name: fn.launches for name, fn in launch_counters().items()}
+    assert findings == [] and tel["replay"] == tel["first_pass"]
+    assert tel["first_pass"]["per_program"]["embed"] <= tel["bounds"]["embed"]
+    assert counts["fused_serve_pool"] == counts["dot_interaction"] == tel["waves"] > 0
+
+
+def test_wire_audit_in_a_gloo_world_of_four_on_one_card(cuda):
+    """WIRE-001 in a gloo world of 4 on cuda:0: on every rank, the bytes
+    intercepted at torch.distributed, dist.wire's record and the closed
+    form agree to the byte for all eight exchanges."""
+    from repro_torch.analysis.wire_audit import audit_rows, run_world, wire_programs
+    per_rank = run_world(4, "cuda")
+    findings, rows = audit_rows(per_rank)
+    assert findings == [], [f.message for f in findings]
+    assert [r["name"] for r in rows] == [name for name, _ in wire_programs()]
+    assert all(r["intercepted_bytes"] == r["closed_form_bytes"] > 0 for r in rows)

@@ -53,7 +53,10 @@ def test_serving_stack_import_leaves_jax_out():
             "repro_torch.dist, repro_torch.dist.world, repro_torch.launch.train, "
             "repro_torch.benchmarks.dist_bench, repro_torch.examples.compression_sweep, "
             "repro_torch.dist.sharding, repro_torch.dist.serve_placement, "
-            "repro_torch.benchmarks.serve_dist_bench; "
+            "repro_torch.benchmarks.serve_dist_bench, repro_torch.analysis, "
+            "repro_torch.analysis.cli, repro_torch.analysis.acc_audit, "
+            "repro_torch.analysis.wire_audit, repro_torch.analysis.jit_audit, "
+            "repro_torch.analysis.injectivity; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'repro')); "
             "assert not bad, bad")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
