@@ -219,7 +219,32 @@ Phases (any failure exits non-zero, and no result line is printed):
    the injected run (``REPRO_ANALYSIS_INJECT=wire --select WIRE-001``)
    exits 1; ``python -m benchmarks.summary_md --analysis ... --no-bench``
    renders the report;
-20. run the paper's §5 experiment (``repro_torch.benchmarks.paper_tables``)
+20. ``[lm]``: the full-width TinyLlama-1.1B (``configs/tinyllama_1_1b``:
+   vocab 32,000 as a bf16 QR pair of 8,000 + 4 rows x 2,048 combined with
+   ``mult``, 22 layers, 32 heads, 4 KV heads, d_ff 5,632; 1,050,904,576
+   parameters, 2,101,809,152 bytes) drawn on the card: 48 greedy requests
+   (32 prompts of 512 tokens, 16 of 128; 32 new tokens each) served
+   through ``ServeEngine`` in waves of 16 with ``max_len`` 1,024 — every
+   request complete, every token in range, exactly one K1 launch per
+   ``prefill`` and per ``decode_step`` call and no other kernel, the
+   token lookup one device operation per call; on the first wave, K1's
+   embedding and the prefill logits against the plain route
+   (``embed.apply`` → ``forward_hidden`` → the LM head) bit for bit, and
+   each decode step's logits against teacher forcing within a tolerance
+   the f32 check gives (its gap x 2^16 x sqrt(22 / 2) of the largest
+   logit; greedy tokens equal wherever the top-2 gap exceeds it); an
+   8,192-token prompt's prefill
+   (finite logits, peak memory below one 32 x 8,192 x 8,192 f32 score
+   matrix); the same widths at 2 layers in f32 (TF32 off) against the CPU
+   (a prefill and 4 decode steps within 1e-3, a ``loss_fn``
+   value-and-grad within 1e-5 and 1e-4 of each leaf's largest |g|); 20
+   Adam (3e-4) steps through ``Trainer`` at B=4, S=256 (the loss falls),
+   one wave served from the trained parameters through K1, and the same
+   call refused with parameters that require grad; the serving and
+   training launchers as subprocesses.  Prefill ms per wave, decode ms
+   per step, tokens/s, device ms and operations per decode step and the
+   busy share;
+21. run the paper's §5 experiment (``repro_torch.benchmarks.paper_tables``)
    on the card for ``PAPER_ROWS``: fig4's six rows (DLRM and DCN x full,
    hash, QR mult) and QR add, concat, feature mode, threshold 2,000 and
    the path-based table at hidden 16, each trained 400 steps at B=256 on
@@ -238,7 +263,7 @@ Phases (any failure exits non-zero, and no result line is printed):
    ``fig4/dlrm/qr_mult`` 400 steps on the machine's CPU and print its
    held-out |Δ| from the card, and profile one DLRM and one DCN row's
    step (device ms, device operations, busy share);
-21. time each kernel, its plain version and a PyTorch yardstick with CUDA
+22. time each kernel, its plain version and a PyTorch yardstick with CUDA
    events, compute each kernel's bound from this run's inputs, and print
    the ``kernels`` JSON line.  The grouped kernels are timed at a full
    26-table wave (K4) and batch (K1 in f32, K5) at 1 to 16 threads per
@@ -249,9 +274,10 @@ Phases (any failure exits non-zero, and no result line is printed):
    plain version and the two-``F.embedding_bag`` yardstick, with its
    sweep of threads per bag for wide rows (8, 16, 32); and K1's per-table
    entry at the kernel bench's D=128 on int32 ids, int64 ids read in place
-   and int64 ids cast first; and grouped K4 at the planned wave of 13.
+   and int64 ids cast first; grouped K4 at the planned wave of 13; and
+   K1 at the LM's prefill (8,192 ids) and decode (16 ids) shapes.
 
-Each of the paths in 8 to 20 runs with every launch count set to 0
+Each of the paths in 8 to 21 runs with every launch count set to 0
 just before it and read just after (in 18, in each rank's process: the
 ``kernels`` line sums the ranks); launches made to compare a kernel
 with its plain version count nowhere.  Peak device memory is printed as
@@ -3517,6 +3543,526 @@ def analysis_full_width(torch, card):
     return counts, jcounts
 
 
+# [lm]: the full-width TinyLlama-1.1B (ROADMAP 18a) served and trained on the
+# card, its QR vocabulary (8,000 + 4 rows x 2,048, bf16, mult) looked up
+# through K1 when serving
+LM_PARAMS = 1_050_904_576
+LM_PARAM_BYTES = 2_101_809_152
+# the serving queue: (prompt length, requests) buckets, served 16 per wave
+LM_QUEUE = ((512, 32), (128, 16))
+LM_BATCH, LM_MAX_LEN, LM_NEW_TOKENS = 16, 1024, 32
+LM_LONG_PROMPT = 8192        # 16 q-blocks x 8 kv-blocks of the flash loop
+LM_TRAIN_STEPS, LM_TRAIN_BATCH, LM_TRAIN_SEQ = 20, 4, 256
+# decode against teacher forcing, bf16: the decode attention (bf16
+# probabilities times the bf16 cache, a bf16 product) and flash (the same
+# probabilities, an f32 product rounded once) compute one function with
+# other roundings.  The f32 check below measures the same two paths' gap at
+# 2 layers in f32; the bf16 tolerance scales it by the ratio of the two
+# unit roundoffs (2^-8 / 2^-24 = 2^16) and by sqrt(22 / 2) for the depth
+# (the layers' roundoff differences add as a random walk; at width 256 on
+# the CPU the bf16 gap grew 1.7x from 2 to 22 layers), relative to the
+# largest teacher-forced |logit|
+LM_ROUNDOFF_RATIO = 2.0 ** 16
+# card against CPU in f32 (2 layers at full width, TF32 off): logits within
+# 1e-3 of the largest |logit|, loss within 1e-5, gradients within GRAD_TOL of
+# each leaf's largest |g| ([train]'s form)
+LM_F32_LOGIT_TOL, LM_F32_LOSS_TOL = 1e-3, 1e-5
+
+
+def _lm_counting(torch, fn, calls, record=None):
+    """``fn`` wrapped for the engine: each call synchronised and timed, its
+    kernel launches read from the counters, and, for the first wave's
+    ``LM_NEW_TOKENS`` calls (one prefill and the decode steps), its token
+    input and last logits kept in ``record``."""
+    def call(*args):
+        before = _read_counts()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        logits, cache = fn(*args)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t) * 1e3
+        after = _read_counts()
+        calls.append((ms, {k: after[k] - before[k] for k in after}))
+        if record is not None and len(record) < LM_NEW_TOKENS:
+            record.append((args[0].clone(), logits[:, -1].clone()))
+        return logits, cache
+    return call
+
+
+def _lm_engine(torch, cfg, params, calls, record, batch, max_len):
+    from repro_torch.models import lm
+    from repro_torch.serve.engine import ServeEngine
+
+    return ServeEngine(
+        prefill_fn=_lm_counting(torch, lambda t, c: lm.prefill(params, t, c, cfg), calls,
+                                record),
+        decode_fn=_lm_counting(torch, lambda t, pos, c: lm.decode_step(params, t, pos, c, cfg),
+                               calls, record),
+        make_cache_fn=lambda b, ml: lm.make_decode_cache(cfg, b, ml, "cuda"),
+        batch_size=batch, max_len=max_len, device="cuda")
+
+
+def _lm_prompts(torch, gen, vocab):
+    out = []
+    for plen, n in LM_QUEUE:
+        ids = torch.randint(0, vocab, (n, plen), generator=gen, device="cuda")
+        out += ids.tolist()
+    return out
+
+
+def _lm_check_calls(calls, waves):
+    """Every prefill and decode call launched exactly one K1 and nothing
+    else; ``waves`` prefills among them."""
+    bad = [c for _, c in calls if c != {**{k: 0 for k in c}, "qr_gather": 1}]
+    if bad:
+        _fail(f"[lm] a serving call launched {bad[0]}, expected one K1 (qr_gather) only")
+    return {"calls": len(calls), "prefills": waves, "decode_steps": len(calls) - waves,
+            "qr_gather_per_call": 1}
+
+
+def _lm_decode_tol(f32_gap_rel, n_layers):
+    """The bf16 decode-vs-teacher-forcing tolerance, relative to the
+    largest teacher-forced |logit|, from the f32 check's relative gap at 2
+    layers."""
+    return f32_gap_rel * LM_ROUNDOFF_RATIO * math.sqrt(n_layers / 2)
+
+
+def _lm_teacher(torch, lm, cfg, params, wave, tol_rel):
+    """The recorded wave (prompt, then each decode input, with the logits each
+    call returned) against the plain teacher-forced forward on the card:
+    ``embed.apply`` → ``forward_hidden`` → the LM head.  Returns the K1 vs
+    plain embedding |diff|, the prefill logits |diff|, and the decode steps'
+    max |diff| beside ``tol_rel`` of the largest teacher-forced |logit|,
+    and the greedy agreement."""
+    from repro_torch.nn.layers import dense
+
+    prompts, pre_logits = wave[0]
+    with torch.inference_mode():
+        emb_diff = _max_err(torch, lm.embed_serving(params, prompts, cfg),
+                            lm.embed_tokens(params, prompts, cfg))
+        h, _ = lm.forward_hidden(params, lm.embed_tokens(params, prompts, cfg), cfg)
+        plain = dense(params["lm_head"], h[:, -1:], cfg.cdtype).to(torch.float32)[:, -1]
+        pre_diff = _max_err(torch, pre_logits, plain)
+        seq = torch.cat([prompts] + [tok for tok, _ in wave[1:]], dim=1)
+        h, _ = lm.forward_hidden(params, lm.embed_tokens(params, seq, cfg), cfg)
+        plen = prompts.shape[1]
+        tf_logits = dense(params["lm_head"], h[:, plen:], cfg.cdtype).to(torch.float32)
+    dec = torch.stack([lg for _, lg in wave[1:]], dim=1)           # (B, steps, V)
+    scale = float(tf_logits.abs().max())
+    tol = tol_rel * scale
+    dec_diff = _max_err(torch, dec, tf_logits)
+    top = torch.topk(tf_logits, 2, dim=-1).values
+    clear = (top[..., 0] - top[..., 1]) > tol
+    agree = dec.argmax(-1) == tf_logits.argmax(-1)
+    gaps = top[..., 0] - top[..., 1]
+    return emb_diff, pre_diff, {
+        "steps": dec.shape[1], "max_abs_diff": dec_diff, "max_abs_teacher_logit": scale,
+        "rel_diff": dec_diff / scale, "tol_rel": tol_rel, "tol_abs": tol,
+        "argmax_agree": int(agree.sum()), "positions": agree.numel(),
+        "clear_positions": int(clear.sum()), "clear_disagree": int((clear & ~agree).sum()),
+        "largest_gap_where_greedy_differs": float(gaps[~agree].max()) if (~agree).any() else 0.0,
+        "median_top2_gap": float(gaps.median())}
+
+
+def _lm_f32_vs_cpu(torch, tiny, lm):
+    """The same widths at 2 layers in f32, TF32 off: one prefill and 4
+    decode steps, and one ``loss_fn`` value-and-grad, card against CPU; and
+    the decode-vs-teacher-forcing gap at f32."""
+    from repro_torch import tree
+    from repro_torch.nn.layers import dense
+    from repro_torch.train.loop import value_and_grad
+
+    if torch.backends.cuda.matmul.allow_tf32:
+        _fail("[lm] TF32 is on for f32 matrix products")
+    cfg = dataclasses.replace(tiny.config(), n_layers=2, param_dtype="float32",
+                              compute_dtype="float32")
+    host = lm.init(torch.Generator().manual_seed(3), cfg, "cpu")
+    card = tree.tree_map(lambda t: t.to("cuda"), host)
+    gen = torch.Generator().manual_seed(4)
+    prompts = torch.randint(0, cfg.vocab, (2, 128), generator=gen)
+    toks = [torch.randint(0, cfg.vocab, (2, 1), generator=gen) for _ in range(4)]
+    out = {}
+    with torch.inference_mode():
+        for name, params, dev in (("cpu", host, "cpu"), ("card", card, "cuda")):
+            cache = lm.make_decode_cache(cfg, 2, 160, dev)
+            logits, cache = lm.prefill(params, prompts.to(dev), cache, cfg)
+            steps = [logits[:, -1]]
+            for i, tok in enumerate(toks):
+                logits, cache = lm.decode_step(params, tok.to(dev), 128 + i, cache, cfg)
+                steps.append(logits[:, -1])
+            out[name] = torch.stack(steps, 1).cpu()
+        # the card's decode steps against its teacher-forced forward (positions
+        # 128..131; position 127 is the prefill's)
+        seq = torch.cat([prompts] + toks, 1).to("cuda")
+        h, _ = lm.forward_hidden(card, lm.embed_tokens(card, seq, cfg), cfg)
+        teacher = dense(card["lm_head"], h[:, 127:], cfg.cdtype).cpu()
+    scale = float(out["cpu"].abs().max())
+    logit_rel = float((out["card"] - out["cpu"]).abs().max()) / scale
+    dec_gap = float((out["card"][:, 1:] - teacher[:, 1:]).abs().max())
+    dec_rel = dec_gap / float(teacher.abs().max())
+    batch = tiny.api(cfg, device="cpu").batch_fn(0, _lm_shape(64, 2))
+    (loss, _), grads = value_and_grad(lambda p, b: lm.loss_fn(p, b, cfg))(host, batch)
+    (card_loss, _), card_grads = value_and_grad(lambda p, b: lm.loss_fn(p, b, cfg))(
+        card, {k: v.to("cuda") for k, v in batch.items()})
+    worst, where = 0.0, ""
+    for (path, g), cg in zip(tree.flatten_with_path(grads), tree.leaves(card_grads)):
+        s = float(g.abs().max())
+        rel = float((cg.cpu() - g).abs().max()) / s if s else float(cg.abs().max())
+        if rel > worst:
+            worst, where = rel, "/".join(map(str, path))
+    loss_diff = abs(float(card_loss) - float(loss))
+    res = {"logits_rel_diff": logit_rel, "loss": float(loss), "card_loss": float(card_loss),
+           "loss_diff": loss_diff, "worst_grad_rel": worst, "worst_grad_leaf": where,
+           "decode_vs_teacher_f32_abs": dec_gap, "decode_vs_teacher_f32_rel": dec_rel}
+    print(f"  f32, 2 layers at full width, card vs CPU: prefill + 4 decode steps' logits "
+          f"{logit_rel:.3e} of the largest |logit| (tol {LM_F32_LOGIT_TOL:.0e}); loss "
+          f"{float(card_loss):.7f} vs {float(loss):.7f} (|diff| {loss_diff:.3e}, tol "
+          f"{LM_F32_LOSS_TOL:.0e}); worst gradient leaf {where} {worst:.3e} of its largest |g| "
+          f"(tol {GRAD_TOL:.0e}); decode vs teacher forcing at f32: max |diff| {dec_gap:.3e} = "
+          f"{dec_rel:.3e} of the largest |logit|")
+    if not (logit_rel <= LM_F32_LOGIT_TOL and loss_diff <= LM_F32_LOSS_TOL * abs(float(loss))
+            and worst <= GRAD_TOL):
+        _fail("[lm] the f32 model on the card disagrees with the CPU")
+    return res
+
+
+def _lm_shape(seq, batch):
+    from repro_torch.configs.common import Shape
+
+    return Shape("lm", seq, batch, "train")
+
+
+def _lm_train(torch, tiny, lm, cfg, card):
+    """20 Adam steps through ``Trainer`` at full width on the port's LM
+    stream (plain path, flash backward), timing and memory; then one wave
+    served from the trained parameters through K1, and the refusal under
+    grad.  Returns the profile and the wave's launch counts."""
+    from repro_torch import tree
+    from repro_torch.train.loop import TrainConfig, Trainer, init_state, make_train_step
+
+    api = tiny.api(cfg)
+    shape = _lm_shape(LM_TRAIN_SEQ, LM_TRAIN_BATCH)
+    base = torch.cuda.memory_allocated()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    state = init_state(api.init(torch.Generator(device="cuda").manual_seed(5)), api.optimizer)
+    step_fn = make_train_step(api.loss_fn, api.optimizer)
+    trainer = Trainer(step_fn, TrainConfig(num_steps=LM_TRAIN_STEPS, log_every=1),
+                      batch_at=lambda s: api.batch_fn(s, shape))
+    state, history = trainer.run(state)
+    run_s = time.perf_counter() - t
+    peak = torch.cuda.max_memory_allocated()
+    losses = [x for _, x in history]
+    tail = sum(losses[-5:]) / 5
+    if len(losses) != LM_TRAIN_STEPS or not all(math.isfinite(x) for x in losses):
+        _fail("[lm] training losses are not all finite")
+    if not tail < losses[0]:
+        _fail(f"[lm] the loss did not fall: last 5 steps {tail:.5f} vs step 0 {losses[0]:.5f}")
+    opt_bytes = sum(t.numel() * t.element_size() for s in state["opt"] for t in s.values())
+    batches = [api.batch_fn(s, shape) for s in range(LM_TRAIN_STEPS, LM_TRAIN_STEPS + 6)]
+    walls = []
+    for b in batches[:3]:
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        state, _ = step_fn(state, b)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t)
+    wall_ms = sorted(walls)[1] * 1e3
+    held = {"state": state}
+
+    def steps():
+        for b in batches[3:]:
+            held["state"], _ = step_fn(held["state"], b)
+
+    del state
+    _, dev, ops_by_name = _profile_device(steps)
+    device_ms = sum(dev.values()) / 3 / 1e3
+    prof = {"card": card, "steps": LM_TRAIN_STEPS, "batch": LM_TRAIN_BATCH,
+            "seq_len": LM_TRAIN_SEQ, "loss_step_0": losses[0], "loss_last_5": tail,
+            "losses": losses, "run_s_with_init": run_s, "wall_ms_per_step": wall_ms,
+            "device_ms_per_step": device_ms, "device_busy_share": device_ms / wall_ms,
+            "device_ops_per_step": sum(ops_by_name.values()) / 3,
+            "top_device_ms_per_step": _top_ms(dev, 3, k=8), "peak_memory_bytes": peak,
+            "peak_above_phase_start_bytes": peak - base, "adam_state_bytes": opt_bytes,
+            "straggler_events": len(trainer.straggler_events)}
+    print(f"  {LM_TRAIN_STEPS} Adam(3e-4) steps at B={LM_TRAIN_BATCH} S={LM_TRAIN_SEQ} in "
+          f"{run_s:.2f} s with init: loss {losses[0]:.5f} at step 0, {tail:.5f} over the last 5 "
+          f"| per step wall {wall_ms:.2f} ms, device {device_ms:.2f} ms (busy "
+          f"{prof['device_busy_share']:.3f}), {prof['device_ops_per_step']:.0f} device "
+          f"operations | peak {peak} B ({peak - base} B above the phase's start; Adam's f32 "
+          f"state {opt_bytes} B)")
+    print(f"  top device ms per training step: {prof['top_device_ms_per_step']}")
+
+    # one wave from the trained parameters through K1, then the refusal
+    params = held["state"]["params"]
+    del held
+    calls = []
+    engine = _lm_engine(torch, cfg, params, calls, None, 8, 160)
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    for p in torch.randint(0, cfg.vocab, (8, 128), generator=gen, device="cuda").tolist():
+        engine.submit(p, max_new_tokens=8)
+    _zero_counts()
+    done = engine.run_until_drained()
+    counts = _read_counts()
+    _lm_check_calls(calls, 1)
+    if len(done) != 8 or not all(len(r.output) == 8 and all(0 <= x < cfg.vocab for x in r.output)
+                                 for r in done.values()):
+        _fail("[lm] the trained model's wave did not complete")
+    live = tree.tree_map(lambda x: x.detach().requires_grad_(True), params)
+    try:
+        lm.prefill(live, torch.zeros((1, 4), dtype=torch.long, device="cuda"),
+                   lm.make_decode_cache(cfg, 1, 8, "cuda"), cfg)
+    except RuntimeError as err:
+        if "requires grad" not in str(err):
+            raise
+        print(f"  serving with parameters that require grad, outside inference_mode: raised "
+              f"({str(err)[:60]}...)")
+    else:
+        _fail("[lm] K1 accepted parameters that require grad outside inference_mode")
+    print(f"  trained model: one wave of 8 served through K1 ({len(calls)} calls, one K1 each)")
+    return prof, counts
+
+
+def _lm_launchers(torch, card):
+    """The serving and training launchers on the LM, as subprocesses run
+    side by side; both must exit 0."""
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    cmds = [[sys.executable, "-m", "repro_torch.launch.serve", "--arch", "tinyllama-1.1b"],
+            [sys.executable, "-m", "repro_torch.launch.train", "--arch", "tinyllama-1.1b",
+             "--steps", "5"]]
+    t = time.perf_counter()
+    procs = [subprocess.Popen(c, cwd=ROOT, env=env, stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True) for c in cmds]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=300))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    secs = time.perf_counter() - t
+    for cmd, p, (out, err) in zip(cmds, procs, outs):
+        print("  $ python -m " + " ".join(cmd[2:]))
+        for line in out.strip().splitlines()[:6]:
+            print(f"    {line}")
+        if p.returncode != 0:
+            _fail(f"[lm] {' '.join(cmd[2:])} exited {p.returncode}: {err[-2000:]}")
+    print(f"  the two launchers in {secs:.1f} s, side by side")
+    return secs
+
+
+def lm_full_width(torch, card):
+    """The [lm] phase (ROADMAP 18a): the full-width TinyLlama-1.1B served
+    through ``ServeEngine`` with its QR vocabulary through K1, held against
+    the plain route and teacher forcing, a long prompt, the f32 model
+    against the CPU, 20 Adam steps through ``Trainer``, and the launchers.
+    Returns the launch counts of the paths and K1's LM inputs for [time]."""
+    from repro_torch.configs import tinyllama_1_1b as tiny
+    from repro_torch.models import lm
+
+    t0 = time.perf_counter()
+    cfg = tiny.config()
+    base = torch.cuda.memory_allocated()
+    params = lm.init(torch.Generator(device="cuda").manual_seed(0), cfg, "cuda")
+    n = lm.num_params(params)
+    nbytes = _tree_bytes(params)
+    print(f"  {cfg.name}: vocab {cfg.vocab}, d {cfg.d_model}, {cfg.n_layers} layers, "
+          f"{cfg.n_heads} heads / {cfg.n_kv_heads} KV heads of {cfg.d_head}, d_ff {cfg.d_ff}, "
+          f"QR c={cfg.embedding.num_collisions} {cfg.embedding.op} vocabulary "
+          f"{tuple(params['embed']['table_0'].shape)} + {tuple(params['embed']['table_1'].shape)}"
+          f", {cfg.param_dtype}: {n:,} parameters, {nbytes:,} B")
+    if (n, nbytes) != (LM_PARAMS, LM_PARAM_BYTES):
+        _fail(f"[lm] {n} parameters / {nbytes} B, expected {LM_PARAMS} / {LM_PARAM_BYTES}")
+
+    # the queue: 32 prompts of 512 and 16 of 128, greedy, 32 new tokens each
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    prompts = _lm_prompts(torch, gen, cfg.vocab)
+    calls, record = [], []
+    engine = _lm_engine(torch, cfg, params, calls, record, LM_BATCH, LM_MAX_LEN)
+    for p in prompts:
+        engine.submit(p, max_new_tokens=LM_NEW_TOKENS)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts()
+    wave_ms = []
+    while engine._queue:
+        t = time.perf_counter()
+        engine.step()
+        wave_ms.append((time.perf_counter() - t) * 1e3)
+    counts = {"lm": _read_counts()}
+    peak = torch.cuda.max_memory_allocated()
+    waves, serve_s, done = len(wave_ms), sum(wave_ms) / 1e3, engine.completed
+    launch = _lm_check_calls(calls, waves)
+    tokens = sum(len(r.output) for r in done.values())
+    if len(done) != len(prompts) or any(
+            len(r.output) != LM_NEW_TOKENS or not all(0 <= x < cfg.vocab for x in r.output)
+            for r in done.values()):
+        _fail("[lm] not every request completed with its tokens in range")
+    if len(calls) != waves * LM_NEW_TOKENS or counts["lm"]["qr_gather"] != len(calls) \
+            or sum(counts["lm"].values()) != len(calls):
+        _fail(f"[lm] launches {counts['lm']} for {len(calls)} serving calls in {waves} waves")
+    # each wave is one prefill, then LM_NEW_TOKENS - 1 decode steps
+    pre_ms = [ms for j, (ms, _) in enumerate(calls) if j % LM_NEW_TOKENS == 0]
+    dec_ms = sorted(ms for j, (ms, _) in enumerate(calls) if j % LM_NEW_TOKENS)
+    print(f"  served {len(done)} requests ({', '.join(f'{n} of {p} tokens' for p, n in LM_QUEUE)}"
+          f") in {waves} waves of {LM_BATCH}: {tokens} tokens in {serve_s:.2f} s = "
+          f"{tokens / serve_s:.1f} tokens/s | prefill ms per wave {[round(x, 2) for x in pre_ms]}"
+          f" | decode ms per step: median {dec_ms[len(dec_ms) // 2]:.2f}, min {dec_ms[0]:.2f}, "
+          f"max {dec_ms[-1]:.2f} | peak memory {peak} B ({peak - base} B above the phase's "
+          "start)")
+    print(f"  launches: one K1 per call on all {len(calls)} calls ({waves} prefills, "
+          f"{len(calls) - waves} decode steps), no other kernel: {counts['lm']}")
+
+    # the lookup is one device operation; a decode step's device time and ops
+    dec_tokens = torch.randint(0, cfg.vocab, (LM_BATCH, 1), generator=gen, device="cuda")
+    with torch.inference_mode():
+        plen = LM_QUEUE[-1][0]
+        cache = lm.make_decode_cache(cfg, LM_BATCH, LM_MAX_LEN, "cuda")
+        lm.prefill(params, torch.randint(0, cfg.vocab, (LM_BATCH, plen), generator=gen,
+                                         device="cuda"), cache, cfg)
+        pos = [plen]
+
+        def decode(k=5):
+            for _ in range(k):
+                lm.decode_step(params, dec_tokens, pos[0], cache, cfg)
+                pos[0] += 1
+
+        decode(1)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        decode(5)
+        torch.cuda.synchronize()
+        dec_wall = (time.perf_counter() - t) / 5 * 1e3
+        _, dev, ops = _profile_device(decode)
+        lookup_ops = _device_ops_per_call(torch, lambda: lm.embed_serving(params, dec_tokens,
+                                                                          cfg))
+    if lookup_ops["ops"] != 1:
+        _fail(f"[lm] the token lookup took {lookup_ops['ops']} device operations per call, "
+              "expected the one K1 launch")
+    dec_dev = sum(dev.values()) / 5 / 1e3
+    dec_ops = sum(ops.values()) / 5
+    print(f"  the token lookup: {lookup_ops['ops']:.0f} device operation per call "
+          f"{lookup_ops['by_name']}; a decode step of {LM_BATCH}: wall {dec_wall:.2f} ms, device "
+          f"{dec_dev:.3f} ms (busy {dec_dev / dec_wall:.3f}), {dec_ops:.0f} device operations; "
+          f"top {_top_ms(dev, 5, k=6)}")
+
+    # K1 and the prefill logits bit for bit against the plain route; decode
+    # against teacher forcing, within the tolerance the f32 check gives
+    f32 = _lm_f32_vs_cpu(torch, tiny, lm)
+    tol_rel = _lm_decode_tol(f32["decode_vs_teacher_f32_rel"], cfg.n_layers)
+    emb_diff, pre_diff, dec = _lm_teacher(torch, lm, cfg, params, record, tol_rel)
+    print(f"  wave 0: K1 vs embed.apply max |diff| {emb_diff}; prefill logits vs the plain "
+          f"teacher-forced forward max |diff| {pre_diff}; decode ({dec['steps']} steps) vs "
+          f"teacher forcing max |diff| {dec['max_abs_diff']:.4f} = {dec['rel_diff']:.4f} of the "
+          f"largest |logit| (tol {tol_rel:.4f} = the f32 gap x 2^16 x sqrt({cfg.n_layers} / 2))"
+          f"; greedy agrees on "
+          f"{dec['argmax_agree']}/{dec['positions']}, on {dec['clear_positions']} positions the "
+          f"top-2 gap exceeds the tolerance and {dec['clear_disagree']} of them disagree (the "
+          f"largest teacher-forced top-2 gap where greedy differs "
+          f"{dec['largest_gap_where_greedy_differs']:.4f}, median gap "
+          f"{dec['median_top2_gap']:.4f})")
+    if emb_diff != 0 or pre_diff != 0:
+        _fail("[lm] K1 or the prefill logits differ from the plain route")
+    if dec["rel_diff"] > tol_rel or dec["clear_disagree"]:
+        _fail("[lm] decode disagrees with teacher forcing beyond the tolerance")
+    del record, engine
+
+    # one long prompt: 8,192 tokens, 16 q-blocks x 8 kv-blocks
+    long_ids = torch.randint(0, cfg.vocab, (1, LM_LONG_PROMPT), generator=gen, device="cuda")
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    with torch.inference_mode():
+        cache = lm.make_decode_cache(cfg, 1, LM_LONG_PROMPT, "cuda")
+        long_logits, cache = lm.prefill(params, long_ids, cache, cfg)
+    torch.cuda.synchronize()
+    long_ms = (time.perf_counter() - t) * 1e3
+    long_peak = torch.cuda.max_memory_allocated() - held
+    score_bytes = cfg.n_heads * LM_LONG_PROMPT * LM_LONG_PROMPT * 4
+    print(f"  one {LM_LONG_PROMPT}-token prompt: prefill {long_ms:.1f} ms, logits finite "
+          f"{bool(torch.isfinite(long_logits).all())}; peak memory above the parameters "
+          f"{long_peak} B (the cache {_tree_bytes(cache)} B) against one {cfg.n_heads} x "
+          f"{LM_LONG_PROMPT} x {LM_LONG_PROMPT} f32 score matrix's {score_bytes} B")
+    if not bool(torch.isfinite(long_logits).all()) or long_peak >= score_bytes:
+        _fail("[lm] the long prompt's logits are not finite or its memory is not linear")
+    k1_inputs = {"prefill": long_ids.reshape(-1, 1), "decode": dec_tokens,
+                 "tables": (params["embed"]["table_0"], params["embed"]["table_1"])}
+    del cache, long_logits
+
+    train_prof, counts["lm_trained"] = _lm_train(torch, tiny, lm, cfg, card)
+    launch_s = _lm_launchers(torch, card)
+    prof = {"card": card, "parameters": n, "parameter_bytes": nbytes, "requests": len(done),
+            "waves": waves, "tokens": tokens, "serve_s": serve_s, "tokens_per_s": tokens / serve_s,
+            "prefill_ms_per_wave": pre_ms, "decode_ms_per_step_median":
+            dec_ms[len(dec_ms) // 2], "decode_wall_ms": dec_wall,
+            "decode_device_ms": dec_dev, "decode_device_ops": dec_ops,
+            "decode_busy_share": dec_dev / dec_wall, "serve_peak_bytes": peak,
+            "lookup_device_ops_per_call": lookup_ops["ops"], "launches": launch,
+            "k1_vs_plain_max_abs_diff": emb_diff, "prefill_vs_plain_max_abs_diff": pre_diff,
+            "decode_vs_teacher": dec, "long_prompt_ms": long_ms,
+            "long_prompt_peak_above_params_bytes": long_peak, "score_matrix_bytes": score_bytes,
+            "f32_vs_cpu": f32, "train": train_prof, "launchers_s": launch_s,
+            "phase_s": time.perf_counter() - t0}
+    print(json.dumps({"lm_profile": prof}))
+    del params
+    return counts, k1_inputs, emb_diff
+
+
+def _lm_gather_bound(ids, w_a, w_b):
+    """K1 on the LM's vocabulary pair at these ids: the raw ids once, each
+    distinct row of both tables once, the output once (table dtype); one
+    f32 multiply per output element."""
+    m, d, elem = w_a.shape[0], w_a.shape[1], w_a.element_size()
+    n = ids.numel()
+    rows = _distinct(ids % m) + _distinct(ids // m)
+    return n * ids.element_size() + rows * d * elem + n * d * elem, n * d
+
+
+def time_lm_k1(torch, lm_k1, counts):
+    """K1 at the LM's two shapes, as ``embed_serving`` calls it (raw ids
+    ``(N, 1)``, one bf16 QR pair): the 8,192-token prompt and one decode
+    step of 16 — held bit for bit against its plain version, timed beside
+    it and beside two ``F.embedding`` calls and the multiply on pre-split
+    ids, with its bound from these ids."""
+    import torch.nn.functional as tf
+
+    from repro_torch.kernels import qr_gather, ref
+
+    w_a, w_b = lm_k1["tables"]
+    m = w_a.shape[0]
+    group = [ref.GroupTable(w_a, w_b, m=m, op="mult")]
+    out = {}
+    for name in ("prefill", "decode"):
+        ids = lm_k1[name]
+        got = qr_gather.qr_gather_grouped(ids, group)
+        if not torch.equal(got, ref.qr_gather_grouped(ids, group)):
+            _fail(f"[time] K1 at the LM's {name} shape differs from its plain version")
+        rem, quo = ids[:, 0] % m, ids[:, 0] // m
+        nbytes, ops = _lm_gather_bound(ids, w_a, w_b)
+        bound_ms, bound_by = _bound(nbytes, ops)
+        out[f"lm_{name}"] = {
+            "shape": f"TinyLlama's vocabulary, {str(w_a.dtype).removeprefix('torch.')} QR pair "
+                     f"{m} + {w_b.shape[0]} rows x "
+                     f"{w_a.shape[1]}, {ids.shape[0]} raw int64 ids, one launch",
+            "ms": _time_ms(torch, lambda ids=ids: qr_gather.qr_gather_grouped(ids, group), 200),
+            "plain_ms": _time_ms(torch, lambda ids=ids: ref.qr_gather_grouped(ids, group), 50),
+            "bound_ms": bound_ms, "bound_by": bound_by, "bound_bytes": nbytes, "bound_ops": ops,
+            "yardstick": "two F.embedding calls + the multiply on pre-split ids",
+            "yardstick_ms": _time_ms(torch, lambda rem=rem, quo=quo: tf.embedding(rem, w_a)
+                                     * tf.embedding(quo, w_b), 200),
+            "max_abs_err": 0.0,
+            "launches_on_lm_paths": counts["lm"]["qr_gather"] + counts["lm_trained"]["qr_gather"]}
+        e = out[f"lm_{name}"]
+        print(f"  K1 at the LM's {name} shape ({ids.shape[0]} ids): {e['ms']:.6f} ms, plain "
+              f"{e['plain_ms']:.6f}, two F.embedding + multiply {e['yardstick_ms']:.6f}, bound "
+              f"{bound_ms:.6f} ({bound_by}, {nbytes} B)")
+    return out
+
+
 def _paper_device_profile(torch, pt, spec, warm=3, steps=5):
     """Device ms and device operations per training step of one
     ``paper_tables`` row (``torch.profiler``, ``steps`` steps after
@@ -4255,6 +4801,12 @@ def main() -> int:
           "JIT-002 on the full-width engine")
     counts["analysis"], counts["analysis_jit"] = analysis_full_width(torch, card)
     print(f"  ({time.perf_counter() - t0:.0f} s so far)")
+    print("[lm] full-width TinyLlama-1.1B served through ServeEngine with its QR vocabulary "
+          "through K1: against the plain route and teacher forcing, an 8,192-token prompt, f32 "
+          "card vs CPU, 20 Adam steps through Trainer, the launchers")
+    lm_counts, lm_k1, lm_err = lm_full_width(torch, card)
+    counts.update(lm_counts)
+    print(f"  ({time.perf_counter() - t0:.0f} s so far)")
     print("[paper] paper_tables rows trained on the card, held against the CPU and the reference")
     counts["paper"] = paper_rows(torch, card)
     print(f"  ({time.perf_counter() - t0:.0f} s so far)")
@@ -4262,7 +4814,7 @@ def main() -> int:
     print(f"  card: {card}")
     errs = {"fused_serve_pool": max(k4_err, grouped_errs["k4"], plan_err),
             "dot_interaction": k2_err,
-            "qr_gather": max(k1_err, grouped_errs["k1"]),
+            "qr_gather": max(k1_err, grouped_errs["k1"], lm_err),
             "qr_gather_quant": max(k5_err, grouped_errs["k5"]), "qr_embedding_bag": k3_err}
     grouped = time_grouped(torch, grouped_inputs, grouped_errs)
     k2_fields = time_interaction(torch, k2_inputs)
@@ -4271,6 +4823,8 @@ def main() -> int:
                       bag, counts, errs, grouped)
     kernels[-1]["ops_qr_bag_lookup_device_ops_per_call"] = bag_ops
     kernels[0]["plan_wave"] = time_plan_wave(torch, plan_wave)
+    next(k for k in kernels if k["name"] == "qr_gather")["lm_shapes"] = time_lm_k1(
+        torch, lm_k1, counts)
     for k in kernels:
         if k["launches"] == 0:
             _fail(f"{k['name']} was launched on no path")

@@ -1,20 +1,23 @@
 """Shared config helpers for the port's architectures: the ``ModelApi``
 adapter a config's ``api(cfg)`` returns, the ``Shape`` its batch functions
 take, the training batch's structure as ``meta`` tensors (``sds``, the
-reference's ``jax.ShapeDtypeStruct``), and ``embedding_spec``.
+reference's ``jax.ShapeDtypeStruct``), ``embedding_spec``, and the LM
+family's pieces (``lm_train_batch``, ``default_optimizer``,
+``default_accum``, ``lm_api``).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import os
-from typing import Any, Callable
+from typing import Any, Callable, Optional
 
 import torch
 
 from ..core import EmbeddingSpec, factory
 
-__all__ = ["Shape", "ModelApi", "embedding_spec", "resolve_plan", "sds"]
+__all__ = ["Shape", "ModelApi", "embedding_spec", "resolve_plan", "sds", "lm_train_batch",
+           "default_optimizer", "default_accum", "lm_api"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -34,7 +37,14 @@ class ModelApi:
     optimizer: Any                      # repro_torch Optimizer
     train_batch: Callable               # (shape: Shape) -> batch of meta tensors
     batch_fn: Callable                  # (step, shape) -> batch of tensors
-    predict: Callable                   # (params, batch) -> scores
+    accum: int = 1                      # gradient-accumulation microbatches
+    accum_dtype: str = "float32"        # grad accumulator dtype (bf16 for 100B+)
+    prefill_inputs: Optional[Callable] = None   # (shape) -> tuple of meta tensors (pre-cache)
+    prefill: Optional[Callable] = None          # (params, *inputs, cache)
+    make_cache: Optional[Callable] = None       # (batch, max_len) -> cache
+    decode: Optional[Callable] = None           # (params, tokens, pos, cache)
+    sub_quadratic: bool = False                 # may run long_500k
+    predict: Optional[Callable] = None          # (params, batch) -> scores (rec)
 
 
 def sds(shape, dtype) -> torch.Tensor:
@@ -57,3 +67,56 @@ def resolve_plan(plan, table_sizes):
         plan = MemoryPlan.load(plan)
     plan.validate_sizes(table_sizes)
     return plan
+
+
+# ------------------------------------------------------------------ LM family
+
+
+def lm_train_batch(cfg, shape: Shape):
+    """The LM training batch's structure: tokens and labels int32 ``(B, S)``,
+    mask f32 ``(B, S)``."""
+    b, s = shape.global_batch, shape.seq_len
+    return {"tokens": sds((b, s), torch.int32), "labels": sds((b, s), torch.int32),
+            "mask": sds((b, s), torch.float32)}
+
+
+def default_optimizer(n_params_billion: float):
+    """Adam below ~30B params; Adafactor above (state must fit HBM)."""
+    from ..optim import optimizers as opt_mod
+    if n_params_billion >= 30:
+        return opt_mod.adafactor(1e-3)
+    return opt_mod.adam(3e-4)
+
+
+def default_accum(n_params_billion: float) -> int:
+    """Gradient-accumulation microbatches for train_4k (batch 256)."""
+    if n_params_billion >= 30:
+        return 8
+    if n_params_billion >= 1:
+        return 2
+    return 1
+
+
+def lm_api(cfg, n_params_billion: float, accum: int | None = None,
+           device="cuda") -> ModelApi:
+    """The reference's ``lm_api``: parameters drawn from a
+    ``torch.Generator`` on ``device``, caches and batches there (the
+    port's LM stream, ``data.lm.batch_at(0, step)``)."""
+    from ..data import lm as lm_data
+    from ..models import lm as lm_mod
+    return ModelApi(
+        name=cfg.name, cfg=cfg,
+        init=lambda generator: lm_mod.init(generator, cfg, device),
+        loss_fn=lambda p, b: lm_mod.loss_fn(p, b, cfg),
+        optimizer=default_optimizer(n_params_billion),
+        accum=default_accum(n_params_billion) if accum is None else accum,
+        accum_dtype="bfloat16" if n_params_billion >= 100 else "float32",
+        train_batch=lambda shape: lm_train_batch(cfg, shape),
+        prefill_inputs=lambda shape: (sds((shape.global_batch, shape.seq_len), torch.int32),),
+        prefill=lambda params, tokens, cache: lm_mod.prefill(params, tokens, cache, cfg),
+        make_cache=lambda b, ml: lm_mod.make_decode_cache(cfg, b, ml, device),
+        decode=lambda params, tokens, pos, cache: lm_mod.decode_step(
+            params, tokens, pos, cache, cfg),
+        sub_quadratic=False,
+        batch_fn=lambda step, shape: lm_data.batch_at(
+            0, step, shape.global_batch, shape.seq_len, cfg.vocab, device=device))

@@ -1,6 +1,12 @@
 """Serving launcher: ``python -m repro_torch.launch.serve --arch dlrm-criteo``.
 
-Boots the continuous-batching ``RecsysEngine`` for a rec-family arch
+Dispatches on the arch's model family, as the reference launcher does.
+``tinyllama-1.1b`` (the LM family) boots the wave-batched ``ServeEngine``
+on the reduced config (prefill + KV-cache decode, the vocabulary through
+K1 on the card): ``--requests`` prompts of 4 and 7 tokens, ``--batch-size``
+per wave, ``--max-len``, ``--max-new-tokens`` and ``--temperature``, and
+reports requests, tokens and seconds.  A rec-family arch boots the
+continuous-batching ``RecsysEngine`` for a rec-family arch
 (``dlrm-criteo`` with the fused serving and interaction kernels on, or
 ``dcn-criteo``) over post-training-quantized tables (``--quantize
 {f32,bf16,int8}``) with a hot-row cache (``--cache-rows N``, on by default
@@ -86,6 +92,39 @@ def _join_serving(device_arg: str, n: int) -> torch.device:
         kw = {"device_id": device} if backend == "nccl" else {}
         dist.init_process_group(backend, init_method="env://", **kw)
     return device
+
+
+def _serve_lm(mod, args):
+    """The reference's ``_serve_lm``: the reduced config's parameters from
+    seed 0 on ``--device``, ``--requests`` prompts ``1..4`` (two of three)
+    and ``1..7``, served through ``ServeEngine``."""
+    import time
+
+    from ..serve.engine import ServeEngine
+
+    device = torch.device(args.device)
+    cfg = mod.config(reduced=True)
+    api = mod.api(cfg, device)
+    params = api.init(torch.Generator(device=device).manual_seed(0))
+    engine = ServeEngine(
+        prefill_fn=lambda tokens, cache: api.prefill(params, tokens, cache),
+        decode_fn=lambda tok, pos, cache: api.decode(params, tok, pos, cache),
+        make_cache_fn=api.make_cache,
+        batch_size=args.batch_size, max_len=args.max_len,
+        temperature=args.temperature, device=device)
+
+    for i in range(args.requests):
+        plen = 4 if i % 3 else 7
+        engine.submit(list(range(1, plen + 1)), max_new_tokens=args.max_new_tokens)
+    t0 = time.monotonic()
+    done = engine.run_until_drained()
+    dt = time.monotonic() - t0
+    toks = sum(len(r.output) for r in done.values())
+    print(f"{args.arch}: served {len(done)} requests / {toks} tokens in {dt:.2f}s "
+          f"on {device}")
+    for uid in sorted(done)[:3]:
+        print(f"  req {uid}: {done[uid].output}")
+    return done
 
 
 def _serve_rec(mod, args):
@@ -216,6 +255,12 @@ def main(argv=None):
     ap.add_argument("--arch", default="dlrm-criteo")
     ap.add_argument("--requests", type=int, default=12)
     ap.add_argument("--batch-size", type=int, default=4)
+    ap.add_argument("--max-len", type=int, default=96,
+                    help="the LM engine's cache length (LM family)")
+    ap.add_argument("--max-new-tokens", type=int, default=12,
+                    help="tokens to generate per request (LM family)")
+    ap.add_argument("--temperature", type=float, default=0.0,
+                    help="0 samples greedily, else by temperature (LM family)")
     ap.add_argument("--quantize", default="int8", choices=["f32", "bf16", "int8"])
     ap.add_argument("--cache-rows", type=int, default=None,
                     help="hot-row cache row capacity (0 disables the cache; default "
@@ -255,9 +300,9 @@ def main(argv=None):
 
     from ..configs import get_arch
     mod = get_arch(args.arch)
-    if getattr(mod, "FAMILY", "lm") != "rec":
-        raise SystemExit(f"{args.arch}: only rec-family archs are ported")
-    return _serve_rec(mod, args)
+    if getattr(mod, "FAMILY", "lm") == "rec":
+        return _serve_rec(mod, args)
+    return _serve_lm(mod, args)
 
 
 if __name__ == "__main__":

@@ -1,7 +1,10 @@
 """Training launcher: ``python -m repro_torch.launch.train --arch <id> [...]``.
 
 Trains a rec-family arch (``dlrm-criteo``, ``dcn-criteo``) on the
-synthetic Criteo stream, as the JAX package's launcher does: the reduced
+synthetic Criteo stream, or ``tinyllama-1.1b`` on the synthetic LM stream
+(``data.lm``: Adam 3e-4, the plain path with the flash backward, the
+vocabulary through the plain ``embed.apply``; ``--seq-len`` sets its
+sequence length), as the JAX package's launcher does: the reduced
 config by default, ``--no-reduced`` for the full Kaggle tables, a memory
 plan through ``--plan`` / ``--plan-budget-mb`` (``launch/plan_cli.py``),
 checkpoints under ``--ckpt-dir`` (restart-safe), and ``--trace`` /
@@ -24,8 +27,8 @@ bytes of every leaf per step (``train_wire_bytes_total``).  Under
 Without ``torchrun`` it makes a process group of one on the chosen
 device, so the step and its collectives still run (at one rank every
 ring formula gives 0 bytes).  Rank 0 prints, writes the registry and the
-checkpoints; every rank resumes from them.  The LM archs wait for their
-port (ROADMAP item 18).
+checkpoints; every rank resumes from them.  The LM family's other archs
+wait for their blocks (ROADMAP item 18b).
 """
 
 from __future__ import annotations
@@ -95,8 +98,8 @@ def main(argv=None):
                               make_dp_train_step, make_train_step)
 
     if args.arch not in ARCHS:
-        raise SystemExit(f"{args.arch} is not ported: the LM family waits for ROADMAP "
-                         f"item 18 (the port trains {', '.join(sorted(ARCHS))})")
+        raise SystemExit(f"{args.arch} is not ported: the LM family's other archs wait for "
+                         f"ROADMAP item 18b (the port trains {', '.join(sorted(ARCHS))})")
     mod = get_arch(args.arch)
     plan = resolve_plan_args(mod, args)
     if plan is not None:

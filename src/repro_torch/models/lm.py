@@ -1,0 +1,281 @@
+"""Decoder-only LM: the dense-GQA block of the JAX package's ``models/lm.py``.
+
+One config surface (``LMConfig``) with the reference's fields and
+defaults.  This module builds the dense blocks (tinyllama and the other
+dense archs); ``moe`` and ``mla`` configs raise ``NotImplementedError``
+until their blocks are ported (ROADMAP item 18b).  Layers are homogeneous
+and stacked: every layer leaf has a leading ``n_layers`` axis, the
+reference's layout, so ``repro_torch.convert.params_from_jax`` carries a
+JAX LM tree over unchanged.  ``forward_hidden`` loops over that axis,
+with one ``torch.utils.checkpoint`` per layer when ``cfg.remat`` is set
+(the reference's ``jax.checkpoint`` around its ``lax.scan`` body).
+
+The paper's technique enters through ``cfg.embedding`` (an
+``EmbeddingSpec``): the token-vocabulary table, the model's one large
+categorical embedding, is built by ``repro_torch.core.make_embedding``
+and can be full, hashed or QR-compositional.  Serving (``prefill``,
+``decode_step``) looks a QR mult/add vocabulary up through K1 (the
+grouped one-hot kernel, ``ops.qr_lookup_grouped``: one launch, the id
+split in the kernel) on a CUDA tensor and through its plain version on
+the CPU; any other embedding takes the plain ``embed.apply`` on either
+device.  Training (``loss_fn``) always takes the plain ``embed.apply``:
+the kernels have no backward.  The LM head stays a dense projection; its
+memory is addressed by chunked cross-entropy, never materialising
+(B, S, V) logits.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Optional
+
+import torch
+import torch.nn.functional as tf
+from torch.utils.checkpoint import checkpoint
+
+from .. import tree
+from ..core import CompositionalEmbedding, EmbeddingSpec, make_embedding
+from ..core.partitions import QuotientPartition, RemainderPartition
+from ..kernels import ops
+from ..nn.layers import (AttnConfig, attention, attention_init, dense, dense_init,
+                         make_cache, mlp, mlp_init, rmsnorm, rmsnorm_init)
+
+__all__ = ["LMConfig", "init", "loss_fn", "forward_hidden", "make_decode_cache",
+           "prefill", "decode_step", "chunked_xent", "embed_module", "embed_tokens",
+           "embed_serving", "num_params"]
+
+# The LM's f32 products stay true f32 on the card: no TF32 in float32
+# matrix products (PyTorch's default, stated here so the LM does not
+# depend on another module to set it).
+torch.backends.cuda.matmul.allow_tf32 = False
+
+
+@dataclasses.dataclass(frozen=True)
+class LMConfig:
+    name: str = "lm"
+    vocab: int = 32000
+    d_model: int = 2048
+    n_layers: int = 22
+    n_heads: int = 32
+    n_kv_heads: int = 4
+    d_head: int = 64
+    d_ff: int = 5632
+    ffn_kind: str = "swiglu"
+    qk_norm: bool = False
+    rope_theta: float = 1e4
+    moe: Optional[Any] = None            # MoE block: ROADMAP item 18b
+    moe_parallel_dense: bool = False     # Arctic: dense FFN residual ∥ MoE
+    n_shared_experts: int = 0            # DeepSeek: always-on experts (d_ff each)
+    mla: Optional[Any] = None            # MLA block: ROADMAP item 18b
+    embedding: EmbeddingSpec = EmbeddingSpec()
+    param_dtype: Any = "bfloat16"
+    compute_dtype: Any = "bfloat16"
+    xent_chunk: int = 512
+    remat: bool = True
+
+    @property
+    def pdtype(self) -> torch.dtype:
+        return _dtype(self.param_dtype)
+
+    @property
+    def cdtype(self) -> torch.dtype:
+        return _dtype(self.compute_dtype)
+
+    def attn_cfg(self) -> AttnConfig:
+        return AttnConfig(d_model=self.d_model, n_heads=self.n_heads,
+                          n_kv_heads=self.n_kv_heads, d_head=self.d_head,
+                          qk_norm=self.qk_norm, rope_theta=self.rope_theta)
+
+
+def _dtype(name: str) -> torch.dtype:
+    return getattr(torch, name)
+
+
+def _dense_only(cfg: LMConfig) -> None:
+    if cfg.moe is not None or cfg.mla is not None:
+        raise NotImplementedError(
+            f"{cfg.name}: the MoE and MLA blocks are not ported yet (ROADMAP item 18b); "
+            "the port builds dense GQA layers")
+
+
+# ------------------------------------------------------------------ init
+
+
+def _layer_init(generator, cfg: LMConfig, device):
+    return {"norm1": rmsnorm_init(cfg.d_model, cfg.pdtype, device),
+            "norm2": rmsnorm_init(cfg.d_model, cfg.pdtype, device),
+            "attn": attention_init(generator, cfg.attn_cfg(), cfg.pdtype, device),
+            "mlp": mlp_init(generator, cfg.d_model, cfg.d_ff, cfg.pdtype, cfg.ffn_kind,
+                            device)}
+
+
+def init(generator, cfg: LMConfig, device="cuda"):
+    """The reference's tree, drawn from ``generator`` on ``device``: the
+    embedding, then the layers one by one (stacked into ``(n_layers, ...)``
+    leaves), then the LM head."""
+    _dense_only(cfg)
+    embed = embed_module(cfg).init(generator, device)
+    per_layer = [_layer_init(generator, cfg, device) for _ in range(cfg.n_layers)]
+    stacked = [torch.stack(group) for group in zip(*(tree.leaves(p) for p in per_layer))]
+    layers = tree.unflatten(per_layer[0], stacked)
+    del per_layer
+    return {
+        "embed": embed,
+        "layers": layers,
+        "final_norm": rmsnorm_init(cfg.d_model, cfg.pdtype, device),
+        "lm_head": dense_init(generator, cfg.d_model, cfg.vocab, cfg.pdtype, device=device),
+    }
+
+
+def num_params(params) -> int:
+    return sum(leaf.numel() for leaf in tree.leaves(params))
+
+
+def embed_module(cfg: LMConfig):
+    return make_embedding(cfg.vocab, cfg.d_model, cfg.embedding, cfg.pdtype)
+
+
+# ------------------------------------------------------------------ forward
+
+
+def _layers(params, cfg: LMConfig) -> list:
+    """One tree per layer, each leaf a view of the stacked leaf (``unbind``:
+    one backward that stacks the layers' gradients)."""
+    stacked = params["layers"]
+    cols = [leaf.unbind(0) for leaf in tree.leaves(stacked)]
+    return [tree.unflatten(stacked, [c[i] for c in cols]) for i in range(cfg.n_layers)]
+
+
+def _ffn(lp, h2, cfg: LMConfig):
+    """Post-attention block: the dense MLP."""
+    return mlp(lp["mlp"], h2, cfg.cdtype, cfg.ffn_kind)
+
+
+def _layer_apply(lp, h, cfg: LMConfig, positions):
+    h = h + attention(lp["attn"], rmsnorm(lp["norm1"], h), cfg.attn_cfg(), cfg.cdtype,
+                      positions=positions)
+    return h + _ffn(lp, rmsnorm(lp["norm2"], h), cfg)
+
+
+def forward_hidden(params, h, cfg: LMConfig, positions=None):
+    """Run the layer stack on already-embedded inputs ``h`` (B, S, D);
+    returns the final-normed hidden states and the auxiliary loss (0: no
+    MoE)."""
+    _dense_only(cfg)
+    if positions is None:
+        positions = torch.arange(h.shape[1], device=h.device)[None, :]
+    remat = cfg.remat and torch.is_grad_enabled()
+    for lp in _layers(params, cfg):
+        if remat:
+            h = checkpoint(_layer_apply, lp, h, cfg, positions, use_reentrant=False)
+        else:
+            h = _layer_apply(lp, h, cfg, positions)
+    return rmsnorm(params["final_norm"], h), torch.zeros((), dtype=torch.float32,
+                                                         device=h.device)
+
+
+def embed_tokens(params, tokens, cfg: LMConfig):
+    """The plain lookup: ``embed.apply`` (differentiable), cast to the
+    compute dtype."""
+    return embed_module(cfg).apply(params["embed"], tokens).to(cfg.cdtype)
+
+
+def _k1_pair(module) -> bool:
+    """Whether K1 computes ``module.apply``: a QR pair (remainder, then
+    quotient partition) combined with mult or add."""
+    return (isinstance(module, CompositionalEmbedding) and module.op in ("mult", "add")
+            and len(module.partitions) == 2
+            and isinstance(module.partitions[0], RemainderPartition)
+            and isinstance(module.partitions[1], QuotientPartition))
+
+
+def embed_serving(params, tokens, cfg: LMConfig):
+    """The serving lookup: a QR mult/add vocabulary through
+    ``ops.qr_lookup_grouped`` (one K1 launch on a CUDA tensor, the id split
+    in the kernel; its plain version on the CPU), bit-equal to
+    ``embed_tokens`` for f32 and bf16 tables (the two rows combine in f32,
+    exact for a product or sum of bf16 values, and round once); every
+    other embedding through ``embed_tokens``."""
+    module = embed_module(cfg)
+    if _k1_pair(module):
+        p = params["embed"]
+        out = ops.qr_lookup_grouped(tokens.reshape(-1, 1),
+                                    [(p["table_0"], p["table_1"], 0, module.op, None)])
+        if out is not None:
+            return out.reshape(*tokens.shape, out.shape[-1]).to(cfg.cdtype)
+    return embed_tokens(params, tokens, cfg)
+
+
+# ------------------------------------------------------------------ loss
+
+
+def chunked_xent(h, labels, mask, head_w, chunk: int):
+    """Mean masked next-token xent without materialising (B, S, V) logits:
+    the sequence in chunks of ``chunk`` (the last padded), each chunk's
+    logits in f32, the gold logit gathered."""
+    s = h.shape[1]
+    chunk = min(chunk, s)
+    pad = (-s) % chunk
+    if pad:
+        h = tf.pad(h, (0, 0, 0, pad))
+        labels = tf.pad(labels, (0, pad))
+        mask = tf.pad(mask, (0, pad))
+    total = torch.zeros((), dtype=torch.float32, device=h.device)
+    for c in range(0, s + pad, chunk):
+        hc, lc, mc = h[:, c:c + chunk], labels[:, c:c + chunk], mask[:, c:c + chunk]
+        logits = (hc @ head_w.to(hc.dtype)).to(torch.float32)
+        logz = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, lc[..., None].long())[..., 0]
+        total = total + ((logz - gold) * mc).sum()
+    return total / torch.clamp(mask.sum(), min=1.0)
+
+
+def loss_fn(params, batch, cfg: LMConfig):
+    """batch: tokens (B,S) int32, labels (B,S) int32, mask (B,S) f32."""
+    h = embed_tokens(params, batch["tokens"], cfg)
+    h, aux = forward_hidden(params, h, cfg)
+    loss = chunked_xent(h, batch["labels"], batch["mask"], params["lm_head"]["w"],
+                        cfg.xent_chunk)
+    return loss + aux, {"xent": loss, "aux": aux}
+
+
+# ------------------------------------------------------------------ serving
+
+
+def make_decode_cache(cfg: LMConfig, batch: int, max_len: int, device="cuda"):
+    """Per-layer KV caches stacked ``(n_layers, batch, max_len, Hkv, Dh)``
+    in the compute dtype."""
+    _dense_only(cfg)
+    one = make_cache(batch, max_len, cfg.n_kv_heads, cfg.d_head, cfg.cdtype, device)
+    return {k: torch.zeros((cfg.n_layers,) + tuple(v.shape), dtype=v.dtype, device=device)
+            for k, v in one.items()}
+
+
+def _run_with_cache(params, h, cache, cfg: LMConfig, positions, cache_index):
+    """The layer stack over a cache: each layer writes its rows of
+    ``cache`` in place (per-layer views of the stacked tensors)."""
+    for i, lp in enumerate(_layers(params, cfg)):
+        cache_l = {k: v[i] for k, v in cache.items()}
+        attn_out, _ = attention(lp["attn"], rmsnorm(lp["norm1"], h), cfg.attn_cfg(),
+                                cfg.cdtype, positions=positions, cache=cache_l,
+                                cache_index=cache_index)
+        h = h + attn_out
+        h = h + _ffn(lp, rmsnorm(lp["norm2"], h), cfg)
+    return rmsnorm(params["final_norm"], h), cache
+
+
+def prefill(params, tokens, cache, cfg: LMConfig):
+    """Fill the cache from a prompt; returns (last-position logits (B, 1, V)
+    f32, cache)."""
+    h = embed_serving(params, tokens, cfg)
+    positions = torch.arange(tokens.shape[1], device=tokens.device)[None, :]
+    h, cache = _run_with_cache(params, h, cache, cfg, positions, None)
+    return dense(params["lm_head"], h[:, -1:], cfg.cdtype).to(torch.float32), cache
+
+
+def decode_step(params, tokens, pos: int, cache, cfg: LMConfig):
+    """One decode step.  tokens: (B, 1); pos: the int index into the cache."""
+    h = embed_serving(params, tokens, cfg)
+    positions = torch.full((tokens.shape[0], 1), pos, device=tokens.device)
+    h, cache = _run_with_cache(params, h, cache, cfg, positions, pos)
+    return dense(params["lm_head"], h, cfg.cdtype).to(torch.float32), cache

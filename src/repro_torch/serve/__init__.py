@@ -1,2 +1,6 @@
-"""Serving stack of the port: row-wise table quantization and the recsys
-inference engine."""
+"""Serving stack of the port: the wave-batched LM engine (``serve.engine``),
+row-wise table quantization and the recsys inference engine."""
+
+from .engine import Request, ServeEngine
+
+__all__ = ["Request", "ServeEngine"]

@@ -1488,3 +1488,112 @@ def test_wire_audit_in_a_gloo_world_of_four_on_one_card(cuda):
     assert findings == [], [f.message for f in findings]
     assert [r["name"] for r in rows] == [name for name, _ in wire_programs()]
     assert all(r["intercepted_bytes"] == r["closed_form_bytes"] > 0 for r in rows)
+
+
+# ---------------------------------------------------------------- the LM (ROADMAP 18a)
+
+
+def _lm_case(device, dtype="float32"):
+    """The reduced TinyLlama's parameters drawn on the CPU (seed 0), as the
+    given dtype, on ``device``."""
+    from repro_torch import tree
+    from repro_torch.configs import tinyllama_1_1b
+    from repro_torch.models import lm
+    cfg = dataclasses.replace(tinyllama_1_1b.config(reduced=True), param_dtype=dtype,
+                              compute_dtype=dtype)
+    params = lm.init(torch.Generator().manual_seed(0), cfg, "cpu")
+    return cfg, tree.tree_map(lambda t: t.to(device), params)
+
+
+def test_k1_at_the_lm_vocabulary_is_bit_equal_to_plain(cuda):
+    """K1 on TinyLlama's vocabulary pair (bf16, 8,000 + 4 rows x 2,048):
+    4,096 ids with 0, m-1, m and V-1, one grouped launch, bit-equal to its
+    plain version and to the embedding's plain apply."""
+    from repro_torch.core import qr_embedding
+    vocab, m = 32000, 8000
+    emb = qr_embedding(vocab, 2048, num_collisions=4, param_dtype=torch.bfloat16)
+    params = emb.init(torch.Generator(device=cuda).manual_seed(0), cuda)
+    assert tuple(params["table_0"].shape) == (m, 2048) and tuple(params["table_1"].shape) == (
+        4, 2048)
+    ids = torch.randint(0, vocab, (4096, 1), generator=torch.Generator(device=cuda).manual_seed(1),
+                        device=cuda)
+    ids[:4, 0] = torch.tensor([0, m - 1, m, vocab - 1], device=cuda)
+    tables = [(params["table_0"], params["table_1"], 0, "mult", None)]
+    before = qr_gather.qr_gather.launches
+    got = ops.qr_lookup_grouped(ids, tables)
+    assert qr_gather.qr_gather.launches == before + 1
+    assert got.dtype == torch.bfloat16 and got.shape == (4096, 1, 2048)
+    assert torch.equal(got, ref.qr_gather_grouped(ids, [ref.GroupTable(
+        params["table_0"], params["table_1"], m=m, op="mult")]))
+    assert torch.equal(got[:, 0], emb.apply(params, ids[:, 0]))
+
+
+def test_lm_serving_on_the_card_equals_the_cpu(cuda):
+    """The reduced LM's prefill, decode step and greedy engine on the card
+    against the port on the CPU (f32, 1e-4 of the largest logit), with one
+    K1 launch per prefill and per decode step and no other kernel."""
+    from repro_torch.kernels import launch_counters
+    from repro_torch.models import lm
+    from repro_torch.serve.engine import ServeEngine
+    cfg, cpu_p = _lm_case("cpu")
+    _, card_p = _lm_case(cuda)
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(0, cfg.vocab, (3, 21)))
+    results = {}
+    for device, params in (("cpu", cpu_p), (cuda, card_p)):
+        for fn in launch_counters().values():
+            fn.launches = 0
+        with torch.inference_mode():
+            cache = lm.make_decode_cache(cfg, 3, 32, device)
+            logits, cache = lm.prefill(params, tokens.to(device), cache, cfg)
+            logits2, cache = lm.decode_step(params, tokens[:, :1].to(device), 21, cache, cfg)
+        counts = {name: fn.launches for name, fn in launch_counters().items()}
+        assert counts == {**{k: 0 for k in counts}, "qr_gather": 2 if device == cuda else 0}
+        engine = ServeEngine(prefill_fn=lambda t, c, p=params: lm.prefill(p, t, c, cfg),
+                             decode_fn=lambda t, pos, c, p=params: lm.decode_step(p, t, pos, c,
+                                                                                  cfg),
+                             make_cache_fn=lambda b, ml, d=device: lm.make_decode_cache(
+                                 cfg, b, ml, d),
+                             batch_size=4, max_len=24, device=device)
+        for i in range(6):
+            engine.submit(list(range(1, 5 if i % 2 else 8)), max_new_tokens=6)
+        done = engine.run_until_drained()
+        results[str(device)] = (logits.cpu(), logits2.cpu(), cache["k"].cpu(),
+                                {u: r.output for u, r in done.items()})
+    cpu, card = results["cpu"], results[str(cuda)]
+    for a, b in zip(card[:3], cpu[:3]):
+        assert float((a - b).abs().max()) <= 1e-4 * float(b.abs().max())
+    assert card[3] == cpu[3]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_on_the_card_equals_the_cpu(cuda, dtype):
+    """The flash forward and its recompute backward on the card against the
+    CPU: f32 within 1e-4, bf16 within 3e-2 (bf16 outputs)."""
+    from repro_torch.nn.layers import flash_attention
+    rng = np.random.default_rng(7)
+    q, k, v, w = (torch.from_numpy(rng.normal(size=s).astype(np.float32)).to(dtype)
+                  for s in ((2, 130, 8, 16), (2, 130, 4, 16), (2, 130, 4, 16), (2, 130, 8, 16)))
+    grads = {}
+    for device in ("cpu", cuda):
+        leaves = [x.detach().clone().to(device).requires_grad_(True) for x in (q, k, v)]
+        out = flash_attention(*leaves, causal=True, block_q=32, block_k=48)
+        (out.float() * w.to(device).float()).sum().backward()
+        grads[str(device)] = [out.detach().cpu().float()] + [x.grad.cpu().float()
+                                                             for x in leaves]
+    tol = 1e-4 if dtype == torch.float32 else 3e-2
+    for a, b in zip(grads[str(cuda)], grads["cpu"]):
+        assert float((a - b).abs().max()) <= tol * max(1.0, float(b.abs().max()))
+
+
+def test_lm_serving_lookup_refuses_params_that_require_grad(cuda):
+    """K1 has no backward: the serving lookup with parameters that require
+    grad, outside inference mode, raises; under inference mode it runs."""
+    from repro_torch.models import lm
+    cfg, params = _lm_case(cuda)
+    live = {**params, "embed": {k: v.detach().requires_grad_(True)
+                                for k, v in params["embed"].items()}}
+    tokens = torch.zeros((2, 3), dtype=torch.long, device=cuda)
+    with pytest.raises(RuntimeError, match="requires grad"):
+        lm.embed_serving(live, tokens, cfg)
+    with torch.inference_mode():
+        assert lm.embed_serving(live, tokens, cfg).shape == (2, 3, cfg.d_model)

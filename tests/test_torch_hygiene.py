@@ -56,7 +56,9 @@ def test_serving_stack_import_leaves_jax_out():
             "repro_torch.benchmarks.serve_dist_bench, repro_torch.analysis, "
             "repro_torch.analysis.cli, repro_torch.analysis.acc_audit, "
             "repro_torch.analysis.wire_audit, repro_torch.analysis.jit_audit, "
-            "repro_torch.analysis.injectivity; "
+            "repro_torch.analysis.injectivity, repro_torch.models.lm, repro_torch.nn.layers, "
+            "repro_torch.serve.engine, repro_torch.data.lm, repro_torch.configs.tinyllama_1_1b, "
+            "repro_torch.examples.serve_lm; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'repro')); "
             "assert not bad, bad")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
