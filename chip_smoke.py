@@ -244,7 +244,33 @@ Phases (any failure exits non-zero, and no result line is printed):
    training launchers as subprocesses.  Prefill ms per wave, decode ms
    per step, tokens/s, device ms and operations per decode step and the
    busy share;
-21. run the paper's §5 experiment (``repro_torch.benchmarks.paper_tables``)
+21. ``[moe]``: the full-width DeepSeek-V2 (``configs/deepseek_v2_236b``:
+   MLA with 128 heads, q_lora 1,536, kv_lora 512, d_nope 128, d_rope 64,
+   d_v 128; a MoE of 160 experts top-6 (d_ff 1,536) with 2 shared
+   experts; vocab 102,400 as a bf16 QR pair of 25,600 + 4 rows x 5,120)
+   cut to 4 of its 60 layers, the one cut (16,543,851,520 parameters,
+   33,094,256,640 bytes, the reference's ``jax.eval_shape``), drawn on the
+   card: first the same widths at 1 layer in f32 (TF32 off) against the
+   machine's CPU on 2 x 32 tokens (routes equal except at a near-tie of
+   the k-th and (k+1)-th router probabilities within 1e-4, the logits of
+   agreeing tokens within 1e-3 of the largest, the aux loss within 1e-5)
+   and, on the card, 16 absorbed-MLA decode steps against the
+   teacher-forced forward; then [lm]'s 48 greedy requests in waves of 16
+   (one K1 per call and nothing else, the lookup one device operation,
+   K1 and the prefill logits bit-equal to the plain route, the routes the
+   capacity dropped counted: prefill drops by design, decode none; decode
+   against teacher forcing on 4 of the first wave's rows replayed at a
+   capacity that drops nothing, compared at the positions where every
+   layer chose the same top-6 set, within the f32 gap x 2^16 x sqrt(4 /
+   1), the dropped, flipped and compared counts printed), a decode step's
+   device time, operations and busy share, an 8,192-token prefill
+   (finite, peak memory above the parameters), 10 Adafactor (1e-4) steps
+   at 2 layers, B=4, S=256 by ``make_train_step`` (the loss finite and
+   falling, the aux loss positive), and
+   ``arctic-480b`` at full width and 1 of 35 layers (13,897,942,016
+   parameters): one wave of 16 x 128 tokens, one K1 per call, K1 and the
+   prefill logits bit-equal to the plain route;
+22. run the paper's §5 experiment (``repro_torch.benchmarks.paper_tables``)
    on the card for ``PAPER_ROWS``: fig4's six rows (DLRM and DCN x full,
    hash, QR mult) and QR add, concat, feature mode, threshold 2,000 and
    the path-based table at hidden 16, each trained 400 steps at B=256 on
@@ -263,7 +289,7 @@ Phases (any failure exits non-zero, and no result line is printed):
    ``fig4/dlrm/qr_mult`` 400 steps on the machine's CPU and print its
    held-out |Δ| from the card, and profile one DLRM and one DCN row's
    step (device ms, device operations, busy share);
-22. time each kernel, its plain version and a PyTorch yardstick with CUDA
+23. time each kernel, its plain version and a PyTorch yardstick with CUDA
    events, compute each kernel's bound from this run's inputs, and print
    the ``kernels`` JSON line.  The grouped kernels are timed at a full
    26-table wave (K4) and batch (K1 in f32, K5) at 1 to 16 threads per
@@ -275,9 +301,10 @@ Phases (any failure exits non-zero, and no result line is printed):
    sweep of threads per bag for wide rows (8, 16, 32); and K1's per-table
    entry at the kernel bench's D=128 on int32 ids, int64 ids read in place
    and int64 ids cast first; grouped K4 at the planned wave of 13; and
-   K1 at the LM's prefill (8,192 ids) and decode (16 ids) shapes.
+   K1 at TinyLlama's and DeepSeek-V2's prefill (8,192 ids) and decode (16
+   ids) shapes.
 
-Each of the paths in 8 to 21 runs with every launch count set to 0
+Each of the paths in 8 to 22 runs with every launch count set to 0
 just before it and read just after (in 18, in each rank's process: the
 ``kernels`` line sums the ranks); launches made to compare a kernel
 with its plain version count nowhere.  Peak device memory is printed as
@@ -291,6 +318,7 @@ JAX and nothing of the JAX package.
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import math
 import os
@@ -3610,21 +3638,21 @@ def _lm_prompts(torch, gen, vocab):
     return out
 
 
-def _lm_check_calls(calls, waves):
+def _lm_check_calls(calls, waves, phase="[lm]"):
     """Every prefill and decode call launched exactly one K1 and nothing
     else; ``waves`` prefills among them."""
     bad = [c for _, c in calls if c != {**{k: 0 for k in c}, "qr_gather": 1}]
     if bad:
-        _fail(f"[lm] a serving call launched {bad[0]}, expected one K1 (qr_gather) only")
+        _fail(f"{phase} a serving call launched {bad[0]}, expected one K1 (qr_gather) only")
     return {"calls": len(calls), "prefills": waves, "decode_steps": len(calls) - waves,
             "qr_gather_per_call": 1}
 
 
-def _lm_decode_tol(f32_gap_rel, n_layers):
+def _lm_decode_tol(f32_gap_rel, n_layers, f32_layers=2):
     """The bf16 decode-vs-teacher-forcing tolerance, relative to the
-    largest teacher-forced |logit|, from the f32 check's relative gap at 2
-    layers."""
-    return f32_gap_rel * LM_ROUNDOFF_RATIO * math.sqrt(n_layers / 2)
+    largest teacher-forced |logit|, from the f32 check's relative gap at
+    ``f32_layers`` layers."""
+    return f32_gap_rel * LM_ROUNDOFF_RATIO * math.sqrt(n_layers / f32_layers)
 
 
 def _lm_teacher(torch, lm, cfg, params, wave, tol_rel):
@@ -4012,6 +4040,559 @@ def lm_full_width(torch, card):
     return counts, k1_inputs, emb_diff
 
 
+# [moe]: the full-width DeepSeek-V2 (ROADMAP 18b, first part): MLA and a
+# 160-expert top-6 MoE with 2 shared experts, served on the card with its QR
+# vocabulary (25,600 + 4 rows x 5,120, bf16, mult) through K1.  The one cut
+# is the depth: 4 of its 60 layers.
+MOE_LAYERS = 4
+MOE_PARAMS = 16_543_851_520         # jax.eval_shape of the reference's init at 4 layers
+MOE_PARAM_BYTES = 33_094_256_640
+# card against CPU in f32 at full width and 1 layer, on 2 x 32 tokens (64
+# single-token groups: no route is dropped): routes agree except at a
+# near-tie (the k-th and (k+1)-th router probabilities within 1e-4
+# relative); the logits of agreeing tokens within 1e-3 of the largest
+# |logit|; the aux loss within 1e-5 relative
+MOE_F32_TOKENS = (2, 32)
+MOE_NEAR_TIE, MOE_F32_LOGIT_TOL, MOE_AUX_TOL = 1e-4, 1e-3, 1e-5
+# 10 Adafactor steps at full width, 2 layers, B=4, S=256, at lr 1e-4: the
+# arch's default, Adafactor(1e-3) (the reference's default_optimizer above
+# 30 B parameters), moves every weight by about lr in its first steps (the
+# factored second moment of one gradient gives updates of unit RMS), and at
+# d_model 5,120 that overturns the random weights: its loss rose from 12.05
+# to 14.76 over these 10 steps on an H100 80GB HBM3 at 700 W
+MOE_TRAIN_STEPS, MOE_TRAIN_LAYERS, MOE_TRAIN_BATCH, MOE_TRAIN_SEQ = 10, 2, 4, 256
+MOE_TRAIN_LR = 1e-4
+# decode against teacher forcing: 4 rows of the first wave, replayed at a
+# capacity that drops nothing (the served capacity drops routes in prefill
+# and in the teacher-forced forward, by design, and the dropped rows
+# change every later position's context)
+MOE_TEACHER_ROWS = 4
+# Arctic at full width and 1 of its 35 layers: 128 experts top-2 and the
+# parallel dense FFN
+ARCTIC_PARAMS, ARCTIC_PARAM_BYTES = 13_897_942_016, 27_797_719_040
+
+
+class _RouteLog:
+    """``repro_torch.nn.moe.route`` wrapped while the block runs: for each
+    of its first ``limit`` calls (all when None), each token's top-k
+    experts and which of its routes were kept under the capacity, in token
+    order, and the router's probabilities when ``probs``."""
+
+    def __init__(self, torch, limit=None, probs=False):
+        self.torch, self.limit, self.probs, self.calls = torch, limit, probs, []
+
+    def __enter__(self):
+        from repro_torch.nn import moe
+
+        real = self.real = moe.route
+
+        def logged(params, xf, cfg, cap):
+            r = real(params, xf, cfg, cap)
+            if self.limit is None or len(self.calls) < self.limit:
+                g, ng, k = r.idx.shape
+                kept = self.torch.empty((g, ng * k), dtype=self.torch.bool, device=xf.device)
+                kept.scatter_(1, r.order, r.dest < cfg.n_experts * cap)
+                self.calls.append({"idx": r.idx.reshape(g * ng, k),
+                                   "kept": kept.reshape(g * ng, k),
+                                   "probs": r.probs.reshape(g * ng, -1) if self.probs else None})
+            return r
+
+        moe.route = logged
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.nn import moe
+
+        moe.route = self.real
+
+
+def _same_sets(a, b):
+    """Per token, whether two (..., k) expert lists hold the same experts."""
+    return (a.sort(dim=-1).values == b.sort(dim=-1).values).all(dim=-1)
+
+
+def _host_available_bytes() -> int:
+    with open("/proc/meminfo") as f:
+        for line in f:
+            if line.startswith("MemAvailable:"):
+                return int(line.split()[1]) * 1024
+    _fail("[moe] /proc/meminfo has no MemAvailable")
+
+
+def _moe_f32_vs_cpu(torch, ds, lm):
+    """DeepSeek-V2 at full width and 1 layer in f32 (TF32 off), card
+    against CPU on 2 x 32 tokens: routes, logits and the aux loss; then on
+    the card, a prefill of 16 tokens and 16 decode steps (the absorbed MLA)
+    against the teacher-forced forward (the materialised MLA) on the
+    positions whose routes agree: the f32 gap the bf16 tolerance scales."""
+    from repro_torch import tree
+    from repro_torch.nn.layers import dense
+
+    if torch.backends.cuda.matmul.allow_tf32:
+        _fail("[moe] TF32 is on for f32 matrix products")
+    cfg = dataclasses.replace(ds.config(), n_layers=1, param_dtype="float32",
+                              compute_dtype="float32")
+    need = lm.num_params(lm.init(torch.Generator(), cfg, "meta")) * 4
+    avail = _host_available_bytes()
+    print(f"  f32 check: the 1-layer model is {need} B in f32; the host has {avail} B available")
+    if avail < 1.25 * need:
+        _fail(f"[moe] the host has {avail} B available, the f32 1-layer model needs {need} B "
+              "and its forward")
+    card = lm.init(torch.Generator(device="cuda").manual_seed(3), cfg, "cuda")
+    t = time.perf_counter()
+    host = tree.tree_map(lambda x: x.cpu(), card)
+    copy_s = time.perf_counter() - t
+    b, s = MOE_F32_TOKENS
+    seq = torch.randint(0, cfg.vocab, (b, s), generator=torch.Generator().manual_seed(4))
+    out = {}
+    with torch.inference_mode():
+        for name, params, dev in (("cpu", host, "cpu"), ("card", card, "cuda")):
+            t = time.perf_counter()
+            with _RouteLog(torch, probs=True) as log:
+                h, aux = lm.forward_hidden(params, lm.embed_tokens(params, seq.to(dev), cfg), cfg)
+                logits = dense(params["lm_head"], h, cfg.cdtype)
+            out[name] = {"logits": logits.cpu(), "aux": float(aux),
+                         **{k: v.cpu() for k, v in log.calls[0].items()},
+                         "s": time.perf_counter() - t}
+        half = s // 2
+        cache = lm.make_decode_cache(cfg, b, s, "cuda")
+        with _RouteLog(torch) as dlog:
+            logits, cache = lm.prefill(card, seq[:, :half].cuda(), cache, cfg)
+            steps = [logits[:, -1]]
+            for i in range(half, s):
+                logits, cache = lm.decode_step(card, seq[:, i:i + 1].cuda(), i, cache, cfg)
+                steps.append(logits[:, -1])
+    del card, host, cache
+    torch.cuda.empty_cache()
+    cpu, dev = out["cpu"], out["card"]
+    k = cfg.moe.top_k
+    agree = _same_sets(dev["idx"], cpu["idx"])
+    top = cpu["probs"].sort(dim=-1, descending=True).values
+    near = (top[:, k - 1] - top[:, k]) <= MOE_NEAR_TIE * top[:, k - 1]
+    scale = float(cpu["logits"].abs().max())
+    tok_diff = (dev["logits"] - cpu["logits"]).abs().amax(-1).reshape(-1)
+    logit_rel = float(tok_diff[agree].max()) / scale if agree.any() else 0.0
+    aux_rel = abs(dev["aux"] - cpu["aux"]) / abs(cpu["aux"])
+    # decode (positions half-1 .. s-1) vs the card's teacher-forced logits
+    dec = torch.stack(steps, 1).cpu()
+    teacher = dev["logits"][:, half - 1:]
+    t_idx = dev["idx"].reshape(b, s, k)
+    d_idx = torch.stack([dlog.calls[0]["idx"].cpu().reshape(b, half, k)[:, -1]]
+                        + [c["idx"].cpu() for c in dlog.calls[1:]], 1)
+    same = _same_sets(d_idx, t_idx[:, half - 1:])
+    dec_gap = float((dec - teacher).abs().amax(-1)[same].max())
+    dec_rel = dec_gap / float(teacher.abs().max())
+    res = {"params": need // 4, "host_available_bytes": avail, "copy_to_host_s": copy_s,
+           "cpu_forward_s": cpu["s"], "tokens": b * s, "routes_agree": int(agree.sum()),
+           "near_ties": int(near.sum()), "route_disagree_not_near_tie": int((~agree & ~near).sum()),
+           "logits_rel_diff": logit_rel, "aux": cpu["aux"], "card_aux": dev["aux"],
+           "aux_rel_diff": aux_rel, "decode_positions": same.numel(),
+           "decode_positions_same_routes": int(same.sum()),
+           "decode_vs_teacher_f32_abs": dec_gap, "decode_vs_teacher_f32_rel": dec_rel}
+    print(f"  f32, 1 layer at full width, card vs CPU on {b} x {s} tokens (copy to the host "
+          f"{copy_s:.1f} s, CPU forward {cpu['s']:.1f} s): routes agree on {res['routes_agree']}"
+          f"/{b * s} tokens ({res['near_ties']} near-ties within {MOE_NEAR_TIE:.0e}, "
+          f"{res['route_disagree_not_near_tie']} disagreements that are not); logits of agreeing "
+          f"tokens {logit_rel:.3e} of the largest |logit| (tol {MOE_F32_LOGIT_TOL:.0e}); aux "
+          f"{dev['aux']:.8f} vs {cpu['aux']:.8f} ({aux_rel:.3e} relative, tol "
+          f"{MOE_AUX_TOL:.0e}); absorbed decode vs teacher forcing on {int(same.sum())}/"
+          f"{same.numel()} positions with the same routes: max |diff| {dec_gap:.3e} = "
+          f"{dec_rel:.3e} of the largest |logit|")
+    if res["route_disagree_not_near_tie"] or logit_rel > MOE_F32_LOGIT_TOL \
+            or aux_rel > MOE_AUX_TOL or not same.any():
+        _fail("[moe] the f32 model on the card disagrees with the CPU")
+    return res
+
+
+def _moe_served_wave(torch, lm, cfg, params, wave, routes):
+    """The recorded wave's K1 embedding and prefill logits against the
+    plain route (``embed.apply`` → ``forward_hidden`` → the LM head: the
+    same token groups, so the same drops), and its routes dropped by the
+    capacity in prefill and decode."""
+    from repro_torch.nn.layers import dense
+
+    prompts, pre_logits = wave[0]
+    n_layers = cfg.n_layers
+    with torch.inference_mode():
+        emb_diff = _max_err(torch, lm.embed_serving(params, prompts, cfg),
+                            lm.embed_tokens(params, prompts, cfg))
+        h, _ = lm.forward_hidden(params, lm.embed_tokens(params, prompts, cfg), cfg)
+        plain = dense(params["lm_head"], h[:, -1:], cfg.cdtype).to(torch.float32)[:, -1]
+    pre_kept = torch.stack([c["kept"] for c in routes.calls[:n_layers]])
+    dec_kept = [c["kept"] for c in routes.calls[n_layers:]]
+    return emb_diff, _max_err(torch, pre_logits, plain), {
+        "prefill_routes_dropped": int((~pre_kept).sum()), "prefill_routes": pre_kept.numel(),
+        "decode_routes_dropped": sum(int((~k).sum()) for k in dec_kept),
+        "decode_routes": sum(k.numel() for k in dec_kept)}
+
+
+def _moe_teacher(torch, lm, cfg, params, wave, tol_rel):
+    """Decode against teacher forcing, on ``MOE_TEACHER_ROWS`` rows of the
+    recorded wave (its prompts and the tokens it fed each decode step) in
+    the same model with a capacity that drops nothing (``capacity_factor``
+    E/k: C = N_g), so the two paths differ only by the absorbed MLA's
+    roundoff and the routes it flips: the logits are compared at the
+    positions where no layer dropped a route and every layer chose the
+    same top-k set in both."""
+    from repro_torch.nn.layers import dense
+
+    rows = MOE_TEACHER_ROWS
+    moe = dataclasses.replace(cfg.moe, capacity_factor=cfg.moe.n_experts / cfg.moe.top_k)
+    dropless = dataclasses.replace(cfg, moe=moe)
+    n_layers, k = cfg.n_layers, cfg.moe.top_k
+    prompts = wave[0][0][:rows]
+    toks = [tok[:rows] for tok, _ in wave[1:]]
+    plen, steps = prompts.shape[1], len(toks)
+    with torch.inference_mode():
+        with _RouteLog(torch) as dlog:
+            cache = lm.make_decode_cache(dropless, rows, plen + steps, "cuda")
+            lm.prefill(params, prompts, cache, dropless)
+            dec = []
+            for i, tok in enumerate(toks):
+                logits, cache = lm.decode_step(params, tok, plen + i, cache, dropless)
+                dec.append(logits[:, -1])
+        seq = torch.cat([prompts] + toks, dim=1)
+        with _RouteLog(torch) as tlog:
+            h, _ = lm.forward_hidden(params, lm.embed_tokens(params, seq, dropless), dropless)
+            tf_logits = dense(params["lm_head"], h[:, plen:], cfg.cdtype).to(torch.float32)
+    del cache
+    total = seq.shape[1]
+    t_idx = torch.stack([c["idx"].reshape(rows, total, k) for c in tlog.calls])[:, :, plen:]
+    t_kept = torch.stack([c["kept"].reshape(rows, total, k) for c in tlog.calls])
+    d_calls = dlog.calls[n_layers:]
+    d_idx = torch.stack([c["idx"] for c in d_calls]).reshape(steps, n_layers, rows, k)
+    d_idx = d_idx.permute(1, 2, 0, 3)                                  # (L, B, steps, k)
+    d_dropped = sum(int((~c["kept"]).sum()) for c in dlog.calls)
+    dropped = ~t_kept[:, :, plen:].all(dim=-1).all(dim=0)              # (B, steps)
+    flipped = ~_same_sets(d_idx, t_idx).all(dim=0)
+    compared = ~dropped & ~flipped
+    dec = torch.stack(dec, dim=1)                                      # (B, steps, V)
+    scale = float(tf_logits.abs().max())
+    diff = (dec - tf_logits).abs().amax(dim=-1)
+    dec_diff = float(diff[compared].max()) if compared.any() else float("nan")
+    agree = dec.argmax(-1) == tf_logits.argmax(-1)
+    return {"rows": rows, "steps": steps, "capacity_factor": moe.capacity_factor,
+            "positions": compared.numel(), "dropped": int(dropped.sum()),
+            "decode_routes_dropped": d_dropped,
+            "teacher_routes_dropped": int((~t_kept).sum()), "flipped": int(flipped.sum()),
+            "compared": int(compared.sum()), "max_abs_diff": dec_diff,
+            "max_abs_diff_all_positions": float(diff.max()), "max_abs_teacher_logit": scale,
+            "rel_diff": dec_diff / scale, "tol_rel": tol_rel, "tol_abs": tol_rel * scale,
+            "argmax_agree_compared": int((agree & compared).sum()),
+            "argmax_agree_all": int(agree.sum())}
+
+
+def _moe_train(torch, ds, lm, card):
+    """10 Adafactor steps (``MOE_TRAIN_LR``) at full width and 2 layers on
+    the port's LM stream, by ``make_train_step`` in a loop that drops
+    each old state as the next one comes (a caller of ``Trainer.run``
+    keeps its first state alive, 17.2 GB here): the loss finite and
+    falling, the aux loss positive; time per step and peak memory."""
+    from repro_torch.optim import optimizers
+    from repro_torch.train.loop import init_state, make_train_step
+
+    cfg = dataclasses.replace(ds.config(), n_layers=MOE_TRAIN_LAYERS)
+    api = ds.api(cfg)
+    opt = optimizers.adafactor(MOE_TRAIN_LR)
+    shape = _lm_shape(MOE_TRAIN_SEQ, MOE_TRAIN_BATCH)
+    gc.collect()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    print(f"  training: {base} B held on the card before the 2-layer model")
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    params = api.init(torch.Generator(device="cuda").manual_seed(5))
+    n = lm.num_params(params)
+    state = init_state(params, opt)
+    del params
+    train_step = make_train_step(api.loss_fn, opt)
+    losses, auxs, walls = [], [], []
+    for s in range(MOE_TRAIN_STEPS + 3):
+        batch = api.batch_fn(s, shape)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        state, metrics = train_step(state, batch)
+        torch.cuda.synchronize()
+        if s < MOE_TRAIN_STEPS:
+            losses.append(float(metrics["loss"]))
+            auxs.append(float(metrics["aux"]))
+        else:
+            walls.append(time.perf_counter() - t1)
+        if s == MOE_TRAIN_STEPS - 1:
+            run_s = time.perf_counter() - t
+    peak = torch.cuda.max_memory_allocated()
+    tail = sum(losses[-3:]) / 3
+    if not all(math.isfinite(x) for x in losses):
+        _fail("[moe] training losses are not all finite")
+    if not tail < losses[0]:
+        _fail(f"[moe] the loss did not fall: last 3 steps {tail:.5f} vs step 0 {losses[0]:.5f} "
+              f"({losses})")
+    if not all(a > 0 for a in auxs):
+        _fail(f"[moe] the aux loss is not positive: {auxs}")
+    wall_ms = sorted(walls)[1] * 1e3
+    opt_bytes = sum(x.numel() * x.element_size() for s in state["opt"] for x in s.values())
+    del state
+    torch.cuda.empty_cache()
+    prof = {"card": card, "layers": MOE_TRAIN_LAYERS, "parameters": n,
+            "optimizer": f"adafactor({MOE_TRAIN_LR:g})", "steps": MOE_TRAIN_STEPS,
+            "batch": MOE_TRAIN_BATCH, "seq_len": MOE_TRAIN_SEQ, "losses": losses, "aux": auxs,
+            "loss_step_0": losses[0], "loss_last_3": tail, "run_s_with_init": run_s, "wall_ms_per_step": wall_ms,
+            "peak_memory_bytes": peak, "peak_above_phase_start_bytes": peak - base,
+            "adafactor_state_bytes": opt_bytes}
+    print(f"  {MOE_TRAIN_STEPS} Adafactor({MOE_TRAIN_LR:g}) steps at {MOE_TRAIN_LAYERS} layers "
+          f"({n:,} parameters), B={MOE_TRAIN_BATCH} S={MOE_TRAIN_SEQ}, one microbatch, in "
+          f"{run_s:.2f} s with init: loss {losses[0]:.5f} at step 0, {tail:.5f} over the last 3, aux "
+          f"{auxs[0]:.6f} -> {auxs[-1]:.6f} | per step wall {wall_ms:.1f} ms (median of 3 after "
+          f"them) | peak {peak} B ({peak - base} B above the phase's start; Adafactor's factored "
+          f"state {opt_bytes} B)")
+    return prof
+
+
+def _moe_arctic(torch, lm, card):
+    """Arctic at full width and 1 layer (128 experts top-2 beside the
+    parallel dense FFN): one wave of 16 prompts of 128 tokens, one K1 per
+    call and nothing else; K1 and the prefill logits bit-equal to the
+    plain route."""
+    from repro_torch.configs import arctic_480b
+    from repro_torch.nn.layers import dense
+
+    cfg = dataclasses.replace(arctic_480b.config(), n_layers=1)
+    gc.collect()
+    params = lm.init(torch.Generator(device="cuda").manual_seed(7), cfg, "cuda")
+    n, nbytes = lm.num_params(params), _tree_bytes(params)
+    if (n, nbytes) != (ARCTIC_PARAMS, ARCTIC_PARAM_BYTES):
+        _fail(f"[moe] arctic: {n} parameters / {nbytes} B, expected {ARCTIC_PARAMS} / "
+              f"{ARCTIC_PARAM_BYTES}")
+    calls, record = [], []
+    engine = _lm_engine(torch, cfg, params, calls, record, LM_BATCH, 256)
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    prompts = torch.randint(0, cfg.vocab, (LM_BATCH, 128), generator=gen, device="cuda")
+    for p in prompts.tolist():
+        engine.submit(p, max_new_tokens=LM_NEW_TOKENS)
+    torch.cuda.synchronize()
+    _zero_counts()
+    t = time.perf_counter()
+    done = engine.run_until_drained()
+    wave_s = time.perf_counter() - t
+    counts = _read_counts()
+    launch = _lm_check_calls(calls, 1, "[moe]")
+    if len(done) != LM_BATCH or any(
+            len(r.output) != LM_NEW_TOKENS or not all(0 <= x < cfg.vocab for x in r.output)
+            for r in done.values()):
+        _fail("[moe] arctic's wave did not complete with its tokens in range")
+    prompts_in, pre_logits = record[0]
+    with torch.inference_mode():
+        emb_diff = _max_err(torch, lm.embed_serving(params, prompts_in, cfg),
+                            lm.embed_tokens(params, prompts_in, cfg))
+        h, _ = lm.forward_hidden(params, lm.embed_tokens(params, prompts_in, cfg), cfg)
+        plain = dense(params["lm_head"], h[:, -1:], cfg.cdtype).to(torch.float32)[:, -1]
+    pre_diff = _max_err(torch, pre_logits, plain)
+    dec_ms = sorted(ms for ms, _ in calls[1:])
+    print(f"  arctic-480b at full width, 1 of {arctic_480b.config().n_layers} layers ({n:,} "
+          f"parameters, {nbytes:,} B; {cfg.moe.n_experts} experts top-{cfg.moe.top_k} and the "
+          f"parallel dense FFN): one wave of {LM_BATCH} x 128 tokens, {LM_NEW_TOKENS} new each, "
+          f"in {wave_s:.2f} s (prefill {calls[0][0]:.1f} ms, decode median "
+          f"{dec_ms[len(dec_ms) // 2]:.2f} ms); one K1 per call on all {len(calls)} calls; K1 vs "
+          f"embed.apply max |diff| {emb_diff}, prefill logits vs the plain forward {pre_diff}")
+    if emb_diff != 0 or pre_diff != 0:
+        _fail("[moe] arctic: K1 or the prefill logits differ from the plain route")
+    del params, engine, record
+    torch.cuda.empty_cache()
+    return {"parameters": n, "parameter_bytes": nbytes, "wave_s": wave_s,
+            "prefill_ms": calls[0][0], "decode_ms_median": dec_ms[len(dec_ms) // 2],
+            "launches": launch, "k1_vs_plain_max_abs_diff": emb_diff,
+            "prefill_vs_plain_max_abs_diff": pre_diff}, counts
+
+
+def moe_full_width(torch, card):
+    """The [moe] phase (ROADMAP 18b, first part): DeepSeek-V2 at full width
+    and 4 of its 60 layers served through ``ServeEngine`` with its QR
+    vocabulary through K1, held against the plain route and (on a dropless
+    replay of 4 rows) teacher forcing, routes compared, an 8,192-token
+    prompt, the f32 model against the CPU
+    at 1 layer, 10 Adafactor steps at 2 layers, and Arctic's wave at 1
+    layer.  Returns the launch counts of the paths and K1's inputs at
+    DeepSeek's vocabulary for [time]."""
+    from repro_torch.configs import deepseek_v2_236b as ds
+    from repro_torch.models import lm
+
+    t0 = time.perf_counter()
+    full = ds.config()
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"  held on the card at the phase's start: {torch.cuda.memory_allocated()} B")
+    f32 = _moe_f32_vs_cpu(torch, ds, lm)
+    tol_rel = _lm_decode_tol(f32["decode_vs_teacher_f32_rel"], MOE_LAYERS, f32_layers=1)
+
+    cfg = dataclasses.replace(full, n_layers=MOE_LAYERS)
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    params = lm.init(torch.Generator(device="cuda").manual_seed(0), cfg, "cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t
+    init_peak = torch.cuda.max_memory_allocated() - base
+    n, nbytes = lm.num_params(params), _tree_bytes(params)
+    print(f"  {cfg.name}: vocab {cfg.vocab}, d {cfg.d_model}, MLA {cfg.mla.n_heads} heads "
+          f"(q_lora {cfg.mla.q_lora}, kv_lora {cfg.mla.kv_lora}, d_nope {cfg.mla.d_nope}, d_rope "
+          f"{cfg.mla.d_rope}, d_v {cfg.mla.d_v}), MoE {cfg.moe.n_experts} experts top-"
+          f"{cfg.moe.top_k} d_ff {cfg.moe.d_ff} + {cfg.n_shared_experts} shared, QR c="
+          f"{cfg.embedding.num_collisions} {cfg.embedding.op} vocabulary "
+          f"{tuple(params['embed']['table_0'].shape)} + {tuple(params['embed']['table_1'].shape)}"
+          f", {cfg.param_dtype}; the one cut: {MOE_LAYERS} of {full.n_layers} layers: {n:,} "
+          f"parameters, {nbytes:,} B, drawn in {init_s:.1f} s (peak {init_peak} B above the "
+          "phase's start)")
+    if (n, nbytes) != (MOE_PARAMS, MOE_PARAM_BYTES):
+        _fail(f"[moe] {n} parameters / {nbytes} B, expected {MOE_PARAMS} / {MOE_PARAM_BYTES}")
+
+    # the queue: 32 prompts of 512 and 16 of 128, greedy, 32 new tokens each
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    prompts = _lm_prompts(torch, gen, cfg.vocab)
+    calls, record = [], []
+    engine = _lm_engine(torch, cfg, params, calls, record, LM_BATCH, LM_MAX_LEN)
+    for p in prompts:
+        engine.submit(p, max_new_tokens=LM_NEW_TOKENS)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts()
+    wave_ms = []
+    with _RouteLog(torch, limit=LM_NEW_TOKENS * cfg.n_layers) as routes:
+        while engine._queue:
+            t = time.perf_counter()
+            engine.step()
+            wave_ms.append((time.perf_counter() - t) * 1e3)
+    counts = {"moe": _read_counts()}
+    peak = torch.cuda.max_memory_allocated()
+    waves, serve_s, done = len(wave_ms), sum(wave_ms) / 1e3, engine.completed
+    launch = _lm_check_calls(calls, waves, "[moe]")
+    tokens = sum(len(r.output) for r in done.values())
+    if len(done) != len(prompts) or any(
+            len(r.output) != LM_NEW_TOKENS or not all(0 <= x < cfg.vocab for x in r.output)
+            for r in done.values()):
+        _fail("[moe] not every request completed with its tokens in range")
+    if len(calls) != waves * LM_NEW_TOKENS or counts["moe"]["qr_gather"] != len(calls) \
+            or sum(counts["moe"].values()) != len(calls):
+        _fail(f"[moe] launches {counts['moe']} for {len(calls)} serving calls in {waves} waves")
+    pre_ms = [ms for j, (ms, _) in enumerate(calls) if j % LM_NEW_TOKENS == 0]
+    dec_ms = sorted(ms for j, (ms, _) in enumerate(calls) if j % LM_NEW_TOKENS)
+    print(f"  served {len(done)} requests ({', '.join(f'{n} of {p} tokens' for p, n in LM_QUEUE)}"
+          f") in {waves} waves of {LM_BATCH}: {tokens} tokens in {serve_s:.2f} s = "
+          f"{tokens / serve_s:.1f} tokens/s | prefill ms per wave {[round(x, 2) for x in pre_ms]}"
+          f" | decode ms per step: median {dec_ms[len(dec_ms) // 2]:.2f}, min {dec_ms[0]:.2f}, "
+          f"max {dec_ms[-1]:.2f} | peak memory {peak} B ({peak - base} B above the phase's "
+          "start)")
+    print(f"  launches: one K1 per call on all {len(calls)} calls ({waves} prefills, "
+          f"{len(calls) - waves} decode steps), no other kernel: {counts['moe']}")
+
+    # a decode step's device time and operations; the lookup is one operation
+    dec_tokens = torch.randint(0, cfg.vocab, (LM_BATCH, 1), generator=gen, device="cuda")
+    with torch.inference_mode():
+        plen = LM_QUEUE[-1][0]
+        cache = lm.make_decode_cache(cfg, LM_BATCH, LM_MAX_LEN, "cuda")
+        lm.prefill(params, torch.randint(0, cfg.vocab, (LM_BATCH, plen), generator=gen,
+                                         device="cuda"), cache, cfg)
+        pos = [plen]
+
+        def decode(k=5):
+            for _ in range(k):
+                lm.decode_step(params, dec_tokens, pos[0], cache, cfg)
+                pos[0] += 1
+
+        decode(1)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        decode(5)
+        torch.cuda.synchronize()
+        dec_wall = (time.perf_counter() - t) / 5 * 1e3
+        _, dev, ops = _profile_device(decode)
+        lookup_ops = _device_ops_per_call(torch, lambda: lm.embed_serving(params, dec_tokens,
+                                                                          cfg))
+    if lookup_ops["ops"] != 1:
+        _fail(f"[moe] the token lookup took {lookup_ops['ops']} device operations per call, "
+              "expected the one K1 launch")
+    dec_dev = sum(dev.values()) / 5 / 1e3
+    dec_ops = sum(ops.values()) / 5
+    expert_bytes = 3 * cfg.moe.n_experts * cfg.d_model * cfg.moe.d_ff * 2 * cfg.n_layers
+    print(f"  a decode step of {LM_BATCH}: wall {dec_wall:.2f} ms, device {dec_dev:.3f} ms (busy "
+          f"{dec_dev / dec_wall:.3f}), {dec_ops:.0f} device operations; the expert weights it "
+          f"reads ({expert_bytes} B, all {cfg.moe.n_experts} experts x {cfg.n_layers} layers) "
+          f"take {expert_bytes / HBM_BYTES_PER_S * 1e3:.3f} ms at {HBM_BYTES_PER_S / 1e12} TB/s; "
+          f"top {_top_ms(dev, 5, k=6)}")
+
+    # K1 and the prefill logits bit for bit against the plain route; decode
+    # against teacher forcing where no route was dropped and the routes agree
+    emb_diff, pre_diff, drops = _moe_served_wave(torch, lm, cfg, params, record, routes)
+    dec = _moe_teacher(torch, lm, cfg, params, record, tol_rel)
+    print(f"  wave 0: K1 vs embed.apply max |diff| {emb_diff}; prefill logits vs the plain "
+          f"teacher-forced forward max |diff| {pre_diff}; routes dropped by the capacity: "
+          f"prefill {drops['prefill_routes_dropped']}/{drops['prefill_routes']}, decode "
+          f"{drops['decode_routes_dropped']}/{drops['decode_routes']}")
+    print(f"  decode vs teacher forcing, {dec['rows']} of the wave's rows and the tokens it fed, "
+          f"at capacity_factor E/k = {dec['capacity_factor']:.4f}: routes dropped "
+          f"{dec['decode_routes_dropped']} (decode) and {dec['teacher_routes_dropped']} "
+          f"(teacher-forced); of {dec['positions']} positions {dec['dropped']} with a route "
+          f"dropped, {dec['flipped']} with another top-{cfg.moe.top_k} set in some layer, "
+          f"{dec['compared']} compared: max |diff| {dec['max_abs_diff']:.4f} = "
+          f"{dec['rel_diff']:.4f} of the largest |logit| (tol {tol_rel:.4f} = the f32 gap x "
+          f"2^16 x sqrt({MOE_LAYERS} / 1); over all positions "
+          f"{dec['max_abs_diff_all_positions']:.4f}); greedy agrees on "
+          f"{dec['argmax_agree_compared']}/{dec['compared']} compared positions, "
+          f"{dec['argmax_agree_all']}/{dec['positions']} in all")
+    if emb_diff != 0 or pre_diff != 0:
+        _fail("[moe] K1 or the prefill logits differ from the plain route")
+    if dec["decode_routes_dropped"] or dec["teacher_routes_dropped"] or drops[
+            "decode_routes_dropped"]:
+        _fail("[moe] a route was dropped where the capacity takes every route")
+    if not dec["compared"] or not dec["rel_diff"] <= tol_rel:
+        _fail("[moe] decode disagrees with teacher forcing beyond the tolerance")
+    del record, engine, routes
+
+    # one long prompt: 8,192 tokens (256 groups of 32, capacity 2)
+    long_ids = torch.randint(0, cfg.vocab, (1, LM_LONG_PROMPT), generator=gen, device="cuda")
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    with torch.inference_mode():
+        cache = lm.make_decode_cache(cfg, 1, LM_LONG_PROMPT, "cuda")
+        long_logits, cache = lm.prefill(params, long_ids, cache, cfg)
+    torch.cuda.synchronize()
+    long_ms = (time.perf_counter() - t) * 1e3
+    long_peak = torch.cuda.max_memory_allocated() - held
+    score_bytes = cfg.n_heads * LM_LONG_PROMPT * LM_LONG_PROMPT * 4
+    print(f"  one {LM_LONG_PROMPT}-token prompt: prefill {long_ms:.1f} ms, logits finite "
+          f"{bool(torch.isfinite(long_logits).all())}; peak memory above the parameters "
+          f"{long_peak} B (the latent cache {_tree_bytes(cache)} B) against one {cfg.n_heads} x "
+          f"{LM_LONG_PROMPT} x {LM_LONG_PROMPT} f32 score matrix's {score_bytes} B")
+    if not bool(torch.isfinite(long_logits).all()) or long_peak >= score_bytes:
+        _fail("[moe] the long prompt's logits are not finite or its memory is not linear")
+    k1_inputs = {"prefill": long_ids.reshape(-1, 1), "decode": dec_tokens,
+                 "tables": (params["embed"]["table_0"].clone(),
+                            params["embed"]["table_1"].clone())}
+    del cache, long_logits, params
+    torch.cuda.empty_cache()
+
+    train_prof = _moe_train(torch, ds, lm, card)
+    arctic, counts["moe_arctic"] = _moe_arctic(torch, lm, card)
+    prof = {"card": card, "arch": cfg.name, "layers": MOE_LAYERS, "of_layers": full.n_layers,
+            "parameters": n, "parameter_bytes": nbytes, "init_s": init_s, "requests": len(done),
+            "waves": waves, "tokens": tokens, "serve_s": serve_s,
+            "tokens_per_s": tokens / serve_s, "prefill_ms_per_wave": pre_ms,
+            "decode_ms_per_step_median": dec_ms[len(dec_ms) // 2], "decode_wall_ms": dec_wall,
+            "decode_device_ms": dec_dev, "decode_device_ops": dec_ops,
+            "decode_busy_share": dec_dev / dec_wall, "decode_expert_weight_bytes": expert_bytes,
+            "serve_peak_bytes": peak, "lookup_device_ops_per_call": lookup_ops["ops"],
+            "launches": launch, "k1_vs_plain_max_abs_diff": emb_diff,
+            "prefill_vs_plain_max_abs_diff": pre_diff, "served_wave_drops": drops,
+            "decode_vs_teacher": dec, "long_prompt_ms": long_ms,
+            "long_prompt_peak_above_params_bytes": long_peak,
+            "f32_vs_cpu": f32, "train": train_prof, "arctic": arctic,
+            "phase_s": time.perf_counter() - t0}
+    print(f"  card: {card}; [moe] {prof['phase_s']:.1f} s")
+    print(json.dumps({"moe_profile": prof}))
+    return counts, k1_inputs, emb_diff
+
+
 def _lm_gather_bound(ids, w_a, w_b):
     """K1 on the LM's vocabulary pair at these ids: the raw ids once, each
     distinct row of both tables once, the output once (table dtype); one
@@ -4022,12 +4603,14 @@ def _lm_gather_bound(ids, w_a, w_b):
     return n * ids.element_size() + rows * d * elem + n * d * elem, n * d
 
 
-def time_lm_k1(torch, lm_k1, counts):
-    """K1 at the LM's two shapes, as ``embed_serving`` calls it (raw ids
+def time_lm_k1(torch, lm_k1, model, prefix, launches):
+    """K1 at an LM's two shapes, as ``embed_serving`` calls it (raw ids
     ``(N, 1)``, one bf16 QR pair): the 8,192-token prompt and one decode
     step of 16 — held bit for bit against its plain version, timed beside
     it and beside two ``F.embedding`` calls and the multiply on pre-split
-    ids, with its bound from these ids."""
+    ids, with its bound from these ids.  ``model`` names the vocabulary,
+    ``prefix`` the entries' keys, ``launches`` K1's launches on the model's
+    serving paths."""
     import torch.nn.functional as tf
 
     from repro_torch.kernels import qr_gather, ref
@@ -4040,12 +4623,12 @@ def time_lm_k1(torch, lm_k1, counts):
         ids = lm_k1[name]
         got = qr_gather.qr_gather_grouped(ids, group)
         if not torch.equal(got, ref.qr_gather_grouped(ids, group)):
-            _fail(f"[time] K1 at the LM's {name} shape differs from its plain version")
+            _fail(f"[time] K1 at {model}'s {name} shape differs from its plain version")
         rem, quo = ids[:, 0] % m, ids[:, 0] // m
         nbytes, ops = _lm_gather_bound(ids, w_a, w_b)
         bound_ms, bound_by = _bound(nbytes, ops)
-        out[f"lm_{name}"] = {
-            "shape": f"TinyLlama's vocabulary, {str(w_a.dtype).removeprefix('torch.')} QR pair "
+        out[f"{prefix}_{name}"] = e = {
+            "shape": f"{model}'s vocabulary, {str(w_a.dtype).removeprefix('torch.')} QR pair "
                      f"{m} + {w_b.shape[0]} rows x "
                      f"{w_a.shape[1]}, {ids.shape[0]} raw int64 ids, one launch",
             "ms": _time_ms(torch, lambda ids=ids: qr_gather.qr_gather_grouped(ids, group), 200),
@@ -4054,10 +4637,8 @@ def time_lm_k1(torch, lm_k1, counts):
             "yardstick": "two F.embedding calls + the multiply on pre-split ids",
             "yardstick_ms": _time_ms(torch, lambda rem=rem, quo=quo: tf.embedding(rem, w_a)
                                      * tf.embedding(quo, w_b), 200),
-            "max_abs_err": 0.0,
-            "launches_on_lm_paths": counts["lm"]["qr_gather"] + counts["lm_trained"]["qr_gather"]}
-        e = out[f"lm_{name}"]
-        print(f"  K1 at the LM's {name} shape ({ids.shape[0]} ids): {e['ms']:.6f} ms, plain "
+            "max_abs_err": 0.0, "launches_on_lm_paths": launches}
+        print(f"  K1 at {model}'s {name} shape ({ids.shape[0]} ids): {e['ms']:.6f} ms, plain "
               f"{e['plain_ms']:.6f}, two F.embedding + multiply {e['yardstick_ms']:.6f}, bound "
               f"{bound_ms:.6f} ({bound_by}, {nbytes} B)")
     return out
@@ -4807,6 +5388,13 @@ def main() -> int:
     lm_counts, lm_k1, lm_err = lm_full_width(torch, card)
     counts.update(lm_counts)
     print(f"  ({time.perf_counter() - t0:.0f} s so far)")
+    print("[moe] full-width DeepSeek-V2 (MLA + 160-expert MoE), 4 of 60 layers, served through "
+          "ServeEngine with its QR vocabulary through K1: against the plain route and teacher "
+          "forcing (routes compared), an 8,192-token prompt, f32 card vs CPU at 1 layer, 10 "
+          "Adafactor steps at 2 layers; Arctic's wave at 1 layer")
+    moe_counts, moe_k1, moe_err = moe_full_width(torch, card)
+    counts.update(moe_counts)
+    print(f"  ({time.perf_counter() - t0:.0f} s so far)")
     print("[paper] paper_tables rows trained on the card, held against the CPU and the reference")
     counts["paper"] = paper_rows(torch, card)
     print(f"  ({time.perf_counter() - t0:.0f} s so far)")
@@ -4814,7 +5402,7 @@ def main() -> int:
     print(f"  card: {card}")
     errs = {"fused_serve_pool": max(k4_err, grouped_errs["k4"], plan_err),
             "dot_interaction": k2_err,
-            "qr_gather": max(k1_err, grouped_errs["k1"], lm_err),
+            "qr_gather": max(k1_err, grouped_errs["k1"], lm_err, moe_err),
             "qr_gather_quant": max(k5_err, grouped_errs["k5"]), "qr_embedding_bag": k3_err}
     grouped = time_grouped(torch, grouped_inputs, grouped_errs)
     k2_fields = time_interaction(torch, k2_inputs)
@@ -4823,8 +5411,11 @@ def main() -> int:
                       bag, counts, errs, grouped)
     kernels[-1]["ops_qr_bag_lookup_device_ops_per_call"] = bag_ops
     kernels[0]["plan_wave"] = time_plan_wave(torch, plan_wave)
-    next(k for k in kernels if k["name"] == "qr_gather")["lm_shapes"] = time_lm_k1(
-        torch, lm_k1, counts)
+    lm_shapes = time_lm_k1(torch, lm_k1, "TinyLlama", "lm",
+                           counts["lm"]["qr_gather"] + counts["lm_trained"]["qr_gather"])
+    lm_shapes.update(time_lm_k1(torch, moe_k1, "DeepSeek-V2", "deepseek",
+                                counts["moe"]["qr_gather"]))
+    next(k for k in kernels if k["name"] == "qr_gather")["lm_shapes"] = lm_shapes
     for k in kernels:
         if k["launches"] == 0:
             _fail(f"{k['name']} was launched on no path")

@@ -1,13 +1,14 @@
 """Architecture registry: ``--arch <id>`` resolves here."""
 
-from . import dcn_criteo, dlrm_criteo, tinyllama_1_1b
+from . import (arctic_480b, dcn_criteo, deepseek_v2_236b, dlrm_criteo, granite_8b, qwen3_14b,
+               tinyllama_1_1b, yi_34b)
 
-ARCHS = {m.ARCH: m for m in (tinyllama_1_1b, dlrm_criteo, dcn_criteo)}
+ARCHS = {m.ARCH: m for m in (tinyllama_1_1b, qwen3_14b, yi_34b, granite_8b, arctic_480b,
+                             deepseek_v2_236b, dlrm_criteo, dcn_criteo)}
 
-# the JAX package's other LM archs: their MoE, MLA, SSM, hybrid, encoder-
-# decoder and VLM blocks wait for ROADMAP item 18b
-LM_ARCHS_LATER = ("qwen3-14b", "yi-34b", "granite-8b", "llava-next-34b", "zamba2-1.2b",
-                  "mamba2-370m", "seamless-m4t-large-v2", "arctic-480b", "deepseek-v2-236b")
+# the JAX package's other LM archs: their SSM, hybrid, encoder-decoder and
+# VLM blocks wait for ROADMAP item 18b
+LM_ARCHS_LATER = ("mamba2-370m", "zamba2-1.2b", "seamless-m4t-large-v2", "llava-next-34b")
 
 
 def get_arch(name: str):

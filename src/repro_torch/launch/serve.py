@@ -1,11 +1,13 @@
 """Serving launcher: ``python -m repro_torch.launch.serve --arch dlrm-criteo``.
 
 Dispatches on the arch's model family, as the reference launcher does.
-``tinyllama-1.1b`` (the LM family) boots the wave-batched ``ServeEngine``
-on the reduced config (prefill + KV-cache decode, the vocabulary through
-K1 on the card): ``--requests`` prompts of 4 and 7 tokens, ``--batch-size``
-per wave, ``--max-len``, ``--max-new-tokens`` and ``--temperature``, and
-reports requests, tokens and seconds.  A rec-family arch boots the
+An LM arch (``tinyllama-1.1b``, ``qwen3-14b``, ``yi-34b``, ``granite-8b``,
+``arctic-480b``, ``deepseek-v2-236b``) boots the wave-batched
+``ServeEngine`` on the reduced config (prefill + KV-cache decode, MLA's
+latent cache for DeepSeek-V2, the vocabulary through K1 on the card):
+``--requests`` prompts of 4 and 7 tokens, ``--batch-size`` per wave,
+``--max-len``, ``--max-new-tokens`` and ``--temperature``, and reports
+requests, tokens and seconds.  A rec-family arch boots the
 continuous-batching ``RecsysEngine`` for a rec-family arch
 (``dlrm-criteo`` with the fused serving and interaction kernels on, or
 ``dcn-criteo``) over post-training-quantized tables (``--quantize

@@ -1,10 +1,14 @@
 """Training launcher: ``python -m repro_torch.launch.train --arch <id> [...]``.
 
 Trains a rec-family arch (``dlrm-criteo``, ``dcn-criteo``) on the
-synthetic Criteo stream, or ``tinyllama-1.1b`` on the synthetic LM stream
-(``data.lm``: Adam 3e-4, the plain path with the flash backward, the
-vocabulary through the plain ``embed.apply``; ``--seq-len`` sets its
-sequence length), as the JAX package's launcher does: the reduced
+synthetic Criteo stream, or an LM arch (``tinyllama-1.1b``,
+``qwen3-14b``, ``yi-34b``, ``granite-8b``, ``arctic-480b``,
+``deepseek-v2-236b``) on the synthetic LM stream (``data.lm``: the arch's
+optimizer, Adam 3e-4 below 30 B parameters and Adafactor 1e-3 above; the
+plain path with the flash backward, the vocabulary through the plain
+``embed.apply``, the MoE archs' load-balance loss added to the loss;
+``--seq-len`` sets its sequence length), as the JAX package's launcher
+does: the reduced
 config by default, ``--no-reduced`` for the full Kaggle tables, a memory
 plan through ``--plan`` / ``--plan-budget-mb`` (``launch/plan_cli.py``),
 checkpoints under ``--ckpt-dir`` (restart-safe), and ``--trace`` /
@@ -27,8 +31,8 @@ bytes of every leaf per step (``train_wire_bytes_total``).  Under
 Without ``torchrun`` it makes a process group of one on the chosen
 device, so the step and its collectives still run (at one rank every
 ring formula gives 0 bytes).  Rank 0 prints, writes the registry and the
-checkpoints; every rank resumes from them.  The LM family's other archs
-wait for their blocks (ROADMAP item 18b).
+checkpoints; every rank resumes from them.  The LM family's SSM, hybrid,
+encoder-decoder and VLM archs wait for their blocks (ROADMAP item 18b).
 """
 
 from __future__ import annotations
@@ -98,7 +102,8 @@ def main(argv=None):
                               make_dp_train_step, make_train_step)
 
     if args.arch not in ARCHS:
-        raise SystemExit(f"{args.arch} is not ported: the LM family's other archs wait for "
+        raise SystemExit(f"{args.arch} is not ported: the LM family's SSM, hybrid, "
+                         "encoder-decoder and VLM archs wait for "
                          f"ROADMAP item 18b (the port trains {', '.join(sorted(ARCHS))})")
     mod = get_arch(args.arch)
     plan = resolve_plan_args(mod, args)

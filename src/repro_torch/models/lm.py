@@ -1,14 +1,20 @@
-"""Decoder-only LM: the dense-GQA block of the JAX package's ``models/lm.py``.
+"""Decoder-only LM covering the dense-GQA, MoE and MLA archs: the JAX
+package's ``models/lm.py``.
 
 One config surface (``LMConfig``) with the reference's fields and
-defaults.  This module builds the dense blocks (tinyllama and the other
-dense archs); ``moe`` and ``mla`` configs raise ``NotImplementedError``
-until their blocks are ported (ROADMAP item 18b).  Layers are homogeneous
-and stacked: every layer leaf has a leading ``n_layers`` axis, the
-reference's layout, so ``repro_torch.convert.params_from_jax`` carries a
-JAX LM tree over unchanged.  ``forward_hidden`` loops over that axis,
-with one ``torch.utils.checkpoint`` per layer when ``cfg.remat`` is set
-(the reference's ``jax.checkpoint`` around its ``lax.scan`` body).
+defaults drives qwen3 / tinyllama / yi / granite (dense), arctic (MoE and
+a parallel dense residual FFN) and deepseek-v2 (MLA and a MoE with
+shared experts): the attention is ``nn.mla`` when ``cfg.mla`` is set,
+else GQA; the FFN is ``nn.moe`` (plus ``dense_mlp`` under
+``moe_parallel_dense`` and ``shared_mlp`` for ``n_shared_experts``) when
+``cfg.moe`` is set, else the dense MLP.  The MoE layers' load-balance
+losses sum over the layers into ``loss_fn``'s ``aux``; serving drops
+them.  Layers are homogeneous and stacked: every layer leaf has a
+leading ``n_layers`` axis, the reference's layout, so
+``repro_torch.convert.params_from_jax`` carries a JAX LM tree over
+unchanged.  ``forward_hidden`` loops over that axis, with one
+``torch.utils.checkpoint`` per layer when ``cfg.remat`` is set (the
+reference's ``jax.checkpoint`` around its ``lax.scan`` body).
 
 The paper's technique enters through ``cfg.embedding`` (an
 ``EmbeddingSpec``): the token-vocabulary table, the model's one large
@@ -39,6 +45,8 @@ from ..core.partitions import QuotientPartition, RemainderPartition
 from ..kernels import ops
 from ..nn.layers import (AttnConfig, attention, attention_init, dense, dense_init,
                          make_cache, mlp, mlp_init, rmsnorm, rmsnorm_init)
+from ..nn.mla import MLAConfig, mla_apply, mla_init, mla_make_cache
+from ..nn.moe import MoEConfig, moe_apply, moe_init
 
 __all__ = ["LMConfig", "init", "loss_fn", "forward_hidden", "make_decode_cache",
            "prefill", "decode_step", "chunked_xent", "embed_module", "embed_tokens",
@@ -63,10 +71,10 @@ class LMConfig:
     ffn_kind: str = "swiglu"
     qk_norm: bool = False
     rope_theta: float = 1e4
-    moe: Optional[Any] = None            # MoE block: ROADMAP item 18b
+    moe: Optional[MoEConfig] = None
     moe_parallel_dense: bool = False     # Arctic: dense FFN residual ∥ MoE
     n_shared_experts: int = 0            # DeepSeek: always-on experts (d_ff each)
-    mla: Optional[Any] = None            # MLA block: ROADMAP item 18b
+    mla: Optional[MLAConfig] = None
     embedding: EmbeddingSpec = EmbeddingSpec()
     param_dtype: Any = "bfloat16"
     compute_dtype: Any = "bfloat16"
@@ -91,34 +99,55 @@ def _dtype(name: str) -> torch.dtype:
     return getattr(torch, name)
 
 
-def _dense_only(cfg: LMConfig) -> None:
-    if cfg.moe is not None or cfg.mla is not None:
-        raise NotImplementedError(
-            f"{cfg.name}: the MoE and MLA blocks are not ported yet (ROADMAP item 18b); "
-            "the port builds dense GQA layers")
-
-
 # ------------------------------------------------------------------ init
 
 
 def _layer_init(generator, cfg: LMConfig, device):
-    return {"norm1": rmsnorm_init(cfg.d_model, cfg.pdtype, device),
-            "norm2": rmsnorm_init(cfg.d_model, cfg.pdtype, device),
-            "attn": attention_init(generator, cfg.attn_cfg(), cfg.pdtype, device),
-            "mlp": mlp_init(generator, cfg.d_model, cfg.d_ff, cfg.pdtype, cfg.ffn_kind,
-                            device)}
+    """One layer's tree, drawn in the reference's key order: the attention
+    (MLA or GQA), then the MoE, its parallel dense FFN and its shared
+    experts, or the dense MLP."""
+    p = {"norm1": rmsnorm_init(cfg.d_model, cfg.pdtype, device),
+         "norm2": rmsnorm_init(cfg.d_model, cfg.pdtype, device)}
+    if cfg.mla is not None:
+        p["attn"] = mla_init(generator, cfg.mla, cfg.pdtype, device)
+    else:
+        p["attn"] = attention_init(generator, cfg.attn_cfg(), cfg.pdtype, device)
+    if cfg.moe is None:
+        p["mlp"] = mlp_init(generator, cfg.d_model, cfg.d_ff, cfg.pdtype, cfg.ffn_kind, device)
+        return p
+    p["moe"] = moe_init(generator, cfg.moe, cfg.pdtype, device)
+    if cfg.moe_parallel_dense:
+        p["dense_mlp"] = mlp_init(generator, cfg.d_model, cfg.d_ff, cfg.pdtype, cfg.ffn_kind,
+                                  device)
+    if cfg.n_shared_experts:
+        p["shared_mlp"] = mlp_init(generator, cfg.d_model, cfg.n_shared_experts * cfg.moe.d_ff,
+                                   cfg.pdtype, "swiglu", device)
+    return p
+
+
+def _stacked_layers(generator, cfg: LMConfig, device):
+    """The layers drawn one by one, each copied into its slice of the
+    ``(n_layers, ...)`` leaves, which are allocated once: the peak is the
+    stack and one layer, not the stack twice."""
+    layer = _layer_init(generator, cfg, device)
+    like = tree.tree_map(lambda t: 0, layer)
+    stacked = [torch.empty((cfg.n_layers,) + tuple(t.shape), dtype=t.dtype, device=device)
+               for t in tree.leaves(layer)]
+    for i in range(cfg.n_layers):
+        if i:
+            layer = _layer_init(generator, cfg, device)
+        for dst, src in zip(stacked, tree.leaves(layer)):
+            dst[i].copy_(src)
+        layer = None
+    return tree.unflatten(like, stacked)
 
 
 def init(generator, cfg: LMConfig, device="cuda"):
     """The reference's tree, drawn from ``generator`` on ``device``: the
-    embedding, then the layers one by one (stacked into ``(n_layers, ...)``
+    embedding, then the layers one by one (into stacked ``(n_layers, ...)``
     leaves), then the LM head."""
-    _dense_only(cfg)
     embed = embed_module(cfg).init(generator, device)
-    per_layer = [_layer_init(generator, cfg, device) for _ in range(cfg.n_layers)]
-    stacked = [torch.stack(group) for group in zip(*(tree.leaves(p) for p in per_layer))]
-    layers = tree.unflatten(per_layer[0], stacked)
-    del per_layer
+    layers = _stacked_layers(generator, cfg, device)
     return {
         "embed": embed,
         "layers": layers,
@@ -147,31 +176,48 @@ def _layers(params, cfg: LMConfig) -> list:
 
 
 def _ffn(lp, h2, cfg: LMConfig):
-    """Post-attention block: the dense MLP."""
-    return mlp(lp["mlp"], h2, cfg.cdtype, cfg.ffn_kind)
+    """Post-attention block: the dense MLP, or the MoE (+ the parallel dense
+    FFN, + the shared experts); returns (out, the MoE's aux loss or None)."""
+    if cfg.moe is None:
+        return mlp(lp["mlp"], h2, cfg.cdtype, cfg.ffn_kind), None
+    out, aux = moe_apply(lp["moe"], h2, cfg.moe, cfg.cdtype)
+    if cfg.moe_parallel_dense:
+        out = out + mlp(lp["dense_mlp"], h2, cfg.cdtype, cfg.ffn_kind)
+    if cfg.n_shared_experts:
+        out = out + mlp(lp["shared_mlp"], h2, cfg.cdtype, "swiglu")
+    return out, aux
+
+
+def _attend(lp, h1, cfg: LMConfig, positions, **cache):
+    if cfg.mla is not None:
+        return mla_apply(lp["attn"], h1, cfg.mla, cfg.cdtype, positions=positions, **cache)
+    return attention(lp["attn"], h1, cfg.attn_cfg(), cfg.cdtype, positions=positions, **cache)
 
 
 def _layer_apply(lp, h, cfg: LMConfig, positions):
-    h = h + attention(lp["attn"], rmsnorm(lp["norm1"], h), cfg.attn_cfg(), cfg.cdtype,
-                      positions=positions)
-    return h + _ffn(lp, rmsnorm(lp["norm2"], h), cfg)
+    h = h + _attend(lp, rmsnorm(lp["norm1"], h), cfg, positions)
+    out, aux = _ffn(lp, rmsnorm(lp["norm2"], h), cfg)
+    return h + out, aux
 
 
 def forward_hidden(params, h, cfg: LMConfig, positions=None):
     """Run the layer stack on already-embedded inputs ``h`` (B, S, D);
-    returns the final-normed hidden states and the auxiliary loss (0: no
-    MoE)."""
-    _dense_only(cfg)
+    returns the final-normed hidden states and the auxiliary loss summed
+    over the layers (f32; 0 without MoE)."""
     if positions is None:
         positions = torch.arange(h.shape[1], device=h.device)[None, :]
     remat = cfg.remat and torch.is_grad_enabled()
+    auxs = []
     for lp in _layers(params, cfg):
         if remat:
-            h = checkpoint(_layer_apply, lp, h, cfg, positions, use_reentrant=False)
+            h, aux = checkpoint(_layer_apply, lp, h, cfg, positions, use_reentrant=False)
         else:
-            h = _layer_apply(lp, h, cfg, positions)
-    return rmsnorm(params["final_norm"], h), torch.zeros((), dtype=torch.float32,
-                                                         device=h.device)
+            h, aux = _layer_apply(lp, h, cfg, positions)
+        if aux is not None:
+            auxs.append(aux)
+    total = torch.stack(auxs).sum() if auxs else torch.zeros((), dtype=torch.float32,
+                                                            device=h.device)
+    return rmsnorm(params["final_norm"], h), total
 
 
 def embed_tokens(params, tokens, cfg: LMConfig):
@@ -243,24 +289,28 @@ def loss_fn(params, batch, cfg: LMConfig):
 
 
 def make_decode_cache(cfg: LMConfig, batch: int, max_len: int, device="cuda"):
-    """Per-layer KV caches stacked ``(n_layers, batch, max_len, Hkv, Dh)``
-    in the compute dtype."""
-    _dense_only(cfg)
-    one = make_cache(batch, max_len, cfg.n_kv_heads, cfg.d_head, cfg.cdtype, device)
+    """Per-layer caches stacked ``(n_layers, ...)`` in the compute dtype:
+    the KV cache ``(batch, max_len, Hkv, Dh)`` for GQA, the latent cache
+    ``ckv`` ``(batch, max_len, kv_lora)`` and ``krope`` ``(batch, max_len,
+    d_rope)`` for MLA."""
+    if cfg.mla is not None:
+        one = mla_make_cache(batch, max_len, cfg.mla, cfg.cdtype, "meta")
+    else:
+        one = make_cache(batch, max_len, cfg.n_kv_heads, cfg.d_head, cfg.cdtype, "meta")
     return {k: torch.zeros((cfg.n_layers,) + tuple(v.shape), dtype=v.dtype, device=device)
             for k, v in one.items()}
 
 
 def _run_with_cache(params, h, cache, cfg: LMConfig, positions, cache_index):
     """The layer stack over a cache: each layer writes its rows of
-    ``cache`` in place (per-layer views of the stacked tensors)."""
+    ``cache`` in place (per-layer views of the stacked tensors); the MoE's
+    aux loss is dropped."""
     for i, lp in enumerate(_layers(params, cfg)):
         cache_l = {k: v[i] for k, v in cache.items()}
-        attn_out, _ = attention(lp["attn"], rmsnorm(lp["norm1"], h), cfg.attn_cfg(),
-                                cfg.cdtype, positions=positions, cache=cache_l,
-                                cache_index=cache_index)
+        attn_out, _ = _attend(lp, rmsnorm(lp["norm1"], h), cfg, positions, cache=cache_l,
+                              cache_index=cache_index)
         h = h + attn_out
-        h = h + _ffn(lp, rmsnorm(lp["norm2"], h), cfg)
+        h = h + _ffn(lp, rmsnorm(lp["norm2"], h), cfg)[0]
     return rmsnorm(params["final_norm"], h), cache
 
 

@@ -89,7 +89,10 @@ def _sched(lr):
 
 
 def _step_p(p, u):
-    return (p.to(torch.float32) + u).to(p.dtype)
+    """``p + u`` in f32, cast to ``p``'s dtype.  ``u`` is an f32 temporary of
+    the caller's and takes the sum in place (the same bits as
+    ``p.to(float32) + u``: the sum is commutative)."""
+    return u.add_(p).to(p.dtype)
 
 
 def _zeros(shape, p):
@@ -184,7 +187,12 @@ def adam(lr=1e-3, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
 
 def adafactor(lr=1e-2, eps: float = 1e-30, clip_threshold: float = 1.0,
               decay: float = 0.8):
-    """Factored second moment: O(rows+cols) state for ≥2-D leaves."""
+    """Factored second moment: O(rows+cols) state for ≥2-D leaves.
+
+    The leaf-sized f32 work runs in place (the same operations in the same
+    order as the out-of-place formula, so the same values): at most two
+    leaf-sized f32 temporaries are alive at once, which is what lets a
+    stacked expert leaf of billions of elements take its step on one card."""
     sched = _sched(lr)
 
     def init_leaf(p):
@@ -196,22 +204,25 @@ def adafactor(lr=1e-2, eps: float = 1e-30, clip_threshold: float = 1.0,
     def update_leaf(g, s, p, step):
         t = step + 1
         beta = 1.0 - (t.to(torch.float32) if torch.is_tensor(t) else float(t)) ** (-decay)
-        g32 = g.to(torch.float32)
-        g2 = torch.square(g32) + eps
+        g32 = g.to(torch.float32, copy=True)
+        g2 = torch.square(g32).add_(eps)
         if g.dim() >= 2:
             vr = beta * s["vr"] + (1 - beta) * g2.mean(dim=-1)
             vc = beta * s["vc"] + (1 - beta) * g2.mean(dim=-2)
+            del g2
             ns = {"vr": vr, "vc": vc}
-            denom = (vr[..., None] * vc[..., None, :]
-                     / torch.clamp(vr.mean(dim=-1, keepdim=True), min=eps)[..., None])
-            u = g32 / torch.sqrt(torch.clamp(denom, min=eps))
+            denom = (vr[..., None] * vc[..., None, :]).div_(
+                torch.clamp(vr.mean(dim=-1, keepdim=True), min=eps)[..., None])
+            u = g32.div_(denom.clamp_(min=eps).sqrt_())
+            del denom
         else:
             v = beta * s["v"] + (1 - beta) * g2
+            del g2
             ns = {"v": v}
-            u = g32 / torch.sqrt(torch.clamp(v, min=eps))
+            u = g32.div_(torch.sqrt(torch.clamp(v, min=eps)))
         rms = torch.sqrt(torch.mean(torch.square(u)) + 1e-12)
-        u = u / torch.clamp(rms / clip_threshold, min=1.0)
-        return _step_p(p, -sched(step) * u), ns
+        u.div_(torch.clamp(rms / clip_threshold, min=1.0))
+        return _step_p(p, u.mul_(-sched(step))), ns
 
     return Optimizer(init_leaf, update_leaf)
 

@@ -1597,3 +1597,148 @@ def test_lm_serving_lookup_refuses_params_that_require_grad(cuda):
         lm.embed_serving(live, tokens, cfg)
     with torch.inference_mode():
         assert lm.embed_serving(live, tokens, cfg).shape == (2, 3, cfg.d_model)
+
+
+# ---------------------------------------------------------------- MoE and MLA (ROADMAP 18b)
+
+
+def _on(device, params):
+    """A copy of ``params`` on ``device``, each leaf a new leaf tensor."""
+    from repro_torch import tree
+    return tree.tree_map(lambda t: t.detach().to(device), params)
+
+
+def _rel_err(got, want):
+    return float((got.cpu().float() - want.float()).abs().max()) / max(
+        float(want.float().abs().max()), 1e-30)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("capacity_factor", [8.0, 0.5])
+def test_moe_on_the_card_equals_the_cpu(cuda, dtype, capacity_factor):
+    """``moe_apply`` on the card against the CPU: the same routes and the
+    same dropped routes, the output within 1e-4 (f32) / 3e-2 (bf16) of its
+    largest magnitude, the aux loss within 1e-5, and in f32 the gradients
+    through the dispatch within 1e-4 of each leaf's largest |g|."""
+    from repro_torch import tree
+    from repro_torch.nn import moe
+    cfg = moe.MoEConfig(n_experts=8, top_k=2, d_model=16, d_ff=32, groups=4,
+                        capacity_factor=capacity_factor)
+    params = moe.moe_init(torch.Generator().manual_seed(0), cfg, dtype, "cpu")
+    x = torch.from_numpy(np.random.default_rng(1).normal(size=(2, 12, 16)).astype(np.float32))
+    w = torch.from_numpy(np.random.default_rng(2).normal(size=(2, 12, 16)).astype(np.float32))
+    res = {}
+    for device in ("cpu", cuda):
+        p = tree.tree_map(lambda t: t.requires_grad_(dtype == torch.float32),
+                          _on(device, params))
+        xx = x.detach().to(device, dtype).requires_grad_(dtype == torch.float32)
+        cap = max(1, int(np.ceil(6 * 2 / 8 * capacity_factor)))
+        r = moe.route(p, xx.reshape(4, 6, 16), cfg, cap)
+        out, aux = moe.moe_apply(p, xx, cfg, dtype)
+        grads = None
+        if dtype == torch.float32:
+            ((out * w.to(device)).sum() + aux).backward()
+            grads = [t.grad.cpu() for t in tree.leaves(p)] + [xx.grad.cpu()]
+        res[str(device)] = (r.idx.cpu(), r.dest.cpu(), out.detach().cpu(), float(aux.detach()),
+                            grads)
+    cpu, card = res["cpu"], res[str(cuda)]
+    assert torch.equal(card[0], cpu[0]) and torch.equal(card[1], cpu[1])
+    assert _rel_err(card[2], cpu[2]) <= (1e-4 if dtype == torch.float32 else 3e-2)
+    assert abs(card[3] - cpu[3]) <= 1e-5 * abs(cpu[3])
+    if dtype == torch.float32:
+        for a, b in zip(card[4], cpu[4]):
+            assert _rel_err(a, b) <= 1e-4
+
+
+def test_moe_top_k_tie_on_the_card_takes_the_lower_index(cuda):
+    """Equal router columns tie exactly for every token: the card keeps the
+    lower expert indices, as ``lax.top_k`` and the CPU do."""
+    from repro_torch.nn import moe
+    cfg = moe.MoEConfig(n_experts=8, top_k=2, d_model=16, d_ff=32, groups=4)
+    params = _on(cuda, moe.moe_init(torch.Generator().manual_seed(0), cfg, torch.float32, "cpu"))
+    params["router"]["w"] = torch.zeros((16, 8), device=cuda)
+    params["router"]["w"][:, [1, 4, 6]] = 1.0
+    x = torch.from_numpy(np.abs(np.random.default_rng(3).normal(size=(4, 6, 16))).astype(
+        np.float32)).to(cuda)
+    r = moe.route(params, x, cfg, 3)
+    assert (r.idx.cpu() == torch.tensor([1, 4])).all()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_mla_on_the_card_equals_the_cpu(cuda, dtype):
+    """``mla_apply`` on the card against the CPU: the materialised
+    training / prefill path, the latent cache written in place, and four
+    absorbed decode steps, within 1e-4 (f32) / 3e-2 (bf16)."""
+    from repro_torch.nn import mla
+    cfg = mla.MLAConfig(d_model=32, n_heads=4, q_lora=16, kv_lora=8, d_nope=8, d_rope=4, d_v=8)
+    params = mla.mla_init(torch.Generator().manual_seed(0), cfg, dtype, "cpu")
+    x = torch.from_numpy(np.random.default_rng(4).normal(size=(2, 12, 32)).astype(
+        np.float32)).to(dtype)
+    tol = 1e-4 if dtype == torch.float32 else 3e-2
+    res = {}
+    for device in ("cpu", cuda):
+        p, xx = _on(device, params), x.to(device)
+        outs = [mla.mla_apply(p, xx, cfg, dtype)]
+        cache = mla.mla_make_cache(2, 16, cfg, dtype, device)
+        held = dict(cache)
+        with torch.inference_mode():
+            pre, cache = mla.mla_apply(p, xx[:, :8], cfg, dtype, cache=cache)
+            outs.append(pre)
+            for pos in range(8, 12):
+                dec, cache = mla.mla_apply(p, xx[:, pos:pos + 1], cfg, dtype,
+                                           positions=torch.full((2, 1), pos, device=device),
+                                           cache=cache, cache_index=pos)
+                outs.append(dec)
+        assert all(cache[k] is held[k] for k in held)
+        res[str(device)] = [o.cpu() for o in outs] + [cache["ckv"].cpu(), cache["krope"].cpu()]
+    for a, b in zip(res[str(cuda)], res["cpu"]):
+        assert _rel_err(a, b) <= tol
+
+
+@pytest.mark.parametrize("arch", ["deepseek-v2-236b", "arctic-480b"])
+def test_moe_lm_on_the_card_equals_the_cpu(cuda, arch):
+    """The reduced MoE LM on the card against the CPU (f32): the loss, the
+    aux loss and the gradients within 1e-4; prefill and a decode step with
+    one K1 launch each and no other kernel; the greedy engine token for
+    token."""
+    from repro_torch import tree
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import launch_counters
+    from repro_torch.models import lm
+    from repro_torch.serve.engine import ServeEngine
+    from repro_torch.train.loop import value_and_grad
+    mod = get_arch(arch)
+    cfg = mod.config(reduced=True)
+    params = lm.init(torch.Generator().manual_seed(0), cfg, "cpu")
+    batch = mod.api(cfg, "cpu").batch_fn(0, Shape("t", 24, 2, "train"))
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(0, cfg.vocab, (3, 21)))
+    res = {}
+    for device in ("cpu", cuda):
+        p = _on(device, params)
+        (loss, metrics), grads = value_and_grad(lambda q, b: lm.loss_fn(q, b, cfg))(
+            p, {k: v.to(device) for k, v in batch.items()})
+        for fn in launch_counters().values():
+            fn.launches = 0
+        with torch.inference_mode():
+            cache = lm.make_decode_cache(cfg, 3, 32, device)
+            logits, cache = lm.prefill(p, tokens.to(device), cache, cfg)
+            logits2, cache = lm.decode_step(p, tokens[:, :1].to(device), 21, cache, cfg)
+        counts = {name: fn.launches for name, fn in launch_counters().items()}
+        assert counts == {**{k: 0 for k in counts}, "qr_gather": 2 if device == cuda else 0}
+        engine = ServeEngine(prefill_fn=lambda t, c, q=p: lm.prefill(q, t, c, cfg),
+                             decode_fn=lambda t, pos, c, q=p: lm.decode_step(q, t, pos, c, cfg),
+                             make_cache_fn=lambda b, ml, d=device: lm.make_decode_cache(
+                                 cfg, b, ml, d),
+                             batch_size=4, max_len=24, device=device)
+        for i in range(6):
+            engine.submit(list(range(1, 5 if i % 2 else 8)), max_new_tokens=6)
+        done = engine.run_until_drained()
+        res[str(device)] = (float(loss), float(metrics["aux"]),
+                            [g.cpu() for g in tree.leaves(grads)], logits.cpu(), logits2.cpu(),
+                            {u: r.output for u, r in done.items()})
+    cpu, card = res["cpu"], res[str(cuda)]
+    assert abs(card[0] - cpu[0]) <= 1e-5 * abs(cpu[0]) and abs(card[1] - cpu[1]) <= 1e-5 * cpu[1]
+    for a, b in zip(card[2], cpu[2]):
+        assert _rel_err(a, b) <= 1e-4
+    assert _rel_err(card[3], cpu[3]) <= 1e-4 and _rel_err(card[4], cpu[4]) <= 1e-4
+    assert card[5] == cpu[5]

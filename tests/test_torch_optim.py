@@ -214,3 +214,48 @@ def test_update_is_functional_and_leaves_no_graph():
     assert not new_params["w"].requires_grad and not new_state[0]["acc"].requires_grad
     assert torch.equal(params["w"], torch.ones((3, 2)))
     assert torch.equal(state[0]["acc"], torch.zeros((3, 2)))
+
+
+def _adafactor_out_of_place(g, s, p, step, lr, eps=1e-30, clip_threshold=1.0, decay=0.8):
+    """The Adafactor step written out of place, one new tensor per operation."""
+    t = step + 1
+    beta = 1.0 - (t.to(torch.float32) if torch.is_tensor(t) else float(t)) ** (-decay)
+    g32 = g.to(torch.float32)
+    g2 = torch.square(g32) + eps
+    if g.dim() >= 2:
+        vr = beta * s["vr"] + (1 - beta) * g2.mean(dim=-1)
+        vc = beta * s["vc"] + (1 - beta) * g2.mean(dim=-2)
+        ns = {"vr": vr, "vc": vc}
+        denom = (vr[..., None] * vc[..., None, :]
+                 / torch.clamp(vr.mean(dim=-1, keepdim=True), min=eps)[..., None])
+        u = g32 / torch.sqrt(torch.clamp(denom, min=eps))
+    else:
+        v = beta * s["v"] + (1 - beta) * g2
+        ns = {"v": v}
+        u = g32 / torch.sqrt(torch.clamp(v, min=eps))
+    rms = torch.sqrt(torch.mean(torch.square(u)) + 1e-12)
+    u = u / torch.clamp(rms / clip_threshold, min=1.0)
+    return (p.to(torch.float32) + -lr * u).to(p.dtype), ns
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(7,), (6, 5), (2, 3, 4, 5)])
+def test_adafactor_in_place_step_is_bit_equal_to_the_out_of_place_formula(dtype, shape):
+    # the in-place update (two leaf-sized f32 temporaries at most) computes
+    # the same operations in the same order: the same bits, and the
+    # gradient it was given is left as it was
+    rng = np.random.default_rng(len(shape))
+    opt = topt.adafactor(0.05)
+    p = torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(dtype)
+    s = opt.init_leaf(p)
+    for step in range(3):
+        g = torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(dtype)
+        g_before = g.clone()
+        got_p, got_s = opt.update_leaf(g, s, p, torch.tensor(step, dtype=torch.int32))
+        want_p, want_s = _adafactor_out_of_place(g, s, p, torch.tensor(step, dtype=torch.int32),
+                                                 0.05)
+        assert torch.equal(g, g_before)
+        assert got_p.dtype == dtype and torch.equal(got_p, want_p)
+        assert sorted(got_s) == sorted(want_s)
+        assert all(torch.equal(got_s[k], want_s[k]) for k in got_s)
+        p, s = got_p, got_s
