@@ -3617,16 +3617,24 @@ def _lm_counting(torch, fn, calls, record=None):
     return call
 
 
-def _lm_engine(torch, cfg, params, calls, record, batch, max_len):
+def _lm_fns():
+    """The decoder-only LM's serving functions as ``_ssm_fns`` gives the SSM
+    family's: (make_cache, prefill, decode_step, final-normed forward)."""
     from repro_torch.models import lm
+
+    return (lm.make_decode_cache, lm.prefill, lm.decode_step,
+            lambda p, h, cfg: lm.forward_hidden(p, h, cfg)[0])
+
+
+def _lm_engine(torch, cfg, params, calls, record, batch, max_len, fns=None):
     from repro_torch.serve.engine import ServeEngine
 
+    make_cache, prefill, decode, _ = fns or _lm_fns()
     return ServeEngine(
-        prefill_fn=_lm_counting(torch, lambda t, c: lm.prefill(params, t, c, cfg), calls,
-                                record),
-        decode_fn=_lm_counting(torch, lambda t, pos, c: lm.decode_step(params, t, pos, c, cfg),
+        prefill_fn=_lm_counting(torch, lambda t, c: prefill(params, t, c, cfg), calls, record),
+        decode_fn=_lm_counting(torch, lambda t, pos, c: decode(params, t, pos, c, cfg),
                                calls, record),
-        make_cache_fn=lambda b, ml: lm.make_decode_cache(cfg, b, ml, "cuda"),
+        make_cache_fn=lambda b, ml: make_cache(cfg, b, ml, "cuda"),
         batch_size=batch, max_len=max_len, device="cuda")
 
 
@@ -3655,24 +3663,28 @@ def _lm_decode_tol(f32_gap_rel, n_layers, f32_layers=2):
     return f32_gap_rel * LM_ROUNDOFF_RATIO * math.sqrt(n_layers / f32_layers)
 
 
-def _lm_teacher(torch, lm, cfg, params, wave, tol_rel):
+def _lm_teacher(torch, lm, cfg, params, wave, tol_rel, forward=None):
     """The recorded wave (prompt, then each decode input, with the logits each
     call returned) against the plain teacher-forced forward on the card:
-    ``embed.apply`` → ``forward_hidden`` → the LM head.  Returns the K1 vs
-    plain embedding |diff|, the prefill logits |diff|, and the decode steps'
-    max |diff| beside ``tol_rel`` of the largest teacher-forced |logit|,
-    and the greedy agreement."""
+    ``embed.apply`` → ``forward`` (the final-normed hidden states,
+    ``forward_hidden`` by default) → the LM head.  Returns the K1 vs plain
+    embedding |diff|, the prefill logits |diff|, and the decode steps' max
+    |diff| beside ``tol_rel`` of the largest teacher-forced |logit|, and
+    the greedy agreement."""
     from repro_torch.nn.layers import dense
 
+    forward = forward or _lm_fns()[3]
     prompts, pre_logits = wave[0]
     with torch.inference_mode():
         emb_diff = _max_err(torch, lm.embed_serving(params, prompts, cfg),
                             lm.embed_tokens(params, prompts, cfg))
-        h, _ = lm.forward_hidden(params, lm.embed_tokens(params, prompts, cfg), cfg)
+        h = forward(params, lm.embed_tokens(params, prompts, cfg), cfg)
         plain = dense(params["lm_head"], h[:, -1:], cfg.cdtype).to(torch.float32)[:, -1]
         pre_diff = _max_err(torch, pre_logits, plain)
+        if len(wave) == 1:
+            return emb_diff, pre_diff, None
         seq = torch.cat([prompts] + [tok for tok, _ in wave[1:]], dim=1)
-        h, _ = lm.forward_hidden(params, lm.embed_tokens(params, seq, cfg), cfg)
+        h = forward(params, lm.embed_tokens(params, seq, cfg), cfg)
         plen = prompts.shape[1]
         tf_logits = dense(params["lm_head"], h[:, plen:], cfg.cdtype).to(torch.float32)
     dec = torch.stack([lg for _, lg in wave[1:]], dim=1)           # (B, steps, V)
@@ -4593,6 +4605,523 @@ def moe_full_width(torch, card):
     return counts, k1_inputs, emb_diff
 
 
+# [ssm]: the SSM family (ROADMAP 18b-ii) at full width on the card, its QR
+# vocabularies looked up through K1 when serving: mamba2-370m (a pure Mamba2
+# stack; 12,570 + 4 rows x 1,024, bf16, mult) and zamba2-1.2b (Mamba2 with a
+# shared attention block; 8,000 + 4 rows x 2,048); then one wave of the
+# full-width qwen3-14b, whose qk_norm attention no other phase runs (18b-i')
+SSM_MAMBA = (381_214_208, 762_437_632)        # jax.eval_shape of the reference's init
+SSM_ZAMBA = (1_121_330_048, 2_242_674_688)
+# the caches at B = 16: Mamba's the same at max_len 1,024 and 8,192 (the
+# f32 state, 805,306,368 B of it, is O(1) in the length), Zamba's at 1,024
+SSM_MAMBA_CACHE, SSM_MAMBA_STATE, SSM_ZAMBA_CACHE = 815_923_200, 805_306_368, 1_458_249_728
+# the prefill's final state against the state reached by decoding the prompt
+# token by token, 1 layer in f32: 2 prompts of 300 tokens (two chunks of
+# 256, the second padded), the reference's tolerances (rtol, atol)
+SSM_STATE_PROMPT = (2, 300)
+SSM_STATE_TOL = {"ssm": (2e-3, 1e-4), "conv": (1e-4, 1e-5)}
+# the long prompt's peak memory above the parameters against a prompt of
+# half its length: linear in the length allows a ratio of 2 (and a margin)
+SSM_LONG_RATIO = 2.2
+SSM_TRAIN_STEPS = {"mamba2-370m": 20, "zamba2-1.2b": 10}
+# the f32 check's depth: Mamba at 2 layers, Zamba at 1 block of 2 layers
+# and 1 tail layer (3 Mamba layers and one application of the shared block)
+SSM_F32_CUT = {"mamba2-370m": {"n_layers": 2},
+               "zamba2-1.2b": {"n_blocks": 1, "block_len": 2, "n_tail": 1}}
+QWEN_PARAMS = (14_184_893_440, 28_369_786_880)
+QWEN_WAVE = (16, 128, 16)          # prompts, prompt length, new tokens
+
+
+def _ssm_fns(kind):
+    """(make_cache, prefill, decode_step, final-normed forward) of the SSM
+    family's ``kind`` ("mamba" or "hybrid"), as ``_lm_fns`` gives the LM's."""
+    from repro_torch.models import hybrid
+
+    return tuple(getattr(hybrid, f"{kind}_{n}") for n in ("make_cache", "prefill",
+                                                           "decode_step", "forward"))
+
+
+def _ssm_depth(cfg) -> int:
+    """Mamba layers of a config."""
+    return getattr(cfg, "n_layers", None) or cfg.n_blocks * cfg.block_len + cfg.n_tail
+
+
+def _ssm_f32_vs_cpu(torch, mod, lm, fns):
+    """The arch at full width and ``SSM_F32_CUT``'s depth in f32, TF32 off:
+    one prefill of 2 x 128 and 4 decode steps, and one ``loss_fn``
+    value-and-grad, card against CPU; and the card's decode-vs-teacher-
+    forcing gap at f32.  [lm]'s bounds."""
+    from repro_torch import tree
+    from repro_torch.nn.layers import dense
+    from repro_torch.train.loop import value_and_grad
+
+    make_cache, prefill, decode, forward = fns
+    if torch.backends.cuda.matmul.allow_tf32:
+        _fail("[ssm] TF32 is on for f32 matrix products")
+    cfg = dataclasses.replace(mod.config(), param_dtype="float32", compute_dtype="float32",
+                              **SSM_F32_CUT[mod.ARCH])
+    host_api = mod.api(cfg, device="cpu")
+    host = host_api.init(torch.Generator().manual_seed(3))
+    card = tree.tree_map(lambda t: t.to("cuda"), host)
+    gen = torch.Generator().manual_seed(4)
+    prompts = torch.randint(0, cfg.vocab, (2, 128), generator=gen)
+    toks = [torch.randint(0, cfg.vocab, (2, 1), generator=gen) for _ in range(4)]
+    out = {}
+    with torch.inference_mode():
+        for name, params, dev in (("cpu", host, "cpu"), ("card", card, "cuda")):
+            cache = make_cache(cfg, 2, 160, dev)
+            logits, cache = prefill(params, prompts.to(dev), cache, cfg)
+            steps = [logits[:, -1]]
+            for i, tok in enumerate(toks):
+                logits, cache = decode(params, tok.to(dev), 128 + i, cache, cfg)
+                steps.append(logits[:, -1])
+            out[name] = torch.stack(steps, 1).cpu()
+        seq = torch.cat([prompts] + toks, 1).to("cuda")
+        h = forward(card, lm.embed_tokens(card, seq, cfg), cfg)
+        teacher = dense(card["lm_head"], h[:, 127:], cfg.cdtype).cpu()
+    scale = float(out["cpu"].abs().max())
+    logit_rel = float((out["card"] - out["cpu"]).abs().max()) / scale
+    dec_gap = float((out["card"][:, 1:] - teacher[:, 1:]).abs().max())
+    dec_rel = dec_gap / float(teacher.abs().max())
+    batch = host_api.batch_fn(0, _lm_shape(64, 2))
+    (loss, _), grads = value_and_grad(host_api.loss_fn)(host, batch)
+    (card_loss, _), card_grads = value_and_grad(mod.api(cfg).loss_fn)(
+        card, {k: v.to("cuda") for k, v in batch.items()})
+    worst, where = 0.0, ""
+    for (path, g), cg in zip(tree.flatten_with_path(grads), tree.leaves(card_grads)):
+        s = float(g.abs().max())
+        rel = float((cg.cpu() - g).abs().max()) / s if s else float(cg.abs().max())
+        if rel > worst:
+            worst, where = rel, "/".join(map(str, path))
+    loss_diff = abs(float(card_loss) - float(loss))
+    depth = _ssm_depth(cfg)
+    res = {"mamba_layers": depth, "logits_rel_diff": logit_rel, "loss": float(loss),
+           "card_loss": float(card_loss), "loss_diff": loss_diff, "worst_grad_rel": worst,
+           "worst_grad_leaf": where, "decode_vs_teacher_f32_abs": dec_gap,
+           "decode_vs_teacher_f32_rel": dec_rel}
+    print(f"  f32, {depth} Mamba layers at full width, card vs CPU: prefill + 4 decode steps' "
+          f"logits {logit_rel:.3e} of the largest |logit| (tol {LM_F32_LOGIT_TOL:.0e}); loss "
+          f"{float(card_loss):.7f} vs {float(loss):.7f} (|diff| {loss_diff:.3e}, tol "
+          f"{LM_F32_LOSS_TOL:.0e}); worst gradient leaf {where} {worst:.3e} of its largest |g| "
+          f"(tol {GRAD_TOL:.0e}); decode vs teacher forcing at f32: max |diff| {dec_gap:.3e} = "
+          f"{dec_rel:.3e} of the largest |logit|")
+    if not (logit_rel <= LM_F32_LOGIT_TOL and loss_diff <= LM_F32_LOSS_TOL * abs(float(loss))
+            and worst <= GRAD_TOL):
+        _fail(f"[ssm] the f32 {mod.ARCH} on the card disagrees with the CPU")
+    return res
+
+
+def _ssm_state_check(torch, mod):
+    """1 Mamba layer at full width in f32 on the card: the prefill's final
+    state and conv window against those reached by decoding the prompt
+    token by token from an empty cache."""
+    from repro_torch.models import hybrid
+
+    cfg = dataclasses.replace(mod.config(), n_layers=1, param_dtype="float32",
+                              compute_dtype="float32")
+    params = hybrid.mamba_init(torch.Generator(device="cuda").manual_seed(7), cfg, "cuda")
+    b, s = SSM_STATE_PROMPT
+    prompt = torch.randint(0, cfg.vocab, (b, s), device="cuda",
+                           generator=torch.Generator(device="cuda").manual_seed(8))
+    with torch.inference_mode():
+        pre = hybrid.mamba_make_cache(cfg, b, 0, "cuda")
+        hybrid.mamba_prefill(params, prompt, pre, cfg)
+        dec = hybrid.mamba_make_cache(cfg, b, 0, "cuda")
+        for t in range(s):
+            hybrid.mamba_decode_step(params, prompt[:, t:t + 1], t, dec, cfg)
+    out = {}
+    for k, (rtol, atol) in SSM_STATE_TOL.items():
+        diff = (pre[k] - dec[k]).abs()
+        excess = float((diff - rtol * dec[k].abs()).max())
+        out[k] = {"max_abs_diff": float(diff.max()), "max_abs": float(dec[k].abs().max()),
+                  "rtol": rtol, "atol": atol, "worst_excess_over_rtol": excess}
+    print(f"  prefill state vs {s} decode steps, 1 layer, f32, {b} prompts: ssm max |diff| "
+          f"{out['ssm']['max_abs_diff']:.3e} (largest |state| {out['ssm']['max_abs']:.3e}), "
+          f"conv {out['conv']['max_abs_diff']:.3e} (largest {out['conv']['max_abs']:.3e}); "
+          "tolerances rtol 2e-3 / atol 1e-4 and 1e-4 / 1e-5")
+    for k, (rtol, atol) in SSM_STATE_TOL.items():
+        if not torch.allclose(pre[k], dec[k], rtol=rtol, atol=atol):
+            _fail(f"[ssm] the prefill's {k} cache differs from the state decoded token by token")
+    return out
+
+
+def _ssm_serve(torch, lm, cfg, params, fns, label, queue, new_tokens, profile=True):
+    """``queue``'s prompts through ``ServeEngine`` (waves of ``LM_BATCH``):
+    one K1 per call and no other kernel, tokens in range; then a decode
+    step's wall and device time after a 128-token prefill and the lookup's
+    device operations.  Returns (profile, launch counts, the recorded first
+    wave, the decode tokens)."""
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    prompts = []
+    for plen, n in queue:
+        prompts += torch.randint(0, cfg.vocab, (n, plen), generator=gen,
+                                 device="cuda").tolist()
+    calls, record = [], []
+    engine = _lm_engine(torch, cfg, params, calls, record, LM_BATCH, LM_MAX_LEN, fns)
+    for p in prompts:
+        engine.submit(p, max_new_tokens=new_tokens)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts()
+    wave_ms = []
+    while engine._queue:
+        t = time.perf_counter()
+        engine.step()
+        wave_ms.append((time.perf_counter() - t) * 1e3)
+    counts = _read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    waves, serve_s, done = len(wave_ms), sum(wave_ms) / 1e3, engine.completed
+    launch = _lm_check_calls(calls, waves, "[ssm]")
+    tokens = sum(len(r.output) for r in done.values())
+    if len(done) != len(prompts) or any(
+            len(r.output) != new_tokens or not all(0 <= x < cfg.vocab for x in r.output)
+            for r in done.values()):
+        _fail(f"[ssm] {label}: not every request completed with its tokens in range")
+    if len(calls) != waves * new_tokens or counts["qr_gather"] != len(calls) \
+            or sum(counts.values()) != len(calls):
+        _fail(f"[ssm] {label}: launches {counts} for {len(calls)} serving calls in {waves} waves")
+    pre_ms = [ms for j, (ms, _) in enumerate(calls) if j % new_tokens == 0]
+    dec_ms = sorted(ms for j, (ms, _) in enumerate(calls) if j % new_tokens)
+    prof = {"requests": len(done), "waves": waves, "tokens": tokens, "serve_s": serve_s,
+            "tokens_per_s": tokens / serve_s, "prefill_ms_per_wave": pre_ms,
+            "decode_ms_per_step_median": dec_ms[len(dec_ms) // 2], "serve_peak_bytes": peak,
+            "serve_peak_above_start_bytes": peak - base, "launches": launch}
+    print(f"  {label}: served {len(done)} requests "
+          f"({', '.join(f'{n} of {p} tokens' for p, n in queue)}) in {waves} waves of "
+          f"{LM_BATCH}: {tokens} tokens in {serve_s:.2f} s = {tokens / serve_s:.1f} tokens/s | "
+          f"prefill ms per wave {[round(x, 2) for x in pre_ms]} | decode ms per step: median "
+          f"{prof['decode_ms_per_step_median']:.2f}, min {dec_ms[0]:.2f}, max {dec_ms[-1]:.2f} | "
+          f"peak memory {peak} B ({peak - base} B above the serving's start)")
+    print(f"  launches: one K1 per call on all {len(calls)} calls ({waves} prefills, "
+          f"{len(calls) - waves} decode steps), no other kernel: {counts}")
+    dec_tokens = torch.randint(0, cfg.vocab, (LM_BATCH, 1), generator=gen, device="cuda")
+    if profile:
+        make_cache, prefill, decode, _ = fns
+        with torch.inference_mode():
+            lookup_ops = _device_ops_per_call(torch, lambda: lm.embed_serving(
+                params, dec_tokens, cfg))
+            cache = make_cache(cfg, LM_BATCH, LM_MAX_LEN, "cuda")
+            prefill(params, torch.randint(0, cfg.vocab, (LM_BATCH, 128), generator=gen,
+                                          device="cuda"), cache, cfg)
+            dec = _ssm_decode_profile(torch, params, cfg, decode, cache, dec_tokens, 128)
+        if lookup_ops["ops"] != 1:
+            _fail(f"[ssm] {label}: the token lookup took {lookup_ops['ops']} device operations "
+                  "per call, expected the one K1 launch")
+        prof.update({f"decode_{k}": v for k, v in dec.items()})
+        prof["lookup_device_ops_per_call"] = lookup_ops["ops"]
+        prof["cache_bytes_b16"] = _tree_bytes(cache)
+        print(f"  a decode step of {LM_BATCH} after 128 tokens: wall {dec['wall_ms']:.2f} ms, "
+              f"device {dec['device_ms']:.3f} ms (busy {dec['busy_share']:.3f}), "
+              f"{dec['device_ops']:.0f} device operations; top {dec['top']}; the token lookup "
+              f"{lookup_ops['ops']:.0f} device operation per call {lookup_ops['by_name']}")
+        del cache
+    return prof, counts, record, dec_tokens
+
+
+def _ssm_decode_profile(torch, params, cfg, decode, cache, tokens, pos, k=3):
+    """Wall ms per decode step (``k`` steps after one), device ms, device
+    operations and busy share (``torch.profiler`` over ``k`` more)."""
+    at = [pos]
+
+    def steps(n=k):
+        for _ in range(n):
+            decode(params, tokens, at[0], cache, cfg)
+            at[0] += 1
+
+    steps(1)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    steps()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t) / k * 1e3
+    _, dev, ops = _profile_device(steps)
+    device = sum(dev.values()) / k / 1e3
+    return {"wall_ms": wall, "device_ms": device, "busy_share": device / wall,
+            "device_ops": sum(ops.values()) / k, "top": _top_ms(dev, k, k=6)}
+
+
+def _ssm_long(torch, fns, cfg, params, label):
+    """Prefill one prompt of ``LM_LONG_PROMPT`` tokens and one of half that:
+    finite logits, and the longer one's peak memory above the parameters at
+    most ``SSM_LONG_RATIO`` times the shorter one's; then a decode step of
+    one after the longer beside one after 128 tokens (device ms).  Returns
+    the profile and K1's prefill ids."""
+    make_cache, prefill, decode, _ = fns
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    out = {}
+    for n in (LM_LONG_PROMPT // 2, LM_LONG_PROMPT, 128):
+        ids = torch.randint(0, cfg.vocab, (1, n), generator=gen, device="cuda")
+        gc.collect()
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        with torch.inference_mode():
+            cache = make_cache(cfg, 1, n + 16, "cuda")
+            logits, cache = prefill(params, ids, cache, cfg)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t) * 1e3
+            peak = torch.cuda.max_memory_allocated() - held
+            finite = bool(torch.isfinite(logits).all())
+            out[n] = {"prefill_ms": ms, "peak_above_params_bytes": peak, "finite": finite,
+                      "cache_bytes": _tree_bytes(cache)}
+            if n != LM_LONG_PROMPT // 2:
+                dec = _ssm_decode_profile(torch, params, cfg, decode, cache, ids[:, -1:], n)
+                out[n].update({"decode_wall_ms": dec["wall_ms"],
+                               "decode_device_ms": dec["device_ms"],
+                               "decode_device_ops": dec["device_ops"]})
+        if n == LM_LONG_PROMPT:
+            k1_ids = ids.reshape(-1, 1)
+        del cache, logits
+    short, long_ = out[LM_LONG_PROMPT // 2], out[LM_LONG_PROMPT]
+    ratio = long_["peak_above_params_bytes"] / short["peak_above_params_bytes"]
+    print(f"  {label}: prompts of {LM_LONG_PROMPT // 2} and {LM_LONG_PROMPT} tokens: prefill "
+          f"{short['prefill_ms']:.1f} and {long_['prefill_ms']:.1f} ms, logits finite "
+          f"{short['finite'] and long_['finite']}; peak memory above the parameters "
+          f"{short['peak_above_params_bytes']} and {long_['peak_above_params_bytes']} B (ratio "
+          f"{ratio:.3f}, at most {SSM_LONG_RATIO}; the caches {short['cache_bytes']} and "
+          f"{long_['cache_bytes']} B) | a decode step of 1 after {LM_LONG_PROMPT} tokens: "
+          f"device {long_['decode_device_ms']:.3f} ms (wall {long_['decode_wall_ms']:.2f}), after "
+          f"128: device {out[128]['decode_device_ms']:.3f} ms (wall "
+          f"{out[128]['decode_wall_ms']:.2f})")
+    if not (short["finite"] and long_["finite"]):
+        _fail(f"[ssm] {label}: the long prompt's logits are not finite")
+    if ratio > SSM_LONG_RATIO:
+        _fail(f"[ssm] {label}: the long prompt's memory grows faster than its length")
+    return {"by_prompt_tokens": out, "peak_ratio": ratio}, k1_ids
+
+
+def _ssm_train(torch, mod, card):
+    """``SSM_TRAIN_STEPS`` steps of the arch's default Adam(3e-4) at full
+    width, B = 4, S = 256, through ``Trainer`` on the port's LM stream: the
+    loss finite and falling; wall and device time per step and memory."""
+    from repro_torch.train.loop import TrainConfig, Trainer, init_state, make_train_step
+
+    steps = SSM_TRAIN_STEPS[mod.ARCH]
+    api = mod.api(mod.config())
+    shape = _lm_shape(LM_TRAIN_SEQ, LM_TRAIN_BATCH)
+    gc.collect()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    state = init_state(api.init(torch.Generator(device="cuda").manual_seed(5)), api.optimizer)
+    step_fn = make_train_step(api.loss_fn, api.optimizer)
+    trainer = Trainer(step_fn, TrainConfig(num_steps=steps, log_every=1),
+                      batch_at=lambda s: api.batch_fn(s, shape))
+    state, history = trainer.run(state)
+    run_s = time.perf_counter() - t
+    peak = torch.cuda.max_memory_allocated()
+    losses = [x for _, x in history]
+    tail = sum(losses[-3:]) / 3
+    if len(losses) != steps or not all(math.isfinite(x) for x in losses):
+        _fail(f"[ssm] {mod.ARCH}: training losses are not all finite: {losses}")
+    if not tail < losses[0]:
+        _fail(f"[ssm] {mod.ARCH}: the loss did not fall: last 3 steps {tail:.5f} vs step 0 "
+              f"{losses[0]:.5f} ({losses})")
+    held = {"state": state}
+    del state
+    batches = [api.batch_fn(s, shape) for s in range(steps, steps + 2)]
+
+    def run(b):
+        held["state"], _ = step_fn(held["state"], b)
+
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    run(batches[0])
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t1) * 1e3
+    _, dev, ops = _profile_device(lambda: run(batches[1]))
+    device_ms = sum(dev.values()) / 1e3
+    opt_bytes = sum(x.numel() * x.element_size() for s in held["state"]["opt"] for x in s.values())
+    del held
+    prof = {"card": card, "steps": steps, "batch": LM_TRAIN_BATCH, "seq_len": LM_TRAIN_SEQ,
+            "losses": losses, "loss_step_0": losses[0], "loss_last_3": tail,
+            "run_s_with_init": run_s, "wall_ms_per_step": wall_ms,
+            "device_ms_per_step": device_ms, "device_busy_share": device_ms / wall_ms,
+            "device_ops_per_step": sum(ops.values()), "top_device_ms_per_step":
+            _top_ms(dev, 1, k=6), "peak_memory_bytes": peak,
+            "peak_above_phase_start_bytes": peak - base, "adam_state_bytes": opt_bytes}
+    print(f"  {steps} Adam(3e-4) steps at B={LM_TRAIN_BATCH} S={LM_TRAIN_SEQ} through Trainer in "
+          f"{run_s:.2f} s with init: loss {losses[0]:.5f} at step 0, {tail:.5f} over the last 3 | "
+          f"per step wall {wall_ms:.1f} ms, device {device_ms:.1f} ms (busy "
+          f"{prof['device_busy_share']:.3f}), {prof['device_ops_per_step']:.0f} device "
+          f"operations | peak {peak} B ({peak - base} B above the start; Adam's f32 state "
+          f"{opt_bytes} B)")
+    print(f"  top device ms per training step: {prof['top_device_ms_per_step']}")
+    return prof
+
+
+def _ssm_arch(torch, lm, mod, card, sizes, cache_bytes):
+    """One arch of [ssm] at full width: size, serving, the cache, decode vs
+    teacher forcing (after the f32 check that sets its tolerance), the long
+    prompt (Mamba), training.  Returns the profile, the serving launch
+    counts, K1's inputs at the arch's vocabulary (Mamba; else None) and
+    K1's error."""
+    kind = "mamba" if mod.FAMILY == "ssm" else "hybrid"
+    fns = _ssm_fns(kind)
+    t0 = time.perf_counter()
+    f32 = _ssm_f32_vs_cpu(torch, mod, lm, fns)
+    print(f"  ({time.perf_counter() - t0:.1f} s into {mod.ARCH})")
+    cfg = mod.config()
+    gc.collect()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    params = mod.api(cfg).init(torch.Generator(device="cuda").manual_seed(0))
+    n, nbytes = lm.num_params(params), _tree_bytes(params)
+    depth = _ssm_depth(cfg)
+    emb = params["embed"]
+    print(f"  {cfg.name}: vocab {cfg.vocab}, d {cfg.d_model}, {depth} Mamba layers (d_state "
+          f"{cfg.ssm.d_state}, {cfg.ssm.n_heads} heads of {cfg.ssm.headdim}, chunk "
+          f"{cfg.ssm.chunk})" + ("" if kind == "mamba" else
+                                 f" in {cfg.n_blocks} blocks of {cfg.block_len} + "
+                                 f"{cfg.n_tail}, the shared block {cfg.n_heads} heads of "
+                                 f"{cfg.d_head}, d_ff {cfg.d_ff}")
+          + f", QR c={cfg.embedding.num_collisions} {cfg.embedding.op} vocabulary "
+          f"{tuple(emb['table_0'].shape)} + {tuple(emb['table_1'].shape)}, {cfg.param_dtype}: "
+          f"{n:,} parameters, {nbytes:,} B ({torch.cuda.memory_allocated() - base} B on the "
+          "card)")
+    if (n, nbytes) != sizes:
+        _fail(f"[ssm] {cfg.name}: {n} parameters / {nbytes} B, expected {sizes}")
+    make_cache = fns[0]
+    got_cache = {ml: _tree_bytes(make_cache(cfg, LM_BATCH, ml, "meta"))
+                 for ml in (LM_MAX_LEN, LM_LONG_PROMPT)}
+    print(f"  the cache at B={LM_BATCH}: {got_cache[LM_MAX_LEN]} B at max_len {LM_MAX_LEN}, "
+          f"{got_cache[LM_LONG_PROMPT]} B at {LM_LONG_PROMPT}")
+    if got_cache[LM_MAX_LEN] != cache_bytes or (
+            kind == "mamba" and got_cache[LM_LONG_PROMPT] != cache_bytes):
+        _fail(f"[ssm] {cfg.name}: cache bytes {got_cache}, expected {cache_bytes}")
+    if kind == "mamba":
+        state = _tree_bytes({"ssm": make_cache(cfg, LM_BATCH, 0, "meta")["ssm"]})
+        if state != SSM_MAMBA_STATE:
+            _fail(f"[ssm] {cfg.name}: the state cache is {state} B, expected {SSM_MAMBA_STATE}")
+
+    serve, counts, record, dec_tokens = _ssm_serve(torch, lm, cfg, params, fns, cfg.name,
+                                                   LM_QUEUE, LM_NEW_TOKENS)
+    if serve["cache_bytes_b16"] != cache_bytes:
+        _fail(f"[ssm] {cfg.name}: the served cache is {serve['cache_bytes_b16']} B")
+    print(f"  ({time.perf_counter() - t0:.1f} s into {cfg.name})")
+    tol_rel = _lm_decode_tol(f32["decode_vs_teacher_f32_rel"], depth,
+                             f32_layers=f32["mamba_layers"])
+    emb_diff, pre_diff, dec = _lm_teacher(torch, lm, cfg, params, record, tol_rel,
+                                          forward=fns[3])
+    print(f"  wave 0: K1 vs embed.apply max |diff| {emb_diff}; prefill logits vs the plain "
+          f"teacher-forced forward max |diff| {pre_diff}; decode ({dec['steps']} steps) vs "
+          f"teacher forcing max |diff| {dec['max_abs_diff']:.4f} = {dec['rel_diff']:.4f} of the "
+          f"largest |logit| (tol {tol_rel:.4f} = the f32 gap x 2^16 x sqrt({depth} / "
+          f"{f32['mamba_layers']})); greedy agrees on {dec['argmax_agree']}/{dec['positions']}, "
+          f"on {dec['clear_positions']} positions the top-2 gap exceeds the tolerance and "
+          f"{dec['clear_disagree']} of them disagree (the largest teacher-forced top-2 gap where "
+          f"greedy differs {dec['largest_gap_where_greedy_differs']:.4f}, median gap "
+          f"{dec['median_top2_gap']:.4f})")
+    if emb_diff != 0 or pre_diff != 0:
+        _fail(f"[ssm] {cfg.name}: K1 or the prefill logits differ from the plain route")
+    if dec["rel_diff"] > tol_rel or dec["clear_disagree"]:
+        _fail(f"[ssm] {cfg.name}: decode disagrees with teacher forcing beyond the tolerance")
+    del record
+    print(f"  ({time.perf_counter() - t0:.1f} s into {cfg.name})")
+    long_, k1_inputs = None, None
+    if kind == "mamba":
+        long_, k1_ids = _ssm_long(torch, fns, cfg, params, cfg.name)
+        k1_inputs = {"prefill": k1_ids, "decode": dec_tokens,
+                     "tables": (emb["table_0"].clone(), emb["table_1"].clone())}
+    del params, emb
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"  ({time.perf_counter() - t0:.1f} s into {cfg.name})")
+    train = _ssm_train(torch, mod, card)
+    prof = {"card": card, "arch": cfg.name, "parameters": n, "parameter_bytes": nbytes,
+            "cache_bytes": got_cache, "serve": serve, "k1_vs_plain_max_abs_diff": emb_diff,
+            "prefill_vs_plain_max_abs_diff": pre_diff, "decode_vs_teacher": dec,
+            "f32_vs_cpu": f32, "long_prompt": long_, "train": train,
+            "arch_s": time.perf_counter() - t0}
+    return prof, counts, k1_inputs, emb_diff
+
+
+def _qwen3_wave(torch, lm, card):
+    """The full-width qwen3-14b (qk_norm; 37,984 + 4 rows x 5,120 bf16 QR
+    vocabulary) for one wave: ``QWEN_WAVE``'s prompts and new tokens, one K1
+    per call and no other kernel, K1 and the prefill logits bit-equal to
+    the plain route.  Returns the profile, the launch counts and K1's
+    inputs at Qwen3's vocabulary."""
+    from repro_torch.configs import qwen3_14b
+
+    cfg = qwen3_14b.config()
+    gc.collect()
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    params = lm.init(torch.Generator(device="cuda").manual_seed(0), cfg, "cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t
+    n, nbytes = lm.num_params(params), _tree_bytes(params)
+    emb = params["embed"]
+    print(f"  {cfg.name}: vocab {cfg.vocab}, d {cfg.d_model}, {cfg.n_layers} layers, "
+          f"{cfg.n_heads} heads / {cfg.n_kv_heads} KV heads of {cfg.d_head} with qk_norm "
+          f"{cfg.qk_norm}, d_ff {cfg.d_ff}, QR vocabulary {tuple(emb['table_0'].shape)} + "
+          f"{tuple(emb['table_1'].shape)}: {n:,} parameters, {nbytes:,} B, drawn in "
+          f"{init_s:.1f} s")
+    if (n, nbytes) != QWEN_PARAMS or not cfg.qk_norm:
+        _fail(f"[ssm] {cfg.name}: {n} parameters / {nbytes} B, expected {QWEN_PARAMS}")
+    prompts, plen, new = QWEN_WAVE
+    serve, counts, record, dec_tokens = _ssm_serve(torch, lm, cfg, params, _lm_fns(), cfg.name,
+                                                   ((plen, prompts),), new, profile=False)
+    emb_diff, pre_diff, _ = _lm_teacher(torch, lm, cfg, params, record[:1], 0.0)
+    print(f"  {cfg.name} wave: K1 vs embed.apply max |diff| {emb_diff}; prefill logits vs the "
+          f"plain forward (qk_norm in every layer) max |diff| {pre_diff}")
+    if emb_diff != 0 or pre_diff != 0:
+        _fail(f"[ssm] {cfg.name}: K1 or the prefill logits differ from the plain route")
+    gen = torch.Generator(device="cuda").manual_seed(10)
+    k1_inputs = {"prefill": torch.randint(0, cfg.vocab, (LM_LONG_PROMPT, 1), generator=gen,
+                                          device="cuda"),
+                 "decode": dec_tokens.reshape(-1, 1),
+                 "tables": (emb["table_0"].clone(), emb["table_1"].clone())}
+    del params, emb, record
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"card": card, "parameters": n, "parameter_bytes": nbytes, "init_s": init_s,
+            "serve": serve, "k1_vs_plain_max_abs_diff": emb_diff,
+            "prefill_vs_plain_max_abs_diff": pre_diff}, counts, k1_inputs, emb_diff
+
+
+def ssm_full_width(torch, card):
+    """The [ssm] phase (ROADMAP 18b-ii, and 18b-i'): mamba2-370m and
+    zamba2-1.2b at full width, each served through ``ServeEngine`` with
+    its QR vocabulary through K1, held against the plain route and teacher
+    forcing, its cache sized, the f32 model against the CPU and training
+    through ``Trainer``; Mamba's 8,192-token prompt and its prefill state
+    against token-by-token decoding; one wave of the full-width
+    qwen3-14b.  Returns the launch counts of the
+    paths, K1's inputs at Mamba's and Qwen3's vocabularies, and K1's
+    largest error."""
+    from repro_torch.configs import mamba2_370m, zamba2_1_2b
+    from repro_torch.models import lm
+
+    t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"  held on the card at the phase's start: {torch.cuda.memory_allocated()} B")
+    state = _ssm_state_check(torch, mamba2_370m)
+    print(f"  ({time.perf_counter() - t0:.0f} s into [ssm])")
+    counts, k1, errs = {}, {}, []
+    mamba, counts["ssm_mamba"], k1["mamba"], err = _ssm_arch(
+        torch, lm, mamba2_370m, card, SSM_MAMBA, SSM_MAMBA_CACHE)
+    errs.append(err)
+    print(f"  ({time.perf_counter() - t0:.0f} s into [ssm])")
+    zamba, counts["ssm_zamba"], _, err = _ssm_arch(torch, lm, zamba2_1_2b, card, SSM_ZAMBA,
+                                                   SSM_ZAMBA_CACHE)
+    errs.append(err)
+    print(f"  ({time.perf_counter() - t0:.0f} s into [ssm])")
+    qwen, counts["ssm_qwen3"], k1["qwen3"], err = _qwen3_wave(torch, lm, card)
+    errs.append(err)
+    print(f"  ({time.perf_counter() - t0:.0f} s into [ssm])")
+    prof = {"card": card, "state_check": state, "mamba2_370m": mamba, "zamba2_1_2b": zamba,
+            "qwen3_14b": qwen, "phase_s": time.perf_counter() - t0}
+    print(f"  card: {card}; [ssm] {prof['phase_s']:.1f} s")
+    print(json.dumps({"ssm_profile": prof}))
+    return counts, k1, max(errs)
+
+
 def _lm_gather_bound(ids, w_a, w_b):
     """K1 on the LM's vocabulary pair at these ids: the raw ids once, each
     distinct row of both tables once, the output once (table dtype); one
@@ -4822,13 +5351,55 @@ def drive_bag_path(torch, shapes):
     return counts, per_call
 
 
+# ATen operations that allocate or re-view storage and launch nothing
+_NO_DEVICE_WORK = frozenset({
+    "empty", "empty_strided", "view", "_unsafe_view", "reshape", "_reshape_alias",
+    "as_strided", "alias", "detach", "expand", "unsqueeze", "squeeze", "select", "slice",
+    "permute", "transpose", "t", "lift_fresh"})
+
+
+def _dispatched_device_ops(torch, fn, calls, device="cuda"):
+    """``calls`` calls of ``fn()`` without the profiler: the kernel launches
+    the counters count, and every ATen operation dispatched on a ``device``
+    tensor that does device work (by name, each a kernel or a copy)."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from torch.utils._pytree import tree_leaves
+
+    seen = {}
+
+    class _Log(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            name = func.overloadpacket.__name__
+            ins = [t for t in tree_leaves((args, kwargs)) if isinstance(t, torch.Tensor)]
+            # an out-of-place operation that hands back its input (``.to``
+            # of the dtype a tensor has) did nothing
+            unchanged = not name.endswith("_") and any(out is t for t in ins)
+            if name not in _NO_DEVICE_WORK and not unchanged and any(
+                    t.device.type == device for t in ins + [
+                        o for o in tree_leaves(out) if isinstance(o, torch.Tensor)]):
+                seen[name] = seen.get(name, 0) + 1
+            return out
+
+    before = sum(_read_counts().values())
+    with _Log():
+        for _ in range(calls):
+            fn()
+    launched = sum(_read_counts().values()) - before
+    return launched, seen
+
+
 def _device_ops_per_call(torch, fn, calls: int = 20, windows: int = 5):
     """Device operations per ``fn()`` call by ``torch.profiler``, over
     ``calls`` calls after one outside the window.  A window whose trace
     holds fewer device operations than the launch counters counted kernels
     in it lost events (the profiler drops some behind large windows, PERF.md
     §7): it is profiled again, up to ``windows`` times, and the count of the
-    last window is returned with the windows it took."""
+    last window is returned with the windows it took.  Where every window
+    lost events (late in a long run, the profiler can record no event of a
+    window holding only the port's own launches, in every retry), the count
+    comes from the launch counters and the ATen operations dispatched on the
+    card instead (``_dispatched_device_ops``)."""
     fn()
     torch.cuda.synchronize()
     for window in range(1, windows + 1):
@@ -4836,11 +5407,19 @@ def _device_ops_per_call(torch, fn, calls: int = 20, windows: int = 5):
         _, _, by_name = _profile_device(lambda: [fn() for _ in range(calls)])
         launched = sum(_read_counts().values()) - before
         if sum(by_name.values()) >= launched:
-            break
+            return {"ops": sum(by_name.values()) / calls,
+                    "by_name": {k: v / calls for k, v in by_name.items()}, "windows": window,
+                    "instrument": "torch.profiler"}
         print(f"  (profiled window {window}: {sum(by_name.values())} device operations for "
               f"{launched} kernel launches: events lost, profiling again)")
-    return {"ops": sum(by_name.values()) / calls,
-            "by_name": {k: v / calls for k, v in by_name.items()}, "windows": window}
+    launched, aten = _dispatched_device_ops(torch, fn, calls)
+    print(f"  (the profiler lost events in all {windows} windows: counted from the launch "
+          f"counters, {launched} kernel launches, and the ATen operations dispatched on the "
+          f"card with device work, {aten or 'none'})")
+    return {"ops": (launched + sum(aten.values())) / calls,
+            "by_name": {"kernel launches": launched / calls,
+                        **{k: v / calls for k, v in aten.items()}},
+            "windows": windows, "instrument": "launch counters + dispatched ATen operations"}
 
 
 def _k4_bound(rem, quo, mask):
@@ -5395,6 +5974,14 @@ def main() -> int:
     moe_counts, moe_k1, moe_err = moe_full_width(torch, card)
     counts.update(moe_counts)
     print(f"  ({time.perf_counter() - t0:.0f} s so far)")
+    print("[ssm] the SSM family at full width: mamba2-370m and zamba2-1.2b served through "
+          "ServeEngine with their QR vocabularies through K1, against the plain route and "
+          "teacher forcing, the caches, f32 card vs CPU, an 8,192-token prompt, training through "
+          "Trainer, the prefill state vs token-by-token decoding, the launchers; one wave of "
+          "qwen3-14b (qk_norm)")
+    ssm_counts, ssm_k1, ssm_err = ssm_full_width(torch, card)
+    counts.update(ssm_counts)
+    print(f"  ({time.perf_counter() - t0:.0f} s so far)")
     print("[paper] paper_tables rows trained on the card, held against the CPU and the reference")
     counts["paper"] = paper_rows(torch, card)
     print(f"  ({time.perf_counter() - t0:.0f} s so far)")
@@ -5402,7 +5989,7 @@ def main() -> int:
     print(f"  card: {card}")
     errs = {"fused_serve_pool": max(k4_err, grouped_errs["k4"], plan_err),
             "dot_interaction": k2_err,
-            "qr_gather": max(k1_err, grouped_errs["k1"], lm_err, moe_err),
+            "qr_gather": max(k1_err, grouped_errs["k1"], lm_err, moe_err, ssm_err),
             "qr_gather_quant": max(k5_err, grouped_errs["k5"]), "qr_embedding_bag": k3_err}
     grouped = time_grouped(torch, grouped_inputs, grouped_errs)
     k2_fields = time_interaction(torch, k2_inputs)
@@ -5415,6 +6002,10 @@ def main() -> int:
                            counts["lm"]["qr_gather"] + counts["lm_trained"]["qr_gather"])
     lm_shapes.update(time_lm_k1(torch, moe_k1, "DeepSeek-V2", "deepseek",
                                 counts["moe"]["qr_gather"]))
+    lm_shapes.update(time_lm_k1(torch, ssm_k1["mamba"], "Mamba2", "mamba",
+                                counts["ssm_mamba"]["qr_gather"]))
+    lm_shapes.update(time_lm_k1(torch, ssm_k1["qwen3"], "Qwen3", "qwen3",
+                                counts["ssm_qwen3"]["qr_gather"]))
     next(k for k in kernels if k["name"] == "qr_gather")["lm_shapes"] = lm_shapes
     for k in kernels:
         if k["launches"] == 0:

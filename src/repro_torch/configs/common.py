@@ -3,7 +3,8 @@ adapter a config's ``api(cfg)`` returns, the ``Shape`` its batch functions
 take, the training batch's structure as ``meta`` tensors (``sds``, the
 reference's ``jax.ShapeDtypeStruct``), ``embedding_spec``, and the LM
 family's pieces (``lm_train_batch``, ``default_optimizer``,
-``default_accum``, ``lm_api``).
+``default_accum``, ``lm_api``, and the SSM family's ``mamba_api`` and
+``hybrid_api``).
 """
 
 from __future__ import annotations
@@ -17,7 +18,7 @@ import torch
 from ..core import EmbeddingSpec, factory
 
 __all__ = ["Shape", "ModelApi", "embedding_spec", "resolve_plan", "sds", "lm_train_batch",
-           "default_optimizer", "default_accum", "lm_api"]
+           "default_optimizer", "default_accum", "lm_api", "mamba_api", "hybrid_api"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -120,3 +121,42 @@ def lm_api(cfg, n_params_billion: float, accum: int | None = None,
         sub_quadratic=False,
         batch_fn=lambda step, shape: lm_data.batch_at(
             0, step, shape.global_batch, shape.seq_len, cfg.vocab, device=device))
+
+
+def _ssm_family_api(cfg, n_params_billion, accum, device, init, loss_fn, prefill,
+                    make_cache, decode) -> ModelApi:
+    from ..data import lm as lm_data
+    return ModelApi(
+        name=cfg.name, cfg=cfg,
+        init=lambda generator: init(generator, cfg, device),
+        loss_fn=lambda p, b: loss_fn(p, b, cfg),
+        optimizer=default_optimizer(n_params_billion),
+        accum=default_accum(n_params_billion) if accum is None else accum,
+        train_batch=lambda shape: lm_train_batch(cfg, shape),
+        prefill_inputs=lambda shape: (sds((shape.global_batch, shape.seq_len), torch.int32),),
+        prefill=lambda params, tokens, cache: prefill(params, tokens, cache, cfg),
+        make_cache=lambda b, ml: make_cache(cfg, b, ml, device),
+        decode=lambda params, tokens, pos, cache: decode(params, tokens, pos, cache, cfg),
+        sub_quadratic=True,
+        batch_fn=lambda step, shape: lm_data.batch_at(
+            0, step, shape.global_batch, shape.seq_len, cfg.vocab, device=device))
+
+
+def mamba_api(cfg, n_params_billion: float, accum: int | None = None,
+              device="cuda") -> ModelApi:
+    """The reference's ``mamba_api`` (a pure Mamba2 stack), on ``device``
+    as ``lm_api``; sub-quadratic, so it may run long_500k."""
+    from ..models import hybrid as hy
+    return _ssm_family_api(cfg, n_params_billion, accum, device, hy.mamba_init,
+                           hy.mamba_loss_fn, hy.mamba_prefill, hy.mamba_make_cache,
+                           hy.mamba_decode_step)
+
+
+def hybrid_api(cfg, n_params_billion: float, accum: int | None = None,
+               device="cuda") -> ModelApi:
+    """The reference's ``hybrid_api`` (Mamba2 + a shared attention block),
+    on ``device`` as ``lm_api``; sub-quadratic."""
+    from ..models import hybrid as hy
+    return _ssm_family_api(cfg, n_params_billion, accum, device, hy.hybrid_init,
+                           hy.hybrid_loss_fn, hy.hybrid_prefill, hy.hybrid_make_cache,
+                           hy.hybrid_decode_step)

@@ -2,9 +2,11 @@
 
 Dispatches on the arch's model family, as the reference launcher does.
 An LM arch (``tinyllama-1.1b``, ``qwen3-14b``, ``yi-34b``, ``granite-8b``,
-``arctic-480b``, ``deepseek-v2-236b``) boots the wave-batched
-``ServeEngine`` on the reduced config (prefill + KV-cache decode, MLA's
-latent cache for DeepSeek-V2, the vocabulary through K1 on the card):
+``arctic-480b``, ``deepseek-v2-236b``, ``mamba2-370m``, ``zamba2-1.2b``)
+boots the wave-batched ``ServeEngine`` on the reduced config (prefill +
+KV-cache decode, MLA's latent cache for DeepSeek-V2, the SSM state and
+conv-window caches for the SSM family, the vocabulary through K1 on the
+card):
 ``--requests`` prompts of 4 and 7 tokens, ``--batch-size`` per wave,
 ``--max-len``, ``--max-new-tokens`` and ``--temperature``, and reports
 requests, tokens and seconds.  A rec-family arch boots the

@@ -3,7 +3,8 @@
 Trains a rec-family arch (``dlrm-criteo``, ``dcn-criteo``) on the
 synthetic Criteo stream, or an LM arch (``tinyllama-1.1b``,
 ``qwen3-14b``, ``yi-34b``, ``granite-8b``, ``arctic-480b``,
-``deepseek-v2-236b``) on the synthetic LM stream (``data.lm``: the arch's
+``deepseek-v2-236b``, and the SSM family's ``mamba2-370m`` and
+``zamba2-1.2b``) on the synthetic LM stream (``data.lm``: the arch's
 optimizer, Adam 3e-4 below 30 B parameters and Adafactor 1e-3 above; the
 plain path with the flash backward, the vocabulary through the plain
 ``embed.apply``, the MoE archs' load-balance loss added to the loss;
@@ -31,8 +32,9 @@ bytes of every leaf per step (``train_wire_bytes_total``).  Under
 Without ``torchrun`` it makes a process group of one on the chosen
 device, so the step and its collectives still run (at one rank every
 ring formula gives 0 bytes).  Rank 0 prints, writes the registry and the
-checkpoints; every rank resumes from them.  The LM family's SSM, hybrid,
-encoder-decoder and VLM archs wait for their blocks (ROADMAP item 18b).
+checkpoints; every rank resumes from them.  The LM family's
+encoder-decoder and VLM archs wait for their blocks (ROADMAP item
+18b-iii).
 """
 
 from __future__ import annotations
@@ -102,9 +104,9 @@ def main(argv=None):
                               make_dp_train_step, make_train_step)
 
     if args.arch not in ARCHS:
-        raise SystemExit(f"{args.arch} is not ported: the LM family's SSM, hybrid, "
-                         "encoder-decoder and VLM archs wait for "
-                         f"ROADMAP item 18b (the port trains {', '.join(sorted(ARCHS))})")
+        raise SystemExit(f"{args.arch} is not ported: the LM family's encoder-decoder and "
+                         "VLM archs wait for ROADMAP item 18b-iii (the port trains "
+                         f"{', '.join(sorted(ARCHS))})")
     mod = get_arch(args.arch)
     plan = resolve_plan_args(mod, args)
     if plan is not None:

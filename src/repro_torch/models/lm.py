@@ -33,6 +33,7 @@ memory is addressed by chunked cross-entropy, never materialising
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Any, Optional
 
 import torch
@@ -50,7 +51,7 @@ from ..nn.moe import MoEConfig, moe_apply, moe_init
 
 __all__ = ["LMConfig", "init", "loss_fn", "forward_hidden", "make_decode_cache",
            "prefill", "decode_step", "chunked_xent", "embed_module", "embed_tokens",
-           "embed_serving", "num_params"]
+           "embed_serving", "num_params", "stack_layers", "unstack"]
 
 # The LM's f32 products stay true f32 on the card: no TF32 in float32
 # matrix products (PyTorch's default, stated here so the LM does not
@@ -125,19 +126,21 @@ def _layer_init(generator, cfg: LMConfig, device):
     return p
 
 
-def _stacked_layers(generator, cfg: LMConfig, device):
-    """The layers drawn one by one, each copied into its slice of the
-    ``(n_layers, ...)`` leaves, which are allocated once: the peak is the
-    stack and one layer, not the stack twice."""
-    layer = _layer_init(generator, cfg, device)
+def stack_layers(init_one, lead: tuple, device):
+    """``init_one()``'s tree drawn ``prod(lead)`` times in order, each copied
+    into its slice of leaves with the leading dimensions ``lead``, which are
+    allocated once: the peak is the stack and one layer, not the stack
+    twice.  ``lead`` is ``(n_layers,)`` for a stack, ``(n_blocks,
+    block_len)`` for the hybrid's nested one."""
+    layer = init_one()
     like = tree.tree_map(lambda t: 0, layer)
-    stacked = [torch.empty((cfg.n_layers,) + tuple(t.shape), dtype=t.dtype, device=device)
+    stacked = [torch.empty(tuple(lead) + tuple(t.shape), dtype=t.dtype, device=device)
                for t in tree.leaves(layer)]
-    for i in range(cfg.n_layers):
+    for i in range(math.prod(lead)):
         if i:
-            layer = _layer_init(generator, cfg, device)
+            layer = init_one()
         for dst, src in zip(stacked, tree.leaves(layer)):
-            dst[i].copy_(src)
+            dst.view((-1,) + tuple(src.shape))[i].copy_(src)
         layer = None
     return tree.unflatten(like, stacked)
 
@@ -147,7 +150,7 @@ def init(generator, cfg: LMConfig, device="cuda"):
     embedding, then the layers one by one (into stacked ``(n_layers, ...)``
     leaves), then the LM head."""
     embed = embed_module(cfg).init(generator, device)
-    layers = _stacked_layers(generator, cfg, device)
+    layers = stack_layers(lambda: _layer_init(generator, cfg, device), (cfg.n_layers,), device)
     return {
         "embed": embed,
         "layers": layers,
@@ -167,12 +170,11 @@ def embed_module(cfg: LMConfig):
 # ------------------------------------------------------------------ forward
 
 
-def _layers(params, cfg: LMConfig) -> list:
-    """One tree per layer, each leaf a view of the stacked leaf (``unbind``:
-    one backward that stacks the layers' gradients)."""
-    stacked = params["layers"]
+def unstack(stacked) -> list:
+    """One tree per index of the leaves' leading axis, each leaf a view of
+    the stacked leaf (``unbind``: one backward that stacks the gradients)."""
     cols = [leaf.unbind(0) for leaf in tree.leaves(stacked)]
-    return [tree.unflatten(stacked, [c[i] for c in cols]) for i in range(cfg.n_layers)]
+    return [tree.unflatten(stacked, [c[i] for c in cols]) for i in range(len(cols[0]))]
 
 
 def _ffn(lp, h2, cfg: LMConfig):
@@ -208,7 +210,7 @@ def forward_hidden(params, h, cfg: LMConfig, positions=None):
         positions = torch.arange(h.shape[1], device=h.device)[None, :]
     remat = cfg.remat and torch.is_grad_enabled()
     auxs = []
-    for lp in _layers(params, cfg):
+    for lp in unstack(params["layers"]):
         if remat:
             h, aux = checkpoint(_layer_apply, lp, h, cfg, positions, use_reentrant=False)
         else:
@@ -305,7 +307,7 @@ def _run_with_cache(params, h, cache, cfg: LMConfig, positions, cache_index):
     """The layer stack over a cache: each layer writes its rows of
     ``cache`` in place (per-layer views of the stacked tensors); the MoE's
     aux loss is dropped."""
-    for i, lp in enumerate(_layers(params, cfg)):
+    for i, lp in enumerate(unstack(params["layers"])):
         cache_l = {k: v[i] for k, v in cache.items()}
         attn_out, _ = _attend(lp, rmsnorm(lp["norm1"], h), cfg, positions, cache=cache_l,
                               cache_index=cache_index)

@@ -337,7 +337,7 @@ def test_launcher_on_the_cpu(tmp_path):
                         "dcn-criteo", "--log-every", "1"])
     assert len(plain) == 2
     with pytest.raises(SystemExit, match="item 18"):
-        train.main(["--device", "cpu", "--arch", "mamba2-370m"])
+        train.main(["--device", "cpu", "--arch", "seamless-m4t-large-v2"])
 
 
 def test_launcher_under_torchrun_with_two_gloo_ranks(tmp_path):

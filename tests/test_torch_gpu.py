@@ -1742,3 +1742,113 @@ def test_moe_lm_on_the_card_equals_the_cpu(cuda, arch):
         assert _rel_err(a, b) <= 1e-4
     assert _rel_err(card[3], cpu[3]) <= 1e-4 and _rel_err(card[4], cpu[4]) <= 1e-4
     assert card[5] == cpu[5]
+
+
+# ---------------------------------------------------------------- the SSM family (ROADMAP 18b-ii)
+
+
+def test_ssm_block_on_the_card_equals_the_cpu(cuda):
+    """``ssm_apply`` at a length the chunk does not divide (its output, its
+    final state and conv window, and its gradients) and 12 ``ssm_decode``
+    steps (outputs and the in-place caches) on the card against the CPU,
+    f32, within 1e-4 of each tensor's largest magnitude."""
+    from repro_torch import tree
+    from repro_torch.nn import ssm
+    cfg = ssm.SSMConfig(d_model=32, d_state=8, headdim=8, chunk=16)
+    params = ssm.ssm_init(torch.Generator().manual_seed(0), cfg, torch.float32, "cpu")
+    rng = np.random.default_rng(5)
+    u, w = (torch.from_numpy((rng.normal(size=(2, 40, 32)) * 0.5).astype(np.float32))
+            for _ in range(2))
+    res = {}
+    for device in ("cpu", cuda):
+        p = tree.tree_map(lambda t: t.requires_grad_(True), _on(device, params))
+        out, st = ssm.ssm_apply(p, u.to(device), cfg, torch.float32, return_state=True)
+        (out * w.to(device)).sum().backward()
+        outs = [out.detach(), st["ssm"].detach(), st["conv"].detach()]
+        outs += [t.grad for t in tree.leaves(p)]
+        with torch.inference_mode():
+            cache = ssm.ssm_make_cache(2, cfg, torch.float32, device)
+            held = dict(cache)
+            for t in range(12):
+                dec, cache = ssm.ssm_decode(p, u[:, t:t + 1].to(device), cfg, torch.float32,
+                                            cache)
+                outs.append(dec)
+        assert all(cache[k] is held[k] for k in held)
+        res[str(device)] = [o.cpu() for o in outs] + [cache["ssm"].cpu(), cache["conv"].cpu()]
+    for a, b in zip(res[str(cuda)], res["cpu"]):
+        assert _rel_err(a, b) <= 1e-4
+
+
+def _lm_family_card_vs_cpu(cuda, arch, model):
+    """The reduced arch (f32) on the card against the CPU, through
+    ``model``'s (init, loss_fn, make_cache, prefill, decode_step): the
+    loss and the gradients within 1e-4; prefill and two decode steps with
+    one K1 launch each and no other kernel, the logits within 1e-4; K1
+    bit-equal to the plain lookup; the greedy engine token for token."""
+    from repro_torch import tree
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import launch_counters
+    from repro_torch.models import lm
+    from repro_torch.serve.engine import ServeEngine
+    from repro_torch.train.loop import value_and_grad
+    init, loss_fn, make_cache, prefill, decode = model
+    mod = get_arch(arch)
+    cfg = mod.config(reduced=True)
+    params = init(torch.Generator().manual_seed(0), cfg, "cpu")
+    batch = mod.api(cfg, "cpu").batch_fn(0, Shape("t", 24, 2, "train"))
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(0, cfg.vocab, (3, 21)))
+    res = {}
+    for device in ("cpu", cuda):
+        p = _on(device, params)
+        (loss, _), grads = value_and_grad(lambda q, b: loss_fn(q, b, cfg))(
+            p, {k: v.to(device) for k, v in batch.items()})
+        for fn in launch_counters().values():
+            fn.launches = 0
+        with torch.inference_mode():
+            cache = make_cache(cfg, 3, 32, device)
+            logits, cache = prefill(p, tokens.to(device), cache, cfg)
+            logits2, cache = decode(p, tokens[:, :1].to(device), 21, cache, cfg)
+            logits3, cache = decode(p, tokens[:, 1:2].to(device), 22, cache, cfg)
+        counts = {name: fn.launches for name, fn in launch_counters().items()}
+        assert counts == {**{k: 0 for k in counts}, "qr_gather": 3 if device == cuda else 0}
+        with torch.inference_mode():
+            assert torch.equal(lm.embed_serving(p, tokens.to(device), cfg),
+                               lm.embed_tokens(p, tokens.to(device), cfg))
+        engine = ServeEngine(prefill_fn=lambda t, c, q=p: prefill(q, t, c, cfg),
+                             decode_fn=lambda t, pos, c, q=p: decode(q, t, pos, c, cfg),
+                             make_cache_fn=lambda b, ml, d=device: make_cache(cfg, b, ml, d),
+                             batch_size=4, max_len=24, device=device)
+        for i in range(6):
+            engine.submit(list(range(1, 5 if i % 2 else 8)), max_new_tokens=6)
+        done = engine.run_until_drained()
+        res[str(device)] = (float(loss), [g.cpu() for g in tree.leaves(grads)],
+                            [x.cpu() for x in (logits, logits2, logits3)],
+                            [t.cpu() for t in tree.leaves(cache)],
+                            {u: r.output for u, r in done.items()})
+    cpu, card = res["cpu"], res[str(cuda)]
+    assert abs(card[0] - cpu[0]) <= 1e-5 * abs(cpu[0])
+    for a, b in zip(card[1] + card[2] + card[3], cpu[1] + cpu[2] + cpu[3]):
+        assert _rel_err(a, b) <= 1e-4
+    assert card[4] == cpu[4]
+
+
+@pytest.mark.parametrize("arch", ["mamba2-370m", "zamba2-1.2b"])
+def test_ssm_lm_on_the_card_equals_the_cpu(cuda, arch):
+    """The reduced Mamba2 and Zamba2 served and differentiated on the card
+    against the CPU, one K1 per serving call."""
+    from repro_torch.models import hybrid
+    kind = "mamba" if arch == "mamba2-370m" else "hybrid"
+    _lm_family_card_vs_cpu(cuda, arch, tuple(getattr(hybrid, f"{kind}_{n}") for n in (
+        "init", "loss_fn", "make_cache", "prefill", "decode_step")))
+
+
+def test_qk_norm_lm_on_the_card_equals_the_cpu(cuda):
+    """The reduced Qwen3 (``qk_norm``: the per-head q and k RMS norms in the
+    attention's training, prefill and decode paths) on the card against
+    the CPU, one K1 per serving call."""
+    from repro_torch.configs import qwen3_14b
+    from repro_torch.models import lm
+    assert qwen3_14b.config(reduced=True).qk_norm
+    _lm_family_card_vs_cpu(cuda, "qwen3-14b", (
+        lm.init, lambda p, b, cfg: lm.loss_fn(p, b, cfg), lm.make_decode_cache, lm.prefill,
+        lm.decode_step))
