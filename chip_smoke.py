@@ -90,8 +90,8 @@ Phases (any failure exits non-zero, and no result line is printed):
    bit-equal to an uninterrupted run;
 12. drive K3's own entry point ``ops.qr_bag_lookup`` at the shape of the
    reference's kernel bench and on the largest Kaggle table (one K3 launch
-   each), and count its device operations per call with ``torch.profiler``
-   (exactly one);
+   each), and count its device operations per call (the launch counters
+   and the ATen operations dispatched on the card: exactly one);
 13. ``[plan]``: solve the full-width DLRM-Criteo's memory plan with the
    port's planner (stats from 24 CPU-drawn batches of 512, a budget of
    0.125 x the full f32 tables, widths {4, 8, 16}) and hold every field to
@@ -4628,6 +4628,11 @@ SSM_TRAIN_STEPS = {"mamba2-370m": 20, "zamba2-1.2b": 10}
 # and 1 tail layer (3 Mamba layers and one application of the shared block)
 SSM_F32_CUT = {"mamba2-370m": {"n_layers": 2},
                "zamba2-1.2b": {"n_blocks": 1, "block_len": 2, "n_tail": 1}}
+# the f32 decode's gap to teacher forcing on the card, relative to the
+# largest |logit|: decode (the conv window, the O(1) state update) and the
+# chunked prefill compute one function, so at f32 they agree to roundoff;
+# this bound holds the decode on its own (the bf16 tolerance scales it)
+SSM_F32_DECODE_TOL = 1e-4
 QWEN_PARAMS = (14_184_893_440, 28_369_786_880)
 QWEN_WAVE = (16, 128, 16)          # prompts, prompt length, new tokens
 
@@ -4704,10 +4709,13 @@ def _ssm_f32_vs_cpu(torch, mod, lm, fns):
           f"{float(card_loss):.7f} vs {float(loss):.7f} (|diff| {loss_diff:.3e}, tol "
           f"{LM_F32_LOSS_TOL:.0e}); worst gradient leaf {where} {worst:.3e} of its largest |g| "
           f"(tol {GRAD_TOL:.0e}); decode vs teacher forcing at f32: max |diff| {dec_gap:.3e} = "
-          f"{dec_rel:.3e} of the largest |logit|")
+          f"{dec_rel:.3e} of the largest |logit| (tol {SSM_F32_DECODE_TOL:.0e})")
     if not (logit_rel <= LM_F32_LOGIT_TOL and loss_diff <= LM_F32_LOSS_TOL * abs(float(loss))
             and worst <= GRAD_TOL):
         _fail(f"[ssm] the f32 {mod.ARCH} on the card disagrees with the CPU")
+    if not dec_rel <= SSM_F32_DECODE_TOL:
+        _fail(f"[ssm] the f32 {mod.ARCH}'s decode on the card disagrees with teacher forcing: "
+              f"{dec_rel:.3e} of the largest |logit|, tol {SSM_F32_DECODE_TOL:.0e}")
     return res
 
 
@@ -4895,8 +4903,12 @@ def _ssm_long(torch, fns, cfg, params, label):
 def _ssm_train(torch, mod, card):
     """``SSM_TRAIN_STEPS`` steps of the arch's default Adam(3e-4) at full
     width, B = 4, S = 256, through ``Trainer`` on the port's LM stream: the
-    loss finite and falling; wall and device time per step and memory."""
-    from repro_torch.train.loop import TrainConfig, Trainer, init_state, make_train_step
+    loss finite and falling; wall and device time per step; and the peak
+    memory taken apart: the train state (parameters and Adam's f32 state),
+    one step's peak above it, and one value-and-grad's peak above it with
+    the model's checkpoints and without them."""
+    from repro_torch.train.loop import (TrainConfig, Trainer, init_state, make_train_step,
+                                        value_and_grad)
 
     steps = SSM_TRAIN_STEPS[mod.ARCH]
     api = mod.api(mod.config())
@@ -4906,11 +4918,12 @@ def _ssm_train(torch, mod, card):
     base = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
     t = time.perf_counter()
-    state = init_state(api.init(torch.Generator(device="cuda").manual_seed(5)), api.optimizer)
     step_fn = make_train_step(api.loss_fn, api.optimizer)
     trainer = Trainer(step_fn, TrainConfig(num_steps=steps, log_every=1),
                       batch_at=lambda s: api.batch_fn(s, shape))
-    state, history = trainer.run(state)
+    # the first state is the Trainer's alone, so that its first step frees it
+    state, history = trainer.run(init_state(
+        api.init(torch.Generator(device="cuda").manual_seed(5)), api.optimizer))
     run_s = time.perf_counter() - t
     peak = torch.cuda.max_memory_allocated()
     losses = [x for _, x in history]
@@ -4922,19 +4935,34 @@ def _ssm_train(torch, mod, card):
               f"{losses[0]:.5f} ({losses})")
     held = {"state": state}
     del state
+    state_bytes = _tree_bytes(held["state"])
+    param_bytes = _tree_bytes(held["state"]["params"])
+    opt_bytes = _tree_bytes(held["state"]["opt"])
     batches = [api.batch_fn(s, shape) for s in range(steps, steps + 2)]
 
     def run(b):
         held["state"], _ = step_fn(held["state"], b)
 
-    torch.cuda.synchronize()
-    t1 = time.perf_counter()
-    run(batches[0])
-    torch.cuda.synchronize()
-    wall_ms = (time.perf_counter() - t1) * 1e3
+    def peak_above_now(fn):
+        gc.collect()
+        torch.cuda.synchronize()
+        now = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t1 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t1) * 1e3
+        del out
+        return torch.cuda.max_memory_allocated() - now, wall
+
+    step_peak, wall_ms = peak_above_now(lambda: run(batches[0]))
     _, dev, ops = _profile_device(lambda: run(batches[1]))
     device_ms = sum(dev.values()) / 1e3
-    opt_bytes = sum(x.numel() * x.element_size() for s in held["state"]["opt"] for x in s.values())
+    grad_peak = {}
+    for remat in (True, False):
+        loss_fn = mod.api(dataclasses.replace(api.cfg, remat=remat)).loss_fn
+        grad_peak[remat], _ = peak_above_now(
+            lambda f=loss_fn: value_and_grad(f)(held["state"]["params"], batches[0]))
     del held
     prof = {"card": card, "steps": steps, "batch": LM_TRAIN_BATCH, "seq_len": LM_TRAIN_SEQ,
             "losses": losses, "loss_step_0": losses[0], "loss_last_3": tail,
@@ -4942,13 +4970,21 @@ def _ssm_train(torch, mod, card):
             "device_ms_per_step": device_ms, "device_busy_share": device_ms / wall_ms,
             "device_ops_per_step": sum(ops.values()), "top_device_ms_per_step":
             _top_ms(dev, 1, k=6), "peak_memory_bytes": peak,
-            "peak_above_phase_start_bytes": peak - base, "adam_state_bytes": opt_bytes}
+            "peak_above_phase_start_bytes": peak - base, "train_state_bytes": state_bytes,
+            "param_bytes": param_bytes, "adam_state_bytes": opt_bytes,
+            "step_peak_above_state_bytes": step_peak,
+            "grad_peak_above_state_bytes": {"checkpointed": grad_peak[True],
+                                            "no_checkpoints": grad_peak[False]}}
     print(f"  {steps} Adam(3e-4) steps at B={LM_TRAIN_BATCH} S={LM_TRAIN_SEQ} through Trainer in "
           f"{run_s:.2f} s with init: loss {losses[0]:.5f} at step 0, {tail:.5f} over the last 3 | "
           f"per step wall {wall_ms:.1f} ms, device {device_ms:.1f} ms (busy "
           f"{prof['device_busy_share']:.3f}), {prof['device_ops_per_step']:.0f} device "
-          f"operations | peak {peak} B ({peak - base} B above the start; Adam's f32 state "
-          f"{opt_bytes} B)")
+          f"operations | peak {peak} B, {peak - base} B above the start")
+    print(f"  memory: the train state {state_bytes} B (parameters {param_bytes}, Adam's f32 "
+          f"state {opt_bytes}); a step's peak above it {step_peak} B (the new state, the "
+          f"gradients and the update's f32 temporaries); a value-and-grad's peak above it "
+          f"{grad_peak[True]} B with a checkpoint per "
+          f"{'layer' if mod.FAMILY == 'ssm' else 'block'}, {grad_peak[False]} B without")
     print(f"  top device ms per training step: {prof['top_device_ms_per_step']}")
     return prof
 
@@ -5328,7 +5364,7 @@ def drive_bag_path(torch, shapes):
     kernel bench calls it (B=32, L=8, m=2048, q=16, D=128, every slot on)
     and on the largest Kaggle table (B=256, L=4, D=16, fractional weights),
     one K3 launch each; then its device operations per call at both
-    shapes (``torch.profiler``: exactly one, the kernel).  Returns the
+    shapes (``_device_ops_per_call``: exactly one, the kernel).  Returns the
     launch counts and the device operations per call by shape."""
     from repro_torch.kernels import ops
 
@@ -5353,18 +5389,24 @@ def drive_bag_path(torch, shapes):
 
 # ATen operations that allocate or re-view storage and launch nothing
 _NO_DEVICE_WORK = frozenset({
-    "empty", "empty_strided", "view", "_unsafe_view", "reshape", "_reshape_alias",
-    "as_strided", "alias", "detach", "expand", "unsqueeze", "squeeze", "select", "slice",
+    "empty", "empty_like", "empty_strided", "new_empty", "new_empty_strided", "view",
+    "_unsafe_view", "reshape", "_reshape_alias", "as_strided", "alias", "detach", "expand",
+    "unsqueeze", "squeeze", "select", "slice", "split", "split_with_sizes", "unbind",
     "permute", "transpose", "t", "lift_fresh"})
 
 
-def _dispatched_device_ops(torch, fn, calls, device="cuda"):
-    """``calls`` calls of ``fn()`` without the profiler: the kernel launches
-    the counters count, and every ATen operation dispatched on a ``device``
-    tensor that does device work (by name, each a kernel or a copy)."""
+def _device_ops_per_call(torch, fn, calls: int = 20):
+    """Device operations per ``fn()`` call over ``calls`` calls after one
+    outside the count: the kernel launches the port's counters count (each
+    wrapper counts where it launches its kernel) and every ATen operation
+    dispatched on a card tensor that does device work (each a kernel or a
+    copy), seen by a ``TorchDispatchMode``.  Returns the mean per call and
+    its split by kernel and operation name."""
     from torch.utils._python_dispatch import TorchDispatchMode
     from torch.utils._pytree import tree_leaves
 
+    fn()
+    torch.cuda.synchronize()
     seen = {}
 
     class _Log(TorchDispatchMode):
@@ -5376,50 +5418,22 @@ def _dispatched_device_ops(torch, fn, calls, device="cuda"):
             # of the dtype a tensor has) did nothing
             unchanged = not name.endswith("_") and any(out is t for t in ins)
             if name not in _NO_DEVICE_WORK and not unchanged and any(
-                    t.device.type == device for t in ins + [
+                    t.device.type == "cuda" for t in ins + [
                         o for o in tree_leaves(out) if isinstance(o, torch.Tensor)]):
                 seen[name] = seen.get(name, 0) + 1
             return out
 
-    before = sum(_read_counts().values())
+    before = _read_counts()
     with _Log():
         for _ in range(calls):
             fn()
-    launched = sum(_read_counts().values()) - before
-    return launched, seen
-
-
-def _device_ops_per_call(torch, fn, calls: int = 20, windows: int = 5):
-    """Device operations per ``fn()`` call by ``torch.profiler``, over
-    ``calls`` calls after one outside the window.  A window whose trace
-    holds fewer device operations than the launch counters counted kernels
-    in it lost events (the profiler drops some behind large windows, PERF.md
-    §7): it is profiled again, up to ``windows`` times, and the count of the
-    last window is returned with the windows it took.  Where every window
-    lost events (late in a long run, the profiler can record no event of a
-    window holding only the port's own launches, in every retry), the count
-    comes from the launch counters and the ATen operations dispatched on the
-    card instead (``_dispatched_device_ops``)."""
-    fn()
     torch.cuda.synchronize()
-    for window in range(1, windows + 1):
-        before = sum(_read_counts().values())
-        _, _, by_name = _profile_device(lambda: [fn() for _ in range(calls)])
-        launched = sum(_read_counts().values()) - before
-        if sum(by_name.values()) >= launched:
-            return {"ops": sum(by_name.values()) / calls,
-                    "by_name": {k: v / calls for k, v in by_name.items()}, "windows": window,
-                    "instrument": "torch.profiler"}
-        print(f"  (profiled window {window}: {sum(by_name.values())} device operations for "
-              f"{launched} kernel launches: events lost, profiling again)")
-    launched, aten = _dispatched_device_ops(torch, fn, calls)
-    print(f"  (the profiler lost events in all {windows} windows: counted from the launch "
-          f"counters, {launched} kernel launches, and the ATen operations dispatched on the "
-          f"card with device work, {aten or 'none'})")
-    return {"ops": (launched + sum(aten.values())) / calls,
-            "by_name": {"kernel launches": launched / calls,
-                        **{k: v / calls for k, v in aten.items()}},
-            "windows": windows, "instrument": "launch counters + dispatched ATen operations"}
+    after = _read_counts()
+    by_name = {k: after[k] - before.get(k, 0) for k in after if after[k] != before.get(k, 0)}
+    for k, v in seen.items():
+        by_name[f"aten.{k}"] = v
+    return {"ops": sum(by_name.values()) / calls,
+            "by_name": {k: v / calls for k, v in by_name.items()}}
 
 
 def _k4_bound(rem, quo, mask):

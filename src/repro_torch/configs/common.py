@@ -98,33 +98,11 @@ def default_accum(n_params_billion: float) -> int:
     return 1
 
 
-def lm_api(cfg, n_params_billion: float, accum: int | None = None,
-           device="cuda") -> ModelApi:
-    """The reference's ``lm_api``: parameters drawn from a
-    ``torch.Generator`` on ``device``, caches and batches there (the
-    port's LM stream, ``data.lm.batch_at(0, step)``)."""
-    from ..data import lm as lm_data
-    from ..models import lm as lm_mod
-    return ModelApi(
-        name=cfg.name, cfg=cfg,
-        init=lambda generator: lm_mod.init(generator, cfg, device),
-        loss_fn=lambda p, b: lm_mod.loss_fn(p, b, cfg),
-        optimizer=default_optimizer(n_params_billion),
-        accum=default_accum(n_params_billion) if accum is None else accum,
-        accum_dtype="bfloat16" if n_params_billion >= 100 else "float32",
-        train_batch=lambda shape: lm_train_batch(cfg, shape),
-        prefill_inputs=lambda shape: (sds((shape.global_batch, shape.seq_len), torch.int32),),
-        prefill=lambda params, tokens, cache: lm_mod.prefill(params, tokens, cache, cfg),
-        make_cache=lambda b, ml: lm_mod.make_decode_cache(cfg, b, ml, device),
-        decode=lambda params, tokens, pos, cache: lm_mod.decode_step(
-            params, tokens, pos, cache, cfg),
-        sub_quadratic=False,
-        batch_fn=lambda step, shape: lm_data.batch_at(
-            0, step, shape.global_batch, shape.seq_len, cfg.vocab, device=device))
-
-
-def _ssm_family_api(cfg, n_params_billion, accum, device, init, loss_fn, prefill,
-                    make_cache, decode) -> ModelApi:
+def _lm_family_api(cfg, n_params_billion, accum, device, *, init, loss_fn, prefill,
+                   make_cache, decode, sub_quadratic) -> ModelApi:
+    """A decoder LM family's ``ModelApi`` from its model module's functions:
+    parameters drawn from a ``torch.Generator`` on ``device``, caches and
+    batches there (the port's LM stream, ``data.lm.batch_at(0, step)``)."""
     from ..data import lm as lm_data
     return ModelApi(
         name=cfg.name, cfg=cfg,
@@ -132,14 +110,25 @@ def _ssm_family_api(cfg, n_params_billion, accum, device, init, loss_fn, prefill
         loss_fn=lambda p, b: loss_fn(p, b, cfg),
         optimizer=default_optimizer(n_params_billion),
         accum=default_accum(n_params_billion) if accum is None else accum,
+        accum_dtype="bfloat16" if n_params_billion >= 100 else "float32",
         train_batch=lambda shape: lm_train_batch(cfg, shape),
         prefill_inputs=lambda shape: (sds((shape.global_batch, shape.seq_len), torch.int32),),
         prefill=lambda params, tokens, cache: prefill(params, tokens, cache, cfg),
         make_cache=lambda b, ml: make_cache(cfg, b, ml, device),
         decode=lambda params, tokens, pos, cache: decode(params, tokens, pos, cache, cfg),
-        sub_quadratic=True,
+        sub_quadratic=sub_quadratic,
         batch_fn=lambda step, shape: lm_data.batch_at(
             0, step, shape.global_batch, shape.seq_len, cfg.vocab, device=device))
+
+
+def lm_api(cfg, n_params_billion: float, accum: int | None = None,
+           device="cuda") -> ModelApi:
+    """The reference's ``lm_api``, on ``device``."""
+    from ..models import lm as lm_mod
+    return _lm_family_api(cfg, n_params_billion, accum, device, init=lm_mod.init,
+                          loss_fn=lm_mod.loss_fn, prefill=lm_mod.prefill,
+                          make_cache=lm_mod.make_decode_cache, decode=lm_mod.decode_step,
+                          sub_quadratic=False)
 
 
 def mamba_api(cfg, n_params_billion: float, accum: int | None = None,
@@ -147,9 +136,10 @@ def mamba_api(cfg, n_params_billion: float, accum: int | None = None,
     """The reference's ``mamba_api`` (a pure Mamba2 stack), on ``device``
     as ``lm_api``; sub-quadratic, so it may run long_500k."""
     from ..models import hybrid as hy
-    return _ssm_family_api(cfg, n_params_billion, accum, device, hy.mamba_init,
-                           hy.mamba_loss_fn, hy.mamba_prefill, hy.mamba_make_cache,
-                           hy.mamba_decode_step)
+    return _lm_family_api(cfg, n_params_billion, accum, device, init=hy.mamba_init,
+                          loss_fn=hy.mamba_loss_fn, prefill=hy.mamba_prefill,
+                          make_cache=hy.mamba_make_cache, decode=hy.mamba_decode_step,
+                          sub_quadratic=True)
 
 
 def hybrid_api(cfg, n_params_billion: float, accum: int | None = None,
@@ -157,6 +147,7 @@ def hybrid_api(cfg, n_params_billion: float, accum: int | None = None,
     """The reference's ``hybrid_api`` (Mamba2 + a shared attention block),
     on ``device`` as ``lm_api``; sub-quadratic."""
     from ..models import hybrid as hy
-    return _ssm_family_api(cfg, n_params_billion, accum, device, hy.hybrid_init,
-                           hy.hybrid_loss_fn, hy.hybrid_prefill, hy.hybrid_make_cache,
-                           hy.hybrid_decode_step)
+    return _lm_family_api(cfg, n_params_billion, accum, device, init=hy.hybrid_init,
+                          loss_fn=hy.hybrid_loss_fn, prefill=hy.hybrid_prefill,
+                          make_cache=hy.hybrid_make_cache, decode=hy.hybrid_decode_step,
+                          sub_quadratic=True)

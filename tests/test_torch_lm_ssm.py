@@ -2,7 +2,7 @@
 ``configs.{mamba2_370m, zamba2_1_2b}``) held against the JAX package on
 the reduced configs: JAX-initialised parameters carried across by
 ``params_from_jax``, numpy-seeded batches, the JAX results shared through
-module-scoped fixtures (each JAX call jitted once per arch).
+module-scoped fixtures (all of them from one compile per arch).
 
 Tolerances (f32) as ``tests/test_torch_lm_moe.py``: 1e-5 on the loss,
 1e-4 of each tensor's largest magnitude through the whole stack (logits,
@@ -79,30 +79,30 @@ def ref(request):
     jmod, tmod = JARCHS[arch], get_arch(arch)
     jcfg, tcfg = jmod.config(reduced=True), tmod.config(reduced=True)
     jinit, jloss, jcache, jprefill, jdecode = _fns(arch, jhy)
-    init = jax.jit(functools.partial(jinit, cfg=jcfg))
-    jp = init(jax.random.PRNGKey(0))
-    tp = params_from_jax(jax.tree.map(np.asarray, jp), "cpu")
     batch = _batch(jcfg)
     jb = {k: jnp.asarray(v) for k, v in batch.items()}
     api = jmod.api(jcfg)
-    grad = jax.jit(jax.value_and_grad(lambda p, b: jloss(p, b, jcfg), has_aux=True))
-    (loss, _), grads = grad(jp, jb)
-    # the reference's train step (accum 1, no clipping) is these gradients
-    # through its optimizer's update
-    state0 = jax_init_state(jp, api.optimizer)
-    update = jax.jit(api.optimizer.update)
-    new_params, new_opt = update(grads, state0["opt"], jp, state0["step"])
-    new_state = {"params": new_params, "opt": new_opt}
 
-    def serve(p, tokens):
+    def reference(key, jb):
+        jp = jinit(key, jcfg)
+        (loss, _), grads = jax.value_and_grad(lambda p, b: jloss(p, b, jcfg), has_aux=True)(
+            jp, jb)
+        # the reference's train step (accum 1, no clipping) is these
+        # gradients through its optimizer's update
+        state0 = jax_init_state(jp, api.optimizer)
+        new_params, new_opt = api.optimizer.update(grads, state0["opt"], jp, state0["step"])
+        tokens = jb["tokens"]
         cache = jcache(jcfg, B, S + 8)
-        logits, cache = jprefill(p, tokens, cache, jcfg)
-        logits2, cache2 = jdecode(p, tokens[:, -1:], S, cache, jcfg)
-        logits3, cache3 = jdecode(p, tokens[:, -2:-1], S + 1, cache2, jcfg)
-        return logits, cache, logits2, logits3, cache3
+        logits, cache = jprefill(jp, tokens, cache, jcfg)
+        logits2, cache2 = jdecode(jp, tokens[:, -1:], S, cache, jcfg)
+        logits3, cache3 = jdecode(jp, tokens[:, -2:-1], S + 1, cache2, jcfg)
+        return jp, loss, grads, {"params": new_params, "opt": new_opt}, (
+            logits, cache, logits2, logits3, cache3)
 
-    serve = jax.jit(serve)
-    served = serve(jp, jb["tokens"])
+    # one compile for all of it: the compiles are most of the file's time
+    reference = jax.jit(reference)
+    jp, loss, grads, new_state, served = reference(jax.random.PRNGKey(0), jb)
+    tp = params_from_jax(jax.tree.map(np.asarray, jp), "cpu")
     return dict(arch=arch, jmod=jmod, tmod=tmod, jcfg=jcfg, tcfg=tcfg, jp=jp, tp=tp,
                 batch=batch, api=api, loss=float(loss),
                 grads=jax.tree.map(np.asarray, grads),

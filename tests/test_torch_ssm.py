@@ -82,8 +82,10 @@ def test_a_log_equals_the_compiled_reference(heads):
     # the reduced test block (8), the reduced archs (16), mamba2-370m (32),
     # zamba2-1.2b (64)
     cfg = jssm.SSMConfig(d_model=heads * 4, d_state=8, headdim=8)
-    init = jax.jit(lambda k: jssm.ssm_init(k, cfg, jnp.float32))
-    want = np.asarray(init(jax.random.PRNGKey(0))["A_log"])
+    # the compiled init with its other leaves cut away: the same program for
+    # A_log, a fraction of the compile
+    init = jax.jit(lambda k: jssm.ssm_init(k, cfg, jnp.float32)["A_log"])
+    want = np.asarray(init(jax.random.PRNGKey(0)))
     got = tssm._a_log(heads).numpy()
     if heads <= 32:
         np.testing.assert_array_equal(got, want)
@@ -237,11 +239,10 @@ def test_masked_decay_keeps_the_gradient_finite_where_exp_overflows():
     def japply(p):
         return jssm.ssm_apply(p, jnp.asarray(u), JCFG, jnp.float32)
 
-    grad = jax.jit(jax.grad(lambda p: jnp.sum(japply(p))))
-    jgrad = grad(jp)
+    # the output and the gradient of its sum from one compile
+    both = jax.jit(lambda p: (japply(p), jax.grad(lambda q: jnp.sum(japply(q)))(p)))
+    want, jgrad = both(jp)
     assert not all(np.isfinite(np.asarray(g)).all() for g in jax.tree.leaves(jgrad))
-    japply = jax.jit(japply)
-    want = japply(jp)
     tp = tree.tree_map(lambda t: t.requires_grad_(True), tp)
     out = tssm.ssm_apply(tp, torch.from_numpy(u), TCFG, torch.float32)
     np.testing.assert_allclose(_np(out), _np(want), rtol=RTOL,
