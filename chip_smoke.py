@@ -270,7 +270,33 @@ Phases (any failure exits non-zero, and no result line is printed):
    ``arctic-480b`` at full width and 1 of 35 layers (13,897,942,016
    parameters): one wave of 16 x 128 tokens, one K1 per call, K1 and the
    prefill logits bit-equal to the plain route;
-22. run the paper's §5 experiment (``repro_torch.benchmarks.paper_tables``)
+22. ``[ssm]``: mamba2-370m and zamba2-1.2b whole at full width, and one
+   wave of the full-width qwen3-14b (``ssm_full_width``'s docstring);
+23. ``[encdec]``: the full-width seamless-m4t-large-v2
+   (``configs/seamless_m4t_large_v2``: 24 encoder and 24 decoder layers,
+   d 1,024, 16 heads, gelu d_ff 8,192; vocab 256,206 as a bf16 QR pair of
+   64,052 + 4 rows x 1,024; 1,436,418,048 parameters) whole: first 2 + 2
+   layers in f32 (TF32 off) against the machine's CPU ([lm]'s bounds, and
+   the decode within 1e-4 of the largest logit of the teacher-forced
+   training forward); then [lm]'s 48 greedy requests in waves of 16, each
+   wave's stub frames ``frames_at(0, wave, 16, plen // 4, 1,024)`` (one
+   K1 per call and nothing else, the lookup one device operation; on the
+   first wave K1 and the prefill logits bit-equal to the plain route, the
+   decode against teacher forcing within the f32 gap x 2^16 x
+   sqrt(48 / 4)), a decode step's device time, operations and busy
+   share, and 10 Adam (3e-4) steps through ``Trainer`` at B=4, S=256
+   with 64 frames (the loss falls; the peak taken apart);
+24. ``[vlm]``: llava-next-34b (``configs/llava_next_34b``: the yi-34b
+   backbone, d 7,168, 56 heads, 8 KV heads, d_ff 20,480; vocab 64,000 as
+   a bf16 QR pair of 16,000 + 4 rows x 7,168; a 2-layer gelu projector)
+   at full width and 28 of its 60 layers (16,296,225,792 parameters):
+   first 1 layer and 64 patches in f32 against the machine's CPU, as
+   [encdec]; then the same queue, each request after 1,152 stub patches
+   ``patches_at(0, wave, 16, 1,152, 7,168)``, decoding at ``pos + 1,152``
+   into a cache of ``max_len + 1,152`` rows (ROADMAP §3 finding 13), with
+   [encdec]'s gates (K1 embeds the text only); 10 Adafactor (1e-4) steps
+   at 2 layers, B=2, 1,152 patches + 256 tokens (the loss falls);
+25. run the paper's §5 experiment (``repro_torch.benchmarks.paper_tables``)
    on the card for ``PAPER_ROWS``: fig4's six rows (DLRM and DCN x full,
    hash, QR mult) and QR add, concat, feature mode, threshold 2,000 and
    the path-based table at hidden 16, each trained 400 steps at B=256 on
@@ -289,7 +315,7 @@ Phases (any failure exits non-zero, and no result line is printed):
    ``fig4/dlrm/qr_mult`` 400 steps on the machine's CPU and print its
    held-out |Δ| from the card, and profile one DLRM and one DCN row's
    step (device ms, device operations, busy share);
-23. time each kernel, its plain version and a PyTorch yardstick with CUDA
+26. time each kernel, its plain version and a PyTorch yardstick with CUDA
    events, compute each kernel's bound from this run's inputs, and print
    the ``kernels`` JSON line.  The grouped kernels are timed at a full
    26-table wave (K4) and batch (K1 in f32, K5) at 1 to 16 threads per
@@ -301,10 +327,10 @@ Phases (any failure exits non-zero, and no result line is printed):
    sweep of threads per bag for wide rows (8, 16, 32); and K1's per-table
    entry at the kernel bench's D=128 on int32 ids, int64 ids read in place
    and int64 ids cast first; grouped K4 at the planned wave of 13; and
-   K1 at TinyLlama's and DeepSeek-V2's prefill (8,192 ids) and decode (16
-   ids) shapes.
+   K1 at TinyLlama's, DeepSeek-V2's, Mamba2's, Qwen3's, seamless-m4t's
+   and llava-next's prefill (8,192 ids) and decode (16 ids) shapes.
 
-Each of the paths in 8 to 22 runs with every launch count set to 0
+Each of the paths in 8 to 25 runs with every launch count set to 0
 just before it and read just after (in 18, in each rank's process: the
 ``kernels`` line sums the ranks); launches made to compare a kernel
 with its plain version count nowhere.  Peak device memory is printed as
@@ -4753,17 +4779,21 @@ def _ssm_state_check(torch, mod):
     return out
 
 
-def _ssm_serve(torch, lm, cfg, params, fns, label, queue, new_tokens, profile=True):
+def _ssm_serve(torch, lm, cfg, params, fns, label, queue, new_tokens, profile=True,
+               phase="[ssm]", emb=None):
     """``queue``'s prompts through ``ServeEngine`` (waves of ``LM_BATCH``):
     one K1 per call and no other kernel, tokens in range; then a decode
     step's wall and device time after a 128-token prefill and the lookup's
-    device operations.  Returns (profile, launch counts, the recorded first
-    wave, the decode tokens)."""
+    device operations (on ``emb``, the vocabulary's (params, config);
+    ``(params, cfg)`` by default).  ``phase`` names the phase in the
+    messages.  Returns (profile, launch counts, the recorded first wave,
+    the decode tokens)."""
+    emb_params, emb_cfg = emb or (params, cfg)
+    vocab = emb_cfg.vocab
     gen = torch.Generator(device="cuda").manual_seed(1)
     prompts = []
     for plen, n in queue:
-        prompts += torch.randint(0, cfg.vocab, (n, plen), generator=gen,
-                                 device="cuda").tolist()
+        prompts += torch.randint(0, vocab, (n, plen), generator=gen, device="cuda").tolist()
     calls, record = [], []
     engine = _lm_engine(torch, cfg, params, calls, record, LM_BATCH, LM_MAX_LEN, fns)
     for p in prompts:
@@ -4780,15 +4810,16 @@ def _ssm_serve(torch, lm, cfg, params, fns, label, queue, new_tokens, profile=Tr
     counts = _read_counts()
     peak = torch.cuda.max_memory_allocated()
     waves, serve_s, done = len(wave_ms), sum(wave_ms) / 1e3, engine.completed
-    launch = _lm_check_calls(calls, waves, "[ssm]")
+    launch = _lm_check_calls(calls, waves, phase)
     tokens = sum(len(r.output) for r in done.values())
     if len(done) != len(prompts) or any(
-            len(r.output) != new_tokens or not all(0 <= x < cfg.vocab for x in r.output)
+            len(r.output) != new_tokens or not all(0 <= x < vocab for x in r.output)
             for r in done.values()):
-        _fail(f"[ssm] {label}: not every request completed with its tokens in range")
+        _fail(f"{phase} {label}: not every request completed with its tokens in range")
     if len(calls) != waves * new_tokens or counts["qr_gather"] != len(calls) \
             or sum(counts.values()) != len(calls):
-        _fail(f"[ssm] {label}: launches {counts} for {len(calls)} serving calls in {waves} waves")
+        _fail(f"{phase} {label}: launches {counts} for {len(calls)} serving calls in {waves} "
+              "waves")
     pre_ms = [ms for j, (ms, _) in enumerate(calls) if j % new_tokens == 0]
     dec_ms = sorted(ms for j, (ms, _) in enumerate(calls) if j % new_tokens)
     prof = {"requests": len(done), "waves": waves, "tokens": tokens, "serve_s": serve_s,
@@ -4803,18 +4834,18 @@ def _ssm_serve(torch, lm, cfg, params, fns, label, queue, new_tokens, profile=Tr
           f"peak memory {peak} B ({peak - base} B above the serving's start)")
     print(f"  launches: one K1 per call on all {len(calls)} calls ({waves} prefills, "
           f"{len(calls) - waves} decode steps), no other kernel: {counts}")
-    dec_tokens = torch.randint(0, cfg.vocab, (LM_BATCH, 1), generator=gen, device="cuda")
+    dec_tokens = torch.randint(0, vocab, (LM_BATCH, 1), generator=gen, device="cuda")
     if profile:
         make_cache, prefill, decode, _ = fns
         with torch.inference_mode():
             lookup_ops = _device_ops_per_call(torch, lambda: lm.embed_serving(
-                params, dec_tokens, cfg))
+                emb_params, dec_tokens, emb_cfg))
             cache = make_cache(cfg, LM_BATCH, LM_MAX_LEN, "cuda")
-            prefill(params, torch.randint(0, cfg.vocab, (LM_BATCH, 128), generator=gen,
-                                          device="cuda"), cache, cfg)
+            _, cache = prefill(params, torch.randint(0, vocab, (LM_BATCH, 128), generator=gen,
+                                                     device="cuda"), cache, cfg)
             dec = _ssm_decode_profile(torch, params, cfg, decode, cache, dec_tokens, 128)
         if lookup_ops["ops"] != 1:
-            _fail(f"[ssm] {label}: the token lookup took {lookup_ops['ops']} device operations "
+            _fail(f"{phase} {label}: the token lookup took {lookup_ops['ops']} device operations "
                   "per call, expected the one K1 launch")
         prof.update({f"decode_{k}": v for k, v in dec.items()})
         prof["lookup_device_ops_per_call"] = lookup_ops["ops"]
@@ -4900,17 +4931,17 @@ def _ssm_long(torch, fns, cfg, params, label):
     return {"by_prompt_tokens": out, "peak_ratio": ratio}, k1_ids
 
 
-def _ssm_train(torch, mod, card):
-    """``SSM_TRAIN_STEPS`` steps of the arch's default Adam(3e-4) at full
-    width, B = 4, S = 256, through ``Trainer`` on the port's LM stream: the
-    loss finite and falling; wall and device time per step; and the peak
-    memory taken apart: the train state (parameters and Adam's f32 state),
-    one step's peak above it, and one value-and-grad's peak above it with
-    the model's checkpoints and without them."""
+def _ssm_train(torch, mod, card, steps, phase="[ssm]"):
+    """``steps`` steps of the arch's default Adam(3e-4) at full width, B =
+    4, S = 256, through ``Trainer`` on the port's LM stream (the arch's
+    ``api.batch_fn``): the loss finite and falling; wall and device time
+    per step; and the peak memory taken apart: the train state (parameters
+    and Adam's f32 state), one step's peak above it, and one
+    value-and-grad's peak above it with the model's checkpoints and
+    without them."""
     from repro_torch.train.loop import (TrainConfig, Trainer, init_state, make_train_step,
                                         value_and_grad)
 
-    steps = SSM_TRAIN_STEPS[mod.ARCH]
     api = mod.api(mod.config())
     shape = _lm_shape(LM_TRAIN_SEQ, LM_TRAIN_BATCH)
     gc.collect()
@@ -4929,9 +4960,9 @@ def _ssm_train(torch, mod, card):
     losses = [x for _, x in history]
     tail = sum(losses[-3:]) / 3
     if len(losses) != steps or not all(math.isfinite(x) for x in losses):
-        _fail(f"[ssm] {mod.ARCH}: training losses are not all finite: {losses}")
+        _fail(f"{phase} {mod.ARCH}: training losses are not all finite: {losses}")
     if not tail < losses[0]:
-        _fail(f"[ssm] {mod.ARCH}: the loss did not fall: last 3 steps {tail:.5f} vs step 0 "
+        _fail(f"{phase} {mod.ARCH}: the loss did not fall: last 3 steps {tail:.5f} vs step 0 "
               f"{losses[0]:.5f} ({losses})")
     held = {"state": state}
     del state
@@ -4984,7 +5015,7 @@ def _ssm_train(torch, mod, card):
           f"state {opt_bytes}); a step's peak above it {step_peak} B (the new state, the "
           f"gradients and the update's f32 temporaries); a value-and-grad's peak above it "
           f"{grad_peak[True]} B with a checkpoint per "
-          f"{'layer' if mod.FAMILY == 'ssm' else 'block'}, {grad_peak[False]} B without")
+          f"{'block' if mod.FAMILY == 'hybrid' else 'layer'}, {grad_peak[False]} B without")
     print(f"  top device ms per training step: {prof['top_device_ms_per_step']}")
     return prof
 
@@ -5066,7 +5097,7 @@ def _ssm_arch(torch, lm, mod, card, sizes, cache_bytes):
     gc.collect()
     torch.cuda.empty_cache()
     print(f"  ({time.perf_counter() - t0:.1f} s into {cfg.name})")
-    train = _ssm_train(torch, mod, card)
+    train = _ssm_train(torch, mod, card, SSM_TRAIN_STEPS[mod.ARCH])
     prof = {"card": card, "arch": cfg.name, "parameters": n, "parameter_bytes": nbytes,
             "cache_bytes": got_cache, "serve": serve, "k1_vs_plain_max_abs_diff": emb_diff,
             "prefill_vs_plain_max_abs_diff": pre_diff, "decode_vs_teacher": dec,
@@ -5156,6 +5187,334 @@ def ssm_full_width(torch, card):
     print(f"  card: {card}; [ssm] {prof['phase_s']:.1f} s")
     print(json.dumps({"ssm_profile": prof}))
     return counts, k1, max(errs)
+
+
+# [encdec] and [vlm]: the encoder-decoder and the VLM (ROADMAP 18b-iii) at
+# full width on the card, their QR vocabularies looked up through K1 when
+# serving: seamless-m4t-large-v2 whole (vocab 256,206 as 64,052 + 4 rows x
+# 1,024, bf16, mult; stub audio frames) and llava-next-34b cut to 28 of its
+# 60 layers (vocab 64,000 as 16,000 + 4 rows x 7,168; 1,152 stub patches per
+# request, which bypass the vocabulary; the full depth would take 68.3 GB)
+ENCDEC_PARAMS = (1_436_418_048, 2_872_836_096)    # jax.eval_shape of the reference's init
+VLM_LAYERS = 28
+VLM_PARAMS = (16_296_225_792, 32_592_451_584)     # the same at 28 layers
+# f32 card vs CPU: seamless at 2 encoder + 2 decoder layers; llava at 1 layer
+# and 64 of its 1,152 patches (the CPU's side of the check stays seconds)
+ENCDEC_F32_CUT = {"enc_layers": 2, "dec_layers": 2}
+VLM_F32_LAYERS, VLM_F32_PATCHES = 1, 64
+ENCDEC_TRAIN_STEPS = 10
+# llava trains at 2 layers, B=2, S = 1,152 patches + 256 tokens, by
+# Adafactor at lr 1e-4: the arch's default, Adafactor(1e-3), moves every
+# weight by about lr in its first steps and at d_model 5,120 overturned
+# DeepSeek-V2's random weights (MOE_TRAIN_LR)
+VLM_TRAIN_STEPS, VLM_TRAIN_LAYERS, VLM_TRAIN_BATCH, VLM_TRAIN_TEXT = 10, 2, 2, 256
+VLM_TRAIN_LR = 1e-4
+
+
+def _mm_stub(torch, kind, cfg, wave, batch, plen):
+    """The stub input of a wave of ``batch`` prompts of ``plen`` tokens, as
+    the api's ``batch_fn`` draws it (bf16): ``frames_at(0, wave, batch,
+    plen // enc_ratio, d)`` or ``patches_at(0, wave, batch, n_patches, d)``."""
+    from repro_torch.data import lm as lm_data
+
+    if kind == "encdec":
+        return lm_data.frames_at(0, wave, batch, max(1, plen // cfg.enc_ratio), cfg.d_model,
+                                 device="cuda").to(torch.bfloat16)
+    return lm_data.patches_at(0, wave, batch, cfg.n_patches, cfg.lm.d_model,
+                              device="cuda").to(torch.bfloat16)
+
+
+def _mm_fns(torch, kind, cfg):
+    """(make_cache, prefill, decode_step, None) as ``_lm_engine`` and
+    ``_ssm_serve`` call them: each prefill call takes the next wave's stub
+    input (``_mm_stub`` of the call's index); the VLM's decode writes after
+    its ``n_patches`` patch rows, into a cache that many rows longer, as
+    ``launch/serve.py`` drives it (ROADMAP §3 finding 13)."""
+    from repro_torch.models import encdec as ed
+    from repro_torch.models import vlm as vl
+
+    make, prefill, decode = ((ed.encdec_make_cache, ed.encdec_prefill, ed.encdec_decode_step)
+                             if kind == "encdec" else
+                             (vl.vlm_make_cache, vl.vlm_prefill, vl.vlm_decode_step))
+    rows = 0 if kind == "encdec" else cfg.n_patches
+    waves = [0]
+
+    def prefill_fn(params, tokens, cache, c):
+        stub = _mm_stub(torch, kind, c, waves[0], *tokens.shape)
+        waves[0] += 1
+        return prefill(params, stub, tokens, cache, c)
+
+    return (lambda c, b, ml, dev: make(c, b, ml + rows, dev), prefill_fn,
+            lambda params, tok, pos, cache, c: decode(params, tok, pos + rows, cache, c), None)
+
+
+def _mm_teacher_forward(torch, lm, kind, cfg, params, stub):
+    """The ``forward`` hook of ``_lm_teacher`` for a wave with ``stub``: the
+    seamless decoder as its prefill runs it (the cross K/V from the
+    memory of the frames; the plain route of the served prefill), or
+    llava's LM stack after the projected patches, the text positions."""
+    from repro_torch.models import encdec as ed
+    from repro_torch.models import vlm as vl
+
+    with torch.inference_mode():
+        if kind == "encdec":
+            memory = ed.encode(params, stub, cfg)
+            return lambda p, h, c: ed._prefill_hidden(
+                p, h, memory, ed.encdec_make_cache(c, h.shape[0], h.shape[1], "cuda")["self"],
+                c)[0]
+        img = vl._project(params, stub, cfg)
+    return lambda p, h, c: lm.forward_hidden(p, torch.cat([img, h], 1), c)[0][:, img.shape[1]:]
+
+
+def _mm_f32_vs_cpu(torch, mod, lm, kind):
+    """The arch at full width and cut depth in f32, TF32 off (seamless
+    ``ENCDEC_F32_CUT``; llava ``VLM_F32_LAYERS`` layer and
+    ``VLM_F32_PATCHES`` patches): one prefill of 2 x 128 tokens after the
+    stub input and 4 decode steps, and one ``loss_fn`` value-and-grad,
+    card against CPU; and the card's decode against the plain
+    teacher-forced training forward at f32.  [lm]'s bounds, and the f32
+    decode gap gated at ``SSM_F32_DECODE_TOL``."""
+    from repro_torch import tree
+    from repro_torch.models import encdec as ed
+    from repro_torch.models import vlm as vl
+    from repro_torch.train.loop import value_and_grad
+
+    phase = f"[{kind}]"
+    if torch.backends.cuda.matmul.allow_tf32:
+        _fail(f"{phase} TF32 is on for f32 matrix products")
+    f32 = {"param_dtype": "float32", "compute_dtype": "float32"}
+    if kind == "encdec":
+        cfg = dataclasses.replace(mod.config(), **f32, **ENCDEC_F32_CUT)
+        depth, d, vocab = cfg.enc_layers + cfg.dec_layers, cfg.d_model, cfg.vocab
+        make, prefill, decode = ed.encdec_make_cache, ed.encdec_prefill, ed.encdec_decode_step
+        rows = 0
+    else:
+        full = mod.config()
+        cfg = dataclasses.replace(full, n_patches=VLM_F32_PATCHES, lm=dataclasses.replace(
+            full.lm, n_layers=VLM_F32_LAYERS, **f32))
+        depth, d, vocab = VLM_F32_LAYERS, cfg.lm.d_model, cfg.lm.vocab
+        make, prefill, decode = vl.vlm_make_cache, vl.vlm_prefill, vl.vlm_decode_step
+        rows = VLM_F32_PATCHES
+    host_api = mod.api(cfg, device="cpu")
+    t = time.perf_counter()
+    host = host_api.init(torch.Generator().manual_seed(3))
+    card = tree.tree_map(lambda x: x.to("cuda"), host)
+    gen = torch.Generator().manual_seed(4)
+    prompts = torch.randint(0, vocab, (2, 128), generator=gen)
+    stub = torch.randn((2, 32 if kind == "encdec" else rows, d), generator=gen) * 0.1
+    toks = [torch.randint(0, vocab, (2, 1), generator=gen) for _ in range(4)]
+    out = {}
+    with torch.inference_mode():
+        for name, params, dev in (("cpu", host, "cpu"), ("card", card, "cuda")):
+            cache = make(cfg, 2, rows + 160, dev)
+            logits, cache = prefill(params, stub.to(dev), prompts.to(dev), cache, cfg)
+            steps = [logits[:, -1]]
+            for i, tok in enumerate(toks):
+                logits, cache = decode(params, tok.to(dev), rows + 128 + i, cache, cfg)
+                steps.append(logits[:, -1])
+            out[name] = torch.stack(steps, 1).cpu()
+        seq = torch.cat([prompts] + toks, 1).to("cuda")
+        if kind == "encdec":
+            h = ed.encdec_forward(card, lm.embed_tokens(card, seq, cfg),
+                                  ed.encode(card, stub.to("cuda"), cfg), cfg)
+            head = card["lm_head"]
+        else:
+            h = vl.vlm_forward(card, stub.to("cuda"), lm.embed_tokens(card["lm"], seq, cfg.lm),
+                               cfg)[0][:, rows:]
+            head = card["lm"]["lm_head"]
+        teacher = (h[:, 127:] @ head["w"]).cpu()
+    scale = float(out["cpu"].abs().max())
+    logit_rel = float((out["card"] - out["cpu"]).abs().max()) / scale
+    dec_gap = float((out["card"][:, 1:] - teacher[:, 1:]).abs().max())
+    dec_rel = dec_gap / float(teacher.abs().max())
+    batch = host_api.batch_fn(0, _lm_shape(rows + 64, 2))
+    (loss, _), grads = value_and_grad(host_api.loss_fn)(host, batch)
+    (card_loss, _), card_grads = value_and_grad(mod.api(cfg).loss_fn)(
+        card, {k: v.to("cuda") for k, v in batch.items()})
+    worst, where = 0.0, ""
+    for (path, g), cg in zip(tree.flatten_with_path(grads), tree.leaves(card_grads)):
+        s = float(g.abs().max())
+        rel = float((cg.cpu() - g).abs().max()) / s if s else float(cg.abs().max())
+        if rel > worst:
+            worst, where = rel, "/".join(map(str, path))
+    loss_diff = abs(float(card_loss) - float(loss))
+    res = {"layers": depth, "stub_rows": stub.shape[1], "logits_rel_diff": logit_rel,
+           "loss": float(loss), "card_loss": float(card_loss), "loss_diff": loss_diff,
+           "worst_grad_rel": worst, "worst_grad_leaf": where, "decode_vs_teacher_f32_abs": dec_gap,
+           "decode_vs_teacher_f32_rel": dec_rel, "seconds": time.perf_counter() - t}
+    print(f"  f32, {depth} layers at full width, {stub.shape[1]} stub rows, card vs CPU: prefill + "
+          f"4 decode steps' logits {logit_rel:.3e} of the largest |logit| (tol "
+          f"{LM_F32_LOGIT_TOL:.0e}); loss {float(card_loss):.7f} vs {float(loss):.7f} (|diff| "
+          f"{loss_diff:.3e}, tol {LM_F32_LOSS_TOL:.0e}); worst gradient leaf {where} {worst:.3e} "
+          f"of its largest |g| (tol {GRAD_TOL:.0e}); decode vs the teacher-forced training "
+          f"forward at f32: max |diff| {dec_gap:.3e} = {dec_rel:.3e} of the largest |logit| (tol "
+          f"{SSM_F32_DECODE_TOL:.0e}); {res['seconds']:.1f} s")
+    if not (logit_rel <= LM_F32_LOGIT_TOL and loss_diff <= LM_F32_LOSS_TOL * abs(float(loss))
+            and worst <= GRAD_TOL):
+        _fail(f"{phase} the f32 {mod.ARCH} on the card disagrees with the CPU")
+    if not dec_rel <= SSM_F32_DECODE_TOL:
+        _fail(f"{phase} the f32 {mod.ARCH}'s decode on the card disagrees with teacher forcing: "
+              f"{dec_rel:.3e} of the largest |logit|, tol {SSM_F32_DECODE_TOL:.0e}")
+    return res
+
+
+def _vlm_train(torch, mod, card):
+    """``VLM_TRAIN_STEPS`` Adafactor(``VLM_TRAIN_LR``) steps of llava at full
+    width and ``VLM_TRAIN_LAYERS`` layers on the port's LM stream (the
+    api's ``batch_fn``: 1,152 patches and 256 tokens per row), by
+    ``make_train_step`` in a loop that drops each old state as the next
+    one comes: the loss finite and falling; time per step and peak
+    memory."""
+    from repro_torch import tree
+    from repro_torch.optim import optimizers
+    from repro_torch.train.loop import init_state, make_train_step
+
+    full = mod.config()
+    cfg = dataclasses.replace(full, lm=dataclasses.replace(full.lm, n_layers=VLM_TRAIN_LAYERS))
+    api = mod.api(cfg)
+    opt = optimizers.adafactor(VLM_TRAIN_LR)
+    shape = _lm_shape(cfg.n_patches + VLM_TRAIN_TEXT, VLM_TRAIN_BATCH)
+    gc.collect()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    params = api.init(torch.Generator(device="cuda").manual_seed(5))
+    n = sum(x.numel() for x in tree.leaves(params))
+    state = init_state(params, opt)
+    del params
+    train_step = make_train_step(api.loss_fn, opt)
+    losses, walls = [], []
+    for s in range(VLM_TRAIN_STEPS + 3):
+        batch = api.batch_fn(s, shape)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        state, metrics = train_step(state, batch)
+        torch.cuda.synchronize()
+        if s < VLM_TRAIN_STEPS:
+            losses.append(float(metrics["loss"]))
+        else:
+            walls.append(time.perf_counter() - t1)
+        if s == VLM_TRAIN_STEPS - 1:
+            run_s = time.perf_counter() - t
+    peak = torch.cuda.max_memory_allocated()
+    tail = sum(losses[-3:]) / 3
+    if not all(math.isfinite(x) for x in losses):
+        _fail(f"[vlm] training losses are not all finite: {losses}")
+    if not tail < losses[0]:
+        _fail(f"[vlm] the loss did not fall: last 3 steps {tail:.5f} vs step 0 {losses[0]:.5f} "
+              f"({losses})")
+    wall_ms = sorted(walls)[1] * 1e3
+    opt_bytes = _tree_bytes(state["opt"])
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+    prof = {"card": card, "layers": VLM_TRAIN_LAYERS, "parameters": n,
+            "optimizer": f"adafactor({VLM_TRAIN_LR:g})", "steps": VLM_TRAIN_STEPS,
+            "batch": VLM_TRAIN_BATCH, "patches": cfg.n_patches, "text_tokens": VLM_TRAIN_TEXT,
+            "losses": losses, "loss_step_0": losses[0], "loss_last_3": tail,
+            "run_s_with_init": run_s, "wall_ms_per_step": wall_ms, "peak_memory_bytes": peak,
+            "peak_above_phase_start_bytes": peak - base, "adafactor_state_bytes": opt_bytes}
+    print(f"  {VLM_TRAIN_STEPS} Adafactor({VLM_TRAIN_LR:g}) steps at {VLM_TRAIN_LAYERS} layers "
+          f"({n:,} parameters), B={VLM_TRAIN_BATCH}, {cfg.n_patches} patches + {VLM_TRAIN_TEXT} "
+          f"tokens, in {run_s:.2f} s with init: loss {losses[0]:.5f} at step 0, {tail:.5f} over "
+          f"the last 3 | per step wall {wall_ms:.1f} ms (median of 3 after them) | peak {peak} B "
+          f"({peak - base} B above the phase's start; Adafactor's factored state {opt_bytes} B)")
+    return prof
+
+
+def mm_full_width(torch, card, kind):
+    """The [encdec] or [vlm] phase (ROADMAP 18b-iii): seamless-m4t-large-v2
+    whole, or llava-next-34b at ``VLM_LAYERS`` of 60: the f32 model
+    against the CPU (which sets the decode tolerance), the size, ``[lm]``'s
+    queue served through ``ServeEngine`` with each wave's stub input (one
+    K1 per call and no other kernel), K1 and the prefill logits bit-equal
+    to the plain route and decode against teacher forcing on wave 0,
+    training.  Returns the serving path's launch counts, K1's inputs at
+    the arch's vocabulary (the first wave's 16 x 512 prompt ids, a decode
+    step's 16) and K1's error."""
+    from repro_torch.configs import llava_next_34b, seamless_m4t_large_v2
+    from repro_torch.models import lm
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"  held on the card at the phase's start: {torch.cuda.memory_allocated()} B")
+    mod = seamless_m4t_large_v2 if kind == "encdec" else llava_next_34b
+    phase = f"[{kind}]"
+    t0 = time.perf_counter()
+    f32 = _mm_f32_vs_cpu(torch, mod, lm, kind)
+    print(f"  ({time.perf_counter() - t0:.1f} s into {mod.ARCH})")
+    if kind == "encdec":
+        cfg, sizes = mod.config(), ENCDEC_PARAMS
+        depth = cfg.enc_layers + cfg.dec_layers
+    else:
+        full = mod.config()
+        cfg = dataclasses.replace(full, lm=dataclasses.replace(full.lm, n_layers=VLM_LAYERS))
+        sizes, depth = VLM_PARAMS, VLM_LAYERS
+    gc.collect()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    t = time.perf_counter()
+    params = mod.api(cfg).init(torch.Generator(device="cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t
+    n, nbytes = lm.num_params(params), _tree_bytes(params)
+    emb_params, emb_cfg = (params, cfg) if kind == "encdec" else (params["lm"], cfg.lm)
+    emb = emb_params["embed"]
+    shape = (f"{cfg.enc_layers} encoder + {cfg.dec_layers} decoder layers, {cfg.n_heads} heads "
+             f"of {cfg.d_head}, d_ff {cfg.d_ff} (gelu), frames of 1 per {cfg.enc_ratio} tokens"
+             if kind == "encdec" else
+             f"{VLM_LAYERS} of {full.lm.n_layers} layers, {emb_cfg.n_heads} heads / "
+             f"{emb_cfg.n_kv_heads} KV heads of {emb_cfg.d_head}, d_ff {emb_cfg.d_ff}, "
+             f"{cfg.n_patches} patches per request")
+    print(f"  {cfg.name}: vocab {emb_cfg.vocab}, d {emb_cfg.d_model}, {shape}, QR "
+          f"c={emb_cfg.embedding.num_collisions} {emb_cfg.embedding.op} vocabulary "
+          f"{tuple(emb['table_0'].shape)} + {tuple(emb['table_1'].shape)}, "
+          f"{emb_cfg.param_dtype}: {n:,} parameters, {nbytes:,} B "
+          f"({torch.cuda.memory_allocated() - base} B on the card), drawn in {init_s:.1f} s")
+    if (n, nbytes) != sizes:
+        _fail(f"{phase} {cfg.name}: {n} parameters / {nbytes} B, expected {sizes}")
+
+    fns = _mm_fns(torch, kind, cfg)
+    serve, counts, record, dec_tokens = _ssm_serve(
+        torch, lm, cfg, params, fns, cfg.name, LM_QUEUE, LM_NEW_TOKENS, phase=phase,
+        emb=(emb_params, emb_cfg))
+    print(f"  ({time.perf_counter() - t0:.1f} s into {cfg.name})")
+    prompts = record[0][0]
+    forward = _mm_teacher_forward(torch, lm, kind, cfg, params,
+                                  _mm_stub(torch, kind, cfg, 0, *prompts.shape))
+    tol_rel = _lm_decode_tol(f32["decode_vs_teacher_f32_rel"], depth, f32_layers=f32["layers"])
+    emb_diff, pre_diff, dec = _lm_teacher(torch, lm, emb_cfg, emb_params, record, tol_rel,
+                                          forward=forward)
+    print(f"  wave 0 ({prompts.shape[0]} x {prompts.shape[1]} tokens after their "
+          f"{'frames' if kind == 'encdec' else 'patches'}): K1 vs embed.apply max |diff| "
+          f"{emb_diff}; prefill logits vs the plain route max |diff| {pre_diff}; decode "
+          f"({dec['steps']} steps) vs teacher forcing max |diff| {dec['max_abs_diff']:.4f} = "
+          f"{dec['rel_diff']:.4f} of the largest |logit| (tol {tol_rel:.4f} = the f32 gap x 2^16 "
+          f"x sqrt({depth} / {f32['layers']})); greedy agrees on {dec['argmax_agree']}/"
+          f"{dec['positions']}, on {dec['clear_positions']} positions the top-2 gap exceeds the "
+          f"tolerance and {dec['clear_disagree']} of them disagree (median top-2 gap "
+          f"{dec['median_top2_gap']:.4f})")
+    if emb_diff != 0 or pre_diff != 0:
+        _fail(f"{phase} {cfg.name}: K1 or the prefill logits differ from the plain route")
+    if dec["rel_diff"] > tol_rel or dec["clear_disagree"]:
+        _fail(f"{phase} {cfg.name}: decode disagrees with teacher forcing beyond the tolerance")
+    k1_inputs = {"prefill": prompts.reshape(-1, 1), "decode": dec_tokens,
+                 "tables": (emb["table_0"].clone(), emb["table_1"].clone())}
+    del params, emb, emb_params, record, forward
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"  ({time.perf_counter() - t0:.1f} s into {cfg.name})")
+    train = (_ssm_train(torch, mod, card, ENCDEC_TRAIN_STEPS, phase) if kind == "encdec"
+             else _vlm_train(torch, mod, card))
+    prof = {"card": card, "arch": cfg.name, "layers": depth, "parameters": n,
+            "parameter_bytes": nbytes, "init_s": init_s, "serve": serve,
+            "k1_vs_plain_max_abs_diff": emb_diff, "prefill_vs_plain_max_abs_diff": pre_diff,
+            "decode_vs_teacher": dec, "f32_vs_cpu": f32, "train": train,
+            "phase_s": time.perf_counter() - t0}
+    print(f"  card: {card}; {phase} {prof['phase_s']:.1f} s")
+    print(json.dumps({f"{kind}_profile": prof}))
+    return {kind: counts}, k1_inputs, emb_diff
 
 
 def _lm_gather_bound(ids, w_a, w_b):
@@ -5996,6 +6355,20 @@ def main() -> int:
     ssm_counts, ssm_k1, ssm_err = ssm_full_width(torch, card)
     counts.update(ssm_counts)
     print(f"  ({time.perf_counter() - t0:.0f} s so far)")
+    print("[encdec] full-width seamless-m4t-large-v2 (encoder-decoder, stub audio frames) served "
+          "through ServeEngine with its 256,206-token QR vocabulary through K1: against the "
+          "plain route and teacher forcing, f32 card vs CPU at 2 + 2 layers, 10 Adam steps "
+          "through Trainer")
+    mm_counts, encdec_k1, encdec_err = mm_full_width(torch, card, "encdec")
+    counts.update(mm_counts)
+    print(f"  ({time.perf_counter() - t0:.0f} s so far)")
+    print("[vlm] llava-next-34b at full width, 28 of 60 layers, 1,152 stub patches per request "
+          "before the text, served through ServeEngine with the text's QR vocabulary through "
+          "K1: against the plain route and teacher forcing, f32 card vs CPU at 1 layer, 10 "
+          "Adafactor steps at 2 layers")
+    mm_counts, vlm_k1, vlm_err = mm_full_width(torch, card, "vlm")
+    counts.update(mm_counts)
+    print(f"  ({time.perf_counter() - t0:.0f} s so far)")
     print("[paper] paper_tables rows trained on the card, held against the CPU and the reference")
     counts["paper"] = paper_rows(torch, card)
     print(f"  ({time.perf_counter() - t0:.0f} s so far)")
@@ -6003,7 +6376,8 @@ def main() -> int:
     print(f"  card: {card}")
     errs = {"fused_serve_pool": max(k4_err, grouped_errs["k4"], plan_err),
             "dot_interaction": k2_err,
-            "qr_gather": max(k1_err, grouped_errs["k1"], lm_err, moe_err, ssm_err),
+            "qr_gather": max(k1_err, grouped_errs["k1"], lm_err, moe_err, ssm_err, encdec_err,
+                             vlm_err),
             "qr_gather_quant": max(k5_err, grouped_errs["k5"]), "qr_embedding_bag": k3_err}
     grouped = time_grouped(torch, grouped_inputs, grouped_errs)
     k2_fields = time_interaction(torch, k2_inputs)
@@ -6020,6 +6394,9 @@ def main() -> int:
                                 counts["ssm_mamba"]["qr_gather"]))
     lm_shapes.update(time_lm_k1(torch, ssm_k1["qwen3"], "Qwen3", "qwen3",
                                 counts["ssm_qwen3"]["qr_gather"]))
+    lm_shapes.update(time_lm_k1(torch, encdec_k1, "seamless-m4t", "seamless",
+                                counts["encdec"]["qr_gather"]))
+    lm_shapes.update(time_lm_k1(torch, vlm_k1, "llava-next", "llava", counts["vlm"]["qr_gather"]))
     next(k for k in kernels if k["name"] == "qr_gather")["lm_shapes"] = lm_shapes
     for k in kernels:
         if k["launches"] == 0:

@@ -3,8 +3,8 @@ adapter a config's ``api(cfg)`` returns, the ``Shape`` its batch functions
 take, the training batch's structure as ``meta`` tensors (``sds``, the
 reference's ``jax.ShapeDtypeStruct``), ``embedding_spec``, and the LM
 family's pieces (``lm_train_batch``, ``default_optimizer``,
-``default_accum``, ``lm_api``, and the SSM family's ``mamba_api`` and
-``hybrid_api``).
+``default_accum``, ``lm_api``, the SSM family's ``mamba_api`` and
+``hybrid_api``, and the multimodal ``encdec_api`` and ``vlm_api``).
 """
 
 from __future__ import annotations
@@ -18,7 +18,8 @@ import torch
 from ..core import EmbeddingSpec, factory
 
 __all__ = ["Shape", "ModelApi", "embedding_spec", "resolve_plan", "sds", "lm_train_batch",
-           "default_optimizer", "default_accum", "lm_api", "mamba_api", "hybrid_api"]
+           "default_optimizer", "default_accum", "lm_api", "mamba_api", "hybrid_api",
+           "encdec_api", "vlm_api"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -99,10 +100,14 @@ def default_accum(n_params_billion: float) -> int:
 
 
 def _lm_family_api(cfg, n_params_billion, accum, device, *, init, loss_fn, prefill,
-                   make_cache, decode, sub_quadratic) -> ModelApi:
-    """A decoder LM family's ``ModelApi`` from its model module's functions:
+                   make_cache, decode, sub_quadratic, train_batch=None, prefill_inputs=None,
+                   batch_fn=None) -> ModelApi:
+    """An LM family's ``ModelApi`` from its model module's functions:
     parameters drawn from a ``torch.Generator`` on ``device``, caches and
-    batches there (the port's LM stream, ``data.lm.batch_at(0, step)``)."""
+    batches there.  ``train_batch``, ``prefill_inputs`` and ``batch_fn``
+    default to a decoder LM's (tokens only; the port's LM stream,
+    ``data.lm.batch_at(0, step)``); ``prefill`` takes the model's inputs
+    before the cache."""
     from ..data import lm as lm_data
     return ModelApi(
         name=cfg.name, cfg=cfg,
@@ -111,14 +116,15 @@ def _lm_family_api(cfg, n_params_billion, accum, device, *, init, loss_fn, prefi
         optimizer=default_optimizer(n_params_billion),
         accum=default_accum(n_params_billion) if accum is None else accum,
         accum_dtype="bfloat16" if n_params_billion >= 100 else "float32",
-        train_batch=lambda shape: lm_train_batch(cfg, shape),
-        prefill_inputs=lambda shape: (sds((shape.global_batch, shape.seq_len), torch.int32),),
-        prefill=lambda params, tokens, cache: prefill(params, tokens, cache, cfg),
+        train_batch=train_batch or (lambda shape: lm_train_batch(cfg, shape)),
+        prefill_inputs=prefill_inputs or (
+            lambda shape: (sds((shape.global_batch, shape.seq_len), torch.int32),)),
+        prefill=lambda params, *inputs: prefill(params, *inputs, cfg),
         make_cache=lambda b, ml: make_cache(cfg, b, ml, device),
         decode=lambda params, tokens, pos, cache: decode(params, tokens, pos, cache, cfg),
         sub_quadratic=sub_quadratic,
-        batch_fn=lambda step, shape: lm_data.batch_at(
-            0, step, shape.global_batch, shape.seq_len, cfg.vocab, device=device))
+        batch_fn=batch_fn or (lambda step, shape: lm_data.batch_at(
+            0, step, shape.global_batch, shape.seq_len, cfg.vocab, device=device)))
 
 
 def lm_api(cfg, n_params_billion: float, accum: int | None = None,
@@ -151,3 +157,66 @@ def hybrid_api(cfg, n_params_billion: float, accum: int | None = None,
                           loss_fn=hy.hybrid_loss_fn, prefill=hy.hybrid_prefill,
                           make_cache=hy.hybrid_make_cache, decode=hy.hybrid_decode_step,
                           sub_quadratic=True)
+
+
+def encdec_api(cfg, n_params_billion: float, accum: int | None = None,
+               device="cuda") -> ModelApi:
+    """The reference's ``encdec_api``, on ``device``: the batch and the
+    prefill's inputs carry bf16 stub frames ``(B, seq_len // enc_ratio,
+    d_model)`` (``data.lm.frames_at``) first."""
+    from ..data import lm as lm_data
+    from ..models import encdec as ed
+
+    def train_batch(shape: Shape):
+        b, s = shape.global_batch, shape.seq_len
+        return {"frames": sds((b, s // cfg.enc_ratio, cfg.d_model), torch.bfloat16),
+                **lm_train_batch(cfg, shape)}
+
+    def batch_fn(step, shape: Shape):
+        b = lm_data.batch_at(0, step, shape.global_batch, shape.seq_len, cfg.vocab,
+                             device=device)
+        b["frames"] = lm_data.frames_at(0, step, shape.global_batch,
+                                        max(1, shape.seq_len // cfg.enc_ratio), cfg.d_model,
+                                        device=device).to(torch.bfloat16)
+        return b
+
+    return _lm_family_api(
+        cfg, n_params_billion, accum, device, init=ed.encdec_init, loss_fn=ed.encdec_loss_fn,
+        prefill=ed.encdec_prefill, make_cache=ed.encdec_make_cache,
+        decode=ed.encdec_decode_step, sub_quadratic=False, train_batch=train_batch,
+        prefill_inputs=lambda shape: (
+            sds((shape.global_batch, shape.seq_len // cfg.enc_ratio, cfg.d_model),
+                torch.bfloat16),
+            sds((shape.global_batch, shape.seq_len), torch.int32)),
+        batch_fn=batch_fn)
+
+
+def vlm_api(cfg, n_params_billion: float, accum: int | None = None,
+            device="cuda") -> ModelApi:
+    """The reference's ``vlm_api``, on ``device``: the batch and the
+    prefill's inputs carry bf16 stub patches ``(B, n_patches, d_model)``
+    (``data.lm.patches_at``) first, and the text takes the rest of
+    ``seq_len``."""
+    from ..data import lm as lm_data
+    from ..models import vlm as vl
+
+    def train_batch(shape: Shape):
+        b, st = shape.global_batch, shape.seq_len - cfg.n_patches
+        return {"patches": sds((b, cfg.n_patches, cfg.lm.d_model), torch.bfloat16),
+                **lm_train_batch(cfg, Shape(shape.name, st, b, shape.kind))}
+
+    def batch_fn(step, shape: Shape):
+        st = shape.seq_len - cfg.n_patches
+        b = lm_data.batch_at(0, step, shape.global_batch, st, cfg.lm.vocab, device=device)
+        b["patches"] = lm_data.patches_at(0, step, shape.global_batch, cfg.n_patches,
+                                          cfg.lm.d_model, device=device).to(torch.bfloat16)
+        return b
+
+    return _lm_family_api(
+        cfg, n_params_billion, accum, device, init=vl.vlm_init, loss_fn=vl.vlm_loss_fn,
+        prefill=vl.vlm_prefill, make_cache=vl.vlm_make_cache, decode=vl.vlm_decode_step,
+        sub_quadratic=False, train_batch=train_batch,
+        prefill_inputs=lambda shape: (
+            sds((shape.global_batch, cfg.n_patches, cfg.lm.d_model), torch.bfloat16),
+            sds((shape.global_batch, shape.seq_len - cfg.n_patches), torch.int32)),
+        batch_fn=batch_fn)

@@ -2,11 +2,13 @@
 
 Dispatches on the arch's model family, as the reference launcher does.
 An LM arch (``tinyllama-1.1b``, ``qwen3-14b``, ``yi-34b``, ``granite-8b``,
-``arctic-480b``, ``deepseek-v2-236b``, ``mamba2-370m``, ``zamba2-1.2b``)
-boots the wave-batched ``ServeEngine`` on the reduced config (prefill +
-KV-cache decode, MLA's latent cache for DeepSeek-V2, the SSM state and
-conv-window caches for the SSM family, the vocabulary through K1 on the
-card):
+``arctic-480b``, ``deepseek-v2-236b``, ``mamba2-370m``, ``zamba2-1.2b``,
+``seamless-m4t-large-v2``, ``llava-next-34b``) boots the wave-batched
+``ServeEngine`` on the reduced config (prefill + KV-cache decode, MLA's
+latent cache for DeepSeek-V2, the SSM state and conv-window caches for
+the SSM family, the cross-attention K/V for the encoder-decoder, zero
+stub frames or patches for the multimodal archs, the vocabulary through
+K1 on the card):
 ``--requests`` prompts of 4 and 7 tokens, ``--batch-size`` per wave,
 ``--max-len``, ``--max-new-tokens`` and ``--temperature``, and reports
 requests, tokens and seconds.  A rec-family arch boots the
@@ -101,19 +103,43 @@ def _join_serving(device_arg: str, n: int) -> torch.device:
 def _serve_lm(mod, args):
     """The reference's ``_serve_lm``: the reduced config's parameters from
     seed 0 on ``--device``, ``--requests`` prompts ``1..4`` (two of three)
-    and ``1..7``, served through ``ServeEngine``."""
+    and ``1..7``, served through ``ServeEngine``.  A multimodal arch's
+    prefill takes zero frames or patches before the tokens, shaped by
+    ``api.prefill_inputs`` for the wave's ``(B, plen)``, as the
+    reference's launcher passes them.
+
+    One departure from the reference's launcher (ROADMAP §3 finding 13):
+    the VLM's prefill fills ``n_patches + plen`` cache rows, and the
+    reference's engine decodes at ``pos = plen``, so each of its decode
+    steps overwrites a patch row and attends to patch rows only.  Here the
+    decode closure writes index ``pos + n_patches`` and the cache holds
+    ``max_len + n_patches`` rows, so the VLM decodes where its prefill left
+    off; the model functions and the engine are the reference's."""
     import time
 
+    from ..configs.common import Shape
     from ..serve.engine import ServeEngine
 
     device = torch.device(args.device)
     cfg = mod.config(reduced=True)
     api = mod.api(cfg, device)
     params = api.init(torch.Generator(device=device).manual_seed(0))
+    n_extra = len(api.prefill_inputs(Shape("x", 8, 1, "prefill"))) - 1
+    offset = getattr(cfg, "n_patches", 0)       # the VLM's patch rows before the text
+
+    def prefill_fn(tokens, cache):
+        if n_extra:  # multimodal stubs: zero frames or patches
+            structs = api.prefill_inputs(Shape("x", tokens.shape[1] + offset,
+                                               tokens.shape[0], "prefill"))
+            extra = tuple(torch.zeros(s.shape, dtype=s.dtype, device=device)
+                          for s in structs[:-1])
+            return api.prefill(params, *extra, tokens, cache)
+        return api.prefill(params, tokens, cache)
+
     engine = ServeEngine(
-        prefill_fn=lambda tokens, cache: api.prefill(params, tokens, cache),
-        decode_fn=lambda tok, pos, cache: api.decode(params, tok, pos, cache),
-        make_cache_fn=api.make_cache,
+        prefill_fn=prefill_fn,
+        decode_fn=lambda tok, pos, cache: api.decode(params, tok, pos + offset, cache),
+        make_cache_fn=lambda b, ml: api.make_cache(b, ml + offset),
         batch_size=args.batch_size, max_len=args.max_len,
         temperature=args.temperature, device=device)
 

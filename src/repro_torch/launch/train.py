@@ -3,14 +3,16 @@
 Trains a rec-family arch (``dlrm-criteo``, ``dcn-criteo``) on the
 synthetic Criteo stream, or an LM arch (``tinyllama-1.1b``,
 ``qwen3-14b``, ``yi-34b``, ``granite-8b``, ``arctic-480b``,
-``deepseek-v2-236b``, and the SSM family's ``mamba2-370m`` and
-``zamba2-1.2b``) on the synthetic LM stream (``data.lm``: the arch's
-optimizer, Adam 3e-4 below 30 B parameters and Adafactor 1e-3 above; the
-plain path with the flash backward, the vocabulary through the plain
-``embed.apply``, the MoE archs' load-balance loss added to the loss;
-``--seq-len`` sets its sequence length), as the JAX package's launcher
-does: the reduced
-config by default, ``--no-reduced`` for the full Kaggle tables, a memory
+``deepseek-v2-236b``, the SSM family's ``mamba2-370m`` and
+``zamba2-1.2b``, the encoder-decoder ``seamless-m4t-large-v2`` and the
+VLM ``llava-next-34b``) on the synthetic LM stream through the arch's
+``api.batch_fn`` (``data.lm``, with stub frames or patches for the
+multimodal archs; the arch's optimizer, Adam 3e-4 below 30 B parameters
+and Adafactor 1e-3 above; the plain path with the flash backward, the
+vocabulary through the plain ``embed.apply``, the MoE archs'
+load-balance loss added to the loss; ``--seq-len`` sets its sequence
+length), as the JAX package's launcher does: the reduced config by
+default, ``--no-reduced`` for the full Kaggle tables, a memory
 plan through ``--plan`` / ``--plan-budget-mb`` (``launch/plan_cli.py``),
 checkpoints under ``--ckpt-dir`` (restart-safe), and ``--trace`` /
 ``--metrics-out`` for per-step spans and the metrics registry.  Runs on
@@ -32,9 +34,7 @@ bytes of every leaf per step (``train_wire_bytes_total``).  Under
 Without ``torchrun`` it makes a process group of one on the chosen
 device, so the step and its collectives still run (at one rank every
 ring formula gives 0 bytes).  Rank 0 prints, writes the registry and the
-checkpoints; every rank resumes from them.  The LM family's
-encoder-decoder and VLM archs wait for their blocks (ROADMAP item
-18b-iii).
+checkpoints; every rank resumes from them.
 """
 
 from __future__ import annotations
@@ -98,15 +98,11 @@ def main(argv=None):
     args = ap.parse_args(argv)
 
     from .. import tree
-    from ..configs import ARCHS, get_arch
+    from ..configs import get_arch
     from ..configs.common import Shape
     from ..train.loop import (TrainConfig, Trainer, init_dp_state, init_state,
                               make_dp_train_step, make_train_step)
 
-    if args.arch not in ARCHS:
-        raise SystemExit(f"{args.arch} is not ported: the LM family's encoder-decoder and "
-                         "VLM archs wait for ROADMAP item 18b-iii (the port trains "
-                         f"{', '.join(sorted(ARCHS))})")
     mod = get_arch(args.arch)
     plan = resolve_plan_args(mod, args)
     if plan is not None:

@@ -1852,3 +1852,66 @@ def test_qk_norm_lm_on_the_card_equals_the_cpu(cuda):
     _lm_family_card_vs_cpu(cuda, "qwen3-14b", (
         lm.init, lambda p, b, cfg: lm.loss_fn(p, b, cfg), lm.make_decode_cache, lm.prefill,
         lm.decode_step))
+
+
+# ---------------------------------------------------------------- encoder-decoder and VLM (ROADMAP 18b-iii)
+
+
+@pytest.mark.parametrize("arch", ["seamless-m4t-large-v2", "llava-next-34b"])
+def test_multimodal_lm_on_the_card_equals_the_cpu(cuda, arch):
+    """The reduced seamless-m4t (stub frames) and llava-next (stub patches)
+    in f32 on the card against the CPU: the loss within 1e-5 and the
+    gradients within 1e-4; prefill and two decode steps (the VLM's after
+    its patch rows) with one K1 launch each and no other kernel, the
+    logits and the caches within 1e-4; K1 bit-equal to the plain lookup;
+    and on each device the served logits within 1e-4 of the plain
+    teacher-forced forward's."""
+    from repro_torch import tree
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import launch_counters
+    from repro_torch.models import encdec, lm, vlm
+    from repro_torch.train.loop import value_and_grad
+    mod = get_arch(arch)
+    cfg = mod.config(reduced=True)
+    params = mod.api(cfg, "cpu").init(torch.Generator().manual_seed(0))
+    is_encdec = arch == "seamless-m4t-large-v2"
+    rows, plen = (0 if is_encdec else cfg.n_patches), 20
+    batch = mod.api(cfg, "cpu").batch_fn(0, Shape("t", rows + plen, 3, "train"))
+    res = {}
+    for device in ("cpu", cuda):
+        api, p = mod.api(cfg, device), _on(device, params)
+        b = {k: v.to(device) for k, v in batch.items()}
+        (loss, _), grads = value_and_grad(api.loss_fn)(p, b)
+        tokens, stub = b["tokens"], b["frames" if is_encdec else "patches"]
+        inputs = [tokens[:, :1], tokens[:, 1:2]]
+        for fn in launch_counters().values():
+            fn.launches = 0
+        with torch.inference_mode():
+            cache = api.make_cache(3, rows + 32)
+            logits, cache = api.prefill(p, stub, tokens, cache)
+            served = [logits[:, -1]]
+            for i, tok in enumerate(inputs):
+                logits, cache = api.decode(p, tok, rows + plen + i, cache)
+                served.append(logits[:, -1])
+        counts = {name: fn.launches for name, fn in launch_counters().items()}
+        assert counts == {**{k: 0 for k in counts}, "qr_gather": 3 if device == cuda else 0}
+        emb_p, emb_cfg = (p, cfg) if is_encdec else (p["lm"], cfg.lm)
+        seq = torch.cat([tokens] + inputs, 1)
+        with torch.inference_mode():
+            assert torch.equal(lm.embed_serving(emb_p, tokens, emb_cfg),
+                               lm.embed_tokens(emb_p, tokens, emb_cfg))
+            if is_encdec:
+                h = encdec.encdec_forward(p, lm.embed_tokens(p, seq, cfg),
+                                          encdec.encode(p, stub, cfg), cfg)
+            else:
+                h = vlm.vlm_forward(p, stub, lm.embed_tokens(p["lm"], seq, cfg.lm),
+                                    cfg)[0][:, rows:]
+            teacher = h[:, plen - 1:plen + 2] @ emb_p["lm_head"]["w"]
+        served = torch.stack(served, 1)
+        assert _rel_err(served, teacher.cpu()) <= 1e-4
+        res[str(device)] = (float(loss), [g.cpu() for g in tree.leaves(grads)], served.cpu(),
+                            [t.cpu() for t in tree.leaves(cache)])
+    cpu, card = res["cpu"], res[str(cuda)]
+    assert abs(card[0] - cpu[0]) <= 1e-5 * abs(cpu[0])
+    for a, b in zip(card[1] + [card[2]] + card[3], cpu[1] + [cpu[2]] + cpu[3]):
+        assert _rel_err(a, b) <= 1e-4
