@@ -296,7 +296,25 @@ Phases (any failure exits non-zero, and no result line is printed):
    into a cache of ``max_len + 1,152`` rows (ROADMAP §3 finding 13), with
    [encdec]'s gates (K1 embeds the text only); 10 Adafactor (1e-4) steps
    at 2 layers, B=2, 1,152 patches + 256 tokens (the loss falls);
-25. run the paper's §5 experiment (``repro_torch.benchmarks.paper_tables``)
+25. ``[mesh]``: the full-width int8 DLRM-Criteo (135,528,097 parameters)
+   served by ``RecsysEngine(mesh=)`` on a ``(data=1, model=1)`` NCCL
+   ``DeviceMesh`` of this card (the parameters DTensors by the inference
+   placement, the dense stage on DTensors, the kernels on local tensors)
+   and by the unmeshed engine, on the 2,048 requests in waves of 256:
+   scores bit-equal, one grouped K4 and one K2 per wave and nothing else,
+   no bytes gathered; p50 / p99 / QPS of both;
+26. ``[dryrun]``: the dry run (``repro_torch.launch.dryrun``) of one cell
+   per family of the ten assigned archs at full width on pod_32x8 —
+   tinyllama-1.1b at train_4k, prefill_32k and decode_32k,
+   deepseek-v2-236b, zamba2-1.2b, seamless-m4t-large-v2 and
+   llava-next-34b at decode_32k, mamba2-370m at long_500k — each in its
+   own process on a fake process group of 256 (``meta`` tensors: nothing
+   launched), all started together; per cell the per-GPU flops, bytes,
+   wire bytes by mesh axis, argument and peak bytes, the dominant term and
+   MODEL/counted flops (at most 1), the arguments over 256 GPUs at least
+   the unsharded ones; then the roofline table at the H100 constants
+   (derived, not measured);
+27. run the paper's §5 experiment (``repro_torch.benchmarks.paper_tables``)
    on the card for ``PAPER_ROWS``: fig4's six rows (DLRM and DCN x full,
    hash, QR mult) and QR add, concat, feature mode, threshold 2,000 and
    the path-based table at hidden 16, each trained 400 steps at B=256 on
@@ -315,7 +333,7 @@ Phases (any failure exits non-zero, and no result line is printed):
    ``fig4/dlrm/qr_mult`` 400 steps on the machine's CPU and print its
    held-out |Δ| from the card, and profile one DLRM and one DCN row's
    step (device ms, device operations, busy share);
-26. time each kernel, its plain version and a PyTorch yardstick with CUDA
+28. time each kernel, its plain version and a PyTorch yardstick with CUDA
    events, compute each kernel's bound from this run's inputs, and print
    the ``kernels`` JSON line.  The grouped kernels are timed at a full
    26-table wave (K4) and batch (K1 in f32, K5) at 1 to 16 threads per
@@ -330,7 +348,7 @@ Phases (any failure exits non-zero, and no result line is printed):
    K1 at TinyLlama's, DeepSeek-V2's, Mamba2's, Qwen3's, seamless-m4t's
    and llava-next's prefill (8,192 ids) and decode (16 ids) shapes.
 
-Each of the paths in 8 to 25 runs with every launch count set to 0
+Each of the paths in 8 to 27 runs with every launch count set to 0
 just before it and read just after (in 18, in each rank's process: the
 ``kernels`` line sums the ranks); launches made to compare a kernel
 with its plain version count nowhere.  Peak device memory is printed as
@@ -5517,6 +5535,160 @@ def mm_full_width(torch, card, kind):
     return {kind: counts}, k1_inputs, emb_diff
 
 
+# ------------------------------------------------------------------ [mesh] / [dryrun]
+
+MESH_DIR = os.path.join(ROOT, "build", "mesh")
+MESH_PARAMS = 135_528_097           # the full-width DLRM-Criteo (26 Kaggle tables, QR c=4)
+DRYRUN_DIR = os.path.join(ROOT, "build", "dryrun")
+# one cell per family of the ten assigned archs on pod_32x8 (dense, moe, ssm,
+# hybrid, audio, vlm), the dense family at every shape kind
+DRYRUN_CELLS = (("tinyllama-1.1b", "train_4k"), ("tinyllama-1.1b", "prefill_32k"),
+                ("tinyllama-1.1b", "decode_32k"), ("deepseek-v2-236b", "decode_32k"),
+                ("mamba2-370m", "long_500k"), ("zamba2-1.2b", "decode_32k"),
+                ("seamless-m4t-large-v2", "decode_32k"), ("llava-next-34b", "decode_32k"))
+DRYRUN_TIMEOUT = 600
+
+
+def _mesh_lane(torch, cfg, qparams, warm, main, label, **kw):
+    """One engine over ``warm`` then the timed ``main`` requests; the launch
+    counts of the timed pass, its scores and metrics."""
+    import numpy as np
+
+    from repro_torch.serve.recsys import RecsysEngine
+
+    engine = RecsysEngine(cfg, qparams, max_batch=256, batching="continuous", **kw)
+    for dense, bags in warm:
+        engine.submit(dense, bags)
+    engine.run_until_drained()
+    engine.reset_metrics()
+    torch.cuda.synchronize()
+    _zero_counts()
+    uids = [engine.submit(dense, bags) for dense, bags in main]
+    done = engine.run_until_drained()
+    counts = _read_counts()
+    m = engine.metrics()
+    scores = np.array([done[u].score for u in uids], dtype=np.float32)
+    if len(scores) != len(main) or not np.isfinite(scores).all():
+        _fail(f"[mesh] {label}: not every request was scored with a finite value")
+    _check_counts(f"mesh/{label}", counts, {"fused_serve_pool": m["waves"],
+                                            "dot_interaction": m["waves"]})
+    print(f"  {label}: {m['requests']} requests in {m['waves']} waves | p50 {m['p50_ms']:.3f} ms "
+          f"p99 {m['p99_ms']:.3f} ms qps {m['qps']:.1f}")
+    return counts, scores, m
+
+
+def mesh_full_width(torch, card):
+    """``[mesh]``: the full-width int8 DLRM-Criteo served by
+    ``RecsysEngine(mesh=)`` on a (data=1, model=1) NCCL ``DeviceMesh`` of
+    this card, and by the unmeshed engine on the same 2,048 requests in
+    waves of 256: scores bit-equal, one grouped K4 and one K2 per wave and
+    nothing else on each, nothing gathered.  Returns the meshed run's
+    launch counts."""
+    import numpy as np
+    import torch.distributed as dist
+
+    from repro_torch import tree
+    from repro_torch.configs import dlrm_criteo
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models.dlrm import dlrm_init
+    from repro_torch.serve.quantize import quantize_params
+
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(dlrm_criteo.config(reduced=False), use_kernel=True)
+    params = dlrm_init(cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
+    n = sum(leaf.numel() for leaf in tree.leaves(params))
+    if n != MESH_PARAMS:
+        _fail(f"[mesh] the full-width DLRM-Criteo has {n} parameters, expected {MESH_PARAMS}")
+    qparams = quantize_params(params, mode="int8")
+    del params
+    warm, main = _serve_requests(cfg)
+    os.makedirs(MESH_DIR, exist_ok=True)
+    store = os.path.join(MESH_DIR, "store")
+    if os.path.exists(store):
+        os.remove(store)
+    dist.init_process_group("nccl", store=dist.FileStore(store, 1), rank=0, world_size=1,
+                            device_id=torch.device("cuda", torch.cuda.current_device()))
+    try:
+        mesh = make_local_mesh(1, 1)
+        print(f"  {n} parameters, int8 tables; mesh {mesh}")
+        _, one, m_one = _mesh_lane(torch, cfg, qparams, warm, main, "unmeshed")
+        counts, got, m_mesh = _mesh_lane(torch, cfg, qparams, warm, main, "meshed", mesh=mesh)
+        _, again, m_again = _mesh_lane(torch, cfg, qparams, warm, main, "meshed again",
+                                       mesh=mesh)
+    finally:
+        dist.destroy_process_group()
+    if not (np.array_equal(got, one) and np.array_equal(again, one)):
+        _fail(f"[mesh] meshed scores differ from the unmeshed engine's: max |diff| "
+              f"{float(np.abs(got - one).max()):.3e}")
+    if m_mesh["mesh"]["gather_bytes"] != 0:
+        _fail(f"[mesh] a (1, 1) mesh gathered {m_mesh['mesh']['gather_bytes']} B")
+    print(f"  meshed scores bit-equal to the unmeshed engine's on {len(main)} requests; "
+          f"nothing gathered")
+    prof = {"card": card, "requests": len(main), "waves": m_mesh["waves"],
+            "unmeshed": {k: m_one[k] for k in ("p50_ms", "p99_ms", "qps")},
+            "meshed": {k: m_mesh[k] for k in ("p50_ms", "p99_ms", "qps")},
+            "meshed_again": {k: m_again[k] for k in ("p50_ms", "p99_ms", "qps")},
+            "phase_s": time.perf_counter() - t0}
+    print(f"  card: {card}; [mesh] {prof['phase_s']:.1f} s")
+    print(json.dumps({"mesh_profile": prof}))
+    return counts
+
+
+def dryrun_cells(card):
+    """``[dryrun]``: the port's dry run of ``DRYRUN_CELLS`` at full width on
+    pod_32x8 (a fake process group of 256 in each of the cells' processes,
+    started together; ``meta`` tensors, nothing launched), then the
+    roofline at the H100 constants.  Gates: every cell ``ok``, each cell's
+    MODEL/counted flops at most 1, and its argument bytes times the 256
+    GPUs at least the unsharded arguments'."""
+    from repro_torch.benchmarks import roofline
+
+    t0 = time.perf_counter()
+    os.makedirs(DRYRUN_DIR, exist_ok=True)
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"), CUDA_VISIBLE_DEVICES="")
+    procs = [subprocess.Popen([sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", a,
+                               "--shape", s, "--mesh", "single", "--out", DRYRUN_DIR, "--force"],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+                              env=env, cwd=ROOT) for a, s in DRYRUN_CELLS]
+    for p in procs:
+        try:
+            out, _ = p.communicate(timeout=DRYRUN_TIMEOUT)
+        except subprocess.TimeoutExpired:
+            for q in procs:
+                q.kill()
+            _fail(f"[dryrun] a cell ran past {DRYRUN_TIMEOUT} s")
+        if p.returncode != 0:
+            print(out[-3000:])
+            _fail(f"[dryrun] {' '.join(p.args[3:7])} exited {p.returncode}")
+    cells = []
+    for arch, shape in DRYRUN_CELLS:
+        with open(os.path.join(DRYRUN_DIR, f"{arch}__{shape}__pod_32x8.json")) as f:
+            rec = json.load(f)
+        if not rec.get("ok"):
+            _fail(f"[dryrun] {arch} {shape}: {rec.get('error')}")
+        c = roofline.analyze_cell(rec)
+        mem = rec["memory_analysis"]
+        print(f"  {arch} {shape}: flops {rec['flops_per_chip']:.6g}, bytes "
+              f"{rec['hbm_bytes_per_chip']:.6g}, wire by axis "
+              f"{ {k: round(v) for k, v in rec['collective_wire_bytes_by_axis'].items()} }, "
+              f"argument {mem['argument_size_in_bytes']:.6g} B, peak {mem['peak_live_bytes']:.6g}"
+              f" B per GPU; dominant {c['dominant']}; MODEL/counted "
+              f"{c['model_over_counted_flops']:.4f} (depths {rec['depths_traced']} of "
+              f"{rec['depth']}, {rec['time_trace_s']} s)")
+        if not c["model_over_counted_flops"] <= 1.0:
+            _fail(f"[dryrun] {arch} {shape}: counted flops below the model's useful flops")
+        total = mem["argument_size_in_bytes"] * rec["devices"]
+        if total < mem["unsharded_argument_bytes"]:
+            _fail(f"[dryrun] {arch} {shape}: {rec['devices']} GPUs hold {total} B of arguments, "
+                  f"under the unsharded {mem['unsharded_argument_bytes']} B")
+        cells.append(c)
+    print("  roofline at the H100 constants (derived, not measured):")
+    print("  " + roofline.markdown_table(cells).replace("\n", "\n  "))
+    secs = time.perf_counter() - t0
+    print(f"  card: {card}; [dryrun] {secs:.1f} s for {len(cells)} cells")
+    print(json.dumps({"dryrun_profile": {"card": card, "seconds": secs, "cells": cells}}))
+
+
 def _lm_gather_bound(ids, w_a, w_b):
     """K1 on the LM's vocabulary pair at these ids: the raw ids once, each
     distinct row of both tables once, the output once (table dtype); one
@@ -6368,6 +6540,14 @@ def main() -> int:
           "Adafactor steps at 2 layers")
     mm_counts, vlm_k1, vlm_err = mm_full_width(torch, card, "vlm")
     counts.update(mm_counts)
+    print(f"  ({time.perf_counter() - t0:.0f} s so far)")
+    print("[mesh] full-width int8 DLRM-Criteo served by RecsysEngine(mesh=) on a (1, 1) NCCL "
+          "mesh, against the unmeshed engine")
+    counts["mesh"] = mesh_full_width(torch, card)
+    print(f"  ({time.perf_counter() - t0:.0f} s so far)")
+    print("[dryrun] the dry run of one cell per family at full width on pod_32x8, and its "
+          "roofline at the H100 constants")
+    dryrun_cells(card)
     print(f"  ({time.perf_counter() - t0:.0f} s so far)")
     print("[paper] paper_tables rows trained on the card, held against the CPU and the reference")
     counts["paper"] = paper_rows(torch, card)

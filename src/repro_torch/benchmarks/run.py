@@ -1,13 +1,13 @@
 """Benchmark harness of the port: the paper's tables and figures, the
-kernel bench, then the memory planner's fast section.  ``python -m repro_torch.benchmarks.run [--only SUBSTR]
-[--device cpu]`` prints ``name,us_per_call,derived`` CSV.
+kernel bench, the dry run's roofline rows (derived from the H100
+constants, from the records under ``artifacts/dryrun``), then the memory
+planner's fast section.  ``python -m repro_torch.benchmarks.run
+[--only SUBSTR] [--device cpu]`` prints ``name,us_per_call,derived`` CSV.
 
 A section that raises is reported as a ``<section>/ERROR`` row (its
 traceback on stderr); every section still runs, but the process then
 exits 1.  ``--only`` filters sections by substring of their qualified
-name (``module.function``).  The JAX package's harness also runs
-``roofline``; it waits for the port's XLA-free dry run (ROADMAP, modules
-to port: item 18).
+name (``module.function``).
 """
 
 from __future__ import annotations
@@ -51,10 +51,11 @@ def harness(sections, argv=None) -> int:
 
 
 def main(argv=None) -> int:
-    from . import kernels_bench, paper_tables, plan_bench
+    from . import kernels_bench, paper_tables, plan_bench, roofline
 
     return harness([paper_tables.fig4, paper_tables.fig5, paper_tables.fig6,
-                    paper_tables.table1, kernels_bench.rows, plan_bench.rows], argv)
+                    paper_tables.table1, kernels_bench.rows, roofline.rows, plan_bench.rows],
+                   argv)
 
 
 if __name__ == "__main__":

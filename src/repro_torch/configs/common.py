@@ -5,11 +5,23 @@ reference's ``jax.ShapeDtypeStruct``), ``embedding_spec``, and the LM
 family's pieces (``lm_train_batch``, ``default_optimizer``,
 ``default_accum``, ``lm_api``, the SSM family's ``mamba_api`` and
 ``hybrid_api``, and the multimodal ``encdec_api`` and ``vlm_api``).
+
+The dry run's inputs: the assigned shape grid ``SHAPES`` and
+``lowerables(api, shape_name, mesh)``, which returns the callable and its
+arguments for one (arch × shape × mesh) cell, every tensor a DTensor of
+``meta`` shards laid out as the reference lays out its structs
+(``param_structs``, ``state_structs``, ``cache_spec``,
+``_batch_like_spec``):
+    train_*    → train_step(state, batch)
+    prefill_*  → prefill(params, *inputs, cache)
+    decode_* / long_* → decode_step(params, tokens, pos, cache)
+``api`` must be built on the ``meta`` device (``mod.api(cfg, device="meta")``).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 import os
 from typing import Any, Callable, Optional
 
@@ -17,9 +29,10 @@ import torch
 
 from ..core import EmbeddingSpec, factory
 
-__all__ = ["Shape", "ModelApi", "embedding_spec", "resolve_plan", "sds", "lm_train_batch",
-           "default_optimizer", "default_accum", "lm_api", "mamba_api", "hybrid_api",
-           "encdec_api", "vlm_api"]
+__all__ = ["SHAPES", "Shape", "ModelApi", "embedding_spec", "resolve_plan", "sds",
+           "lm_train_batch", "default_optimizer", "default_accum", "lm_api", "mamba_api",
+           "hybrid_api", "encdec_api", "vlm_api", "cache_spec", "param_structs",
+           "state_structs", "lowerables"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -28,6 +41,14 @@ class Shape:
     seq_len: int
     global_batch: int
     kind: str  # train | prefill | decode
+
+
+SHAPES = {
+    "train_4k": Shape("train_4k", 4096, 256, "train"),
+    "prefill_32k": Shape("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": Shape("decode_32k", 32768, 128, "decode"),
+    "long_500k": Shape("long_500k", 524288, 1, "decode"),
+}
 
 
 @dataclasses.dataclass
@@ -220,3 +241,149 @@ def vlm_api(cfg, n_params_billion: float, accum: int | None = None,
             sds((shape.global_batch, cfg.n_patches, cfg.lm.d_model), torch.bfloat16),
             sds((shape.global_batch, shape.seq_len - cfg.n_patches), torch.int32)),
         batch_fn=batch_fn)
+
+
+# ------------------------------------------------------------------ the dry run's inputs
+
+
+def _dp(mesh):
+    from ..dist.sharding import axis_sizes, batch_axes
+    sizes = axis_sizes(mesh)
+    dp = batch_axes(sizes)
+    return sizes, dp, math.prod(sizes[a] for a in dp)
+
+
+def _batch_like_spec(shape, batch, mesh) -> tuple:
+    """Spec of a batch-shaped input: dim 0 over the data group ((pod,)
+    data) where it divides, the rest replicated."""
+    _, dp, n = _dp(mesh)
+    spec = [None] * len(shape)
+    if shape and shape[0] % n == 0 and shape[0] >= n:
+        spec[0] = dp if len(dp) > 1 else dp[0]
+    return tuple(spec)
+
+
+def cache_spec(shape, batch, mesh, prefer_last: bool = False) -> tuple:
+    """KV / state cache spec: stack dims unsharded, the batch dim over the
+    data group, one more dim over ``model``.
+
+    decode (default): the *largest* divisible dim takes ``model`` (usually
+    the sequence: decode reads the whole cache and writes one slot); with
+    the batch too small for the data group, a dim that the data group and
+    ``model`` together divide takes both.
+
+    prefill (``prefer_last``): the *last* divisible dim takes ``model``
+    (the head / latent axis): prefill writes the whole sequence.
+    """
+    sizes, dp, dp_n = _dp(mesh)
+    model_n = sizes.get("model", 1)
+    spec: list = [None] * len(shape)
+    try:
+        bi = list(shape).index(batch)
+    except ValueError:
+        bi = None
+    data_placed = False
+    if bi is not None and shape[bi] % dp_n == 0 and shape[bi] >= dp_n:
+        spec[bi] = dp if len(dp) > 1 else dp[0]
+        data_placed = True
+    cand = [i for i in range(len(shape)) if i != bi and spec[i] is None]
+    if prefer_last:
+        cand.sort(key=lambda i: -i)
+    else:
+        cand.sort(key=lambda i: -shape[i])
+    for i in cand:
+        if not data_placed and not prefer_last \
+                and shape[i] % (dp_n * model_n) == 0 and shape[i] >= dp_n * model_n:
+            spec[i] = tuple(dp) + ("model",)
+            data_placed = True
+            break
+        if shape[i] % model_n == 0 and shape[i] >= model_n:
+            spec[i] = "model"
+            break
+    return tuple(spec)
+
+
+def _distributed(tree_, mesh, spec_fn):
+    """Every leaf of ``tree_`` (``meta`` tensors) a DTensor laid out by
+    ``spec_fn(shape)``."""
+    from .. import tree
+    from ..dist.sharding import NamedSharding, distribute
+    return tree.unflatten(tree_, [distribute(leaf, NamedSharding(mesh, spec_fn(tuple(leaf.shape))))
+                                  for leaf in tree.leaves(tree_)])
+
+
+def param_structs(api: ModelApi, mesh, overrides=None):
+    """The parameters as DTensors of ``meta`` shards, laid out by
+    ``tree_shardings(..., overrides)``."""
+    from .. import tree
+    from ..dist.sharding import distribute, tree_shardings
+    structs = api.init(torch.Generator().manual_seed(0))
+    shardings = tree.leaves(tree_shardings(structs, mesh, overrides))
+    return tree.unflatten(structs, [distribute(leaf, sh) for leaf, sh in
+                                    zip(tree.leaves(structs), shardings)])
+
+
+def _opt_sharding_like(pstructs, ostructs, mesh):
+    """Optimizer state laid out like its parameter where the shapes allow
+    (the parameter's spec, an axis dropped from a dim it does not divide);
+    ``ostructs`` is parallel to the parameter leaves, a dict per leaf."""
+    from .. import tree
+    from ..dist.sharding import axis_sizes, spec_for
+    from ..optim.optimizers import leaf_paths
+    sizes = axis_sizes(mesh)
+    p_specs = [spec_for(path, tuple(leaf.shape), mesh)
+               for path, leaf in zip(leaf_paths(pstructs), tree.leaves(pstructs))]
+
+    def fit(spec, shape):
+        out = []
+        for i, dim in enumerate(shape):
+            ax = spec[i] if i < len(spec) else None
+            if ax is None:
+                out.append(None)
+                continue
+            n = math.prod(sizes[a] for a in (ax if isinstance(ax, tuple) else (ax,)))
+            out.append(ax if (dim % n == 0 and dim >= n) else None)
+        return tuple(out)
+
+    return [_distributed(leaf_state, mesh, lambda shape, spec=spec: fit(spec, shape))
+            for spec, leaf_state in zip(p_specs, ostructs)]
+
+
+def state_structs(api: ModelApi, mesh):
+    """The full train state as DTensors of ``meta`` shards: parameters,
+    optimizer state (``_opt_sharding_like``) and the int32 step."""
+    pstructs = api.init(torch.Generator().manual_seed(0))
+    ostructs = _opt_sharding_like(pstructs, api.optimizer.init(pstructs), mesh)
+    step = _distributed(sds((), torch.int32), mesh, lambda shape: ())
+    return {"params": param_structs(api, mesh), "opt": ostructs, "step": step}
+
+
+def lowerables(api: ModelApi, shape_name: str, mesh):
+    """(callable, ordered arguments) for one (arch × shape × mesh) cell; sets
+    the data-parallel group and the model axis's size that the models'
+    ``constrain`` calls read."""
+    from ..dist.sharding import INFERENCE_OVERRIDES, axis_sizes, batch_axes, set_batch_shard_axes
+    from ..train.loop import make_train_step
+    sizes = axis_sizes(mesh)
+    set_batch_shard_axes(batch_axes(sizes), model_size=sizes.get("model", 1))
+    shape = SHAPES[shape_name]
+    batch_spec = lambda s: _batch_like_spec(s, shape.global_batch, mesh)  # noqa: E731
+    if shape.kind == "train":
+        state = state_structs(api, mesh)
+        batch = _distributed(api.train_batch(shape), mesh, batch_spec)
+        step = make_train_step(api.loss_fn, api.optimizer, accum=api.accum,
+                               accum_dtype=getattr(torch, api.accum_dtype))
+        return step, (state, batch)
+
+    params = param_structs(api, mesh, overrides=INFERENCE_OVERRIDES)
+    cache = api.make_cache(shape.global_batch, shape.seq_len)
+    if shape.kind == "prefill":
+        inputs = _distributed(tuple(api.prefill_inputs(shape)), mesh, batch_spec)
+        cache = _distributed(cache, mesh, lambda s: cache_spec(s, shape.global_batch, mesh,
+                                                               prefer_last=True))
+        return api.prefill, (params,) + tuple(inputs) + (cache,)
+
+    # decode: one new token with a cache of seq_len
+    tokens = _distributed(sds((shape.global_batch, 1), torch.int32), mesh, batch_spec)
+    cache = _distributed(cache, mesh, lambda s: cache_spec(s, shape.global_batch, mesh))
+    return api.decode, (params, tokens, 0, cache)

@@ -122,14 +122,30 @@ def check(name: str, code: int, what: str) -> None:
 
 def launch_device(*tensors):
     """``None`` when every tensor lies on the CPU (the caller takes the
-    plain version), else the one CUDA device they all share.  Raises on a
-    mix of devices or on a device that is neither."""
+    plain version), else the one CUDA device they all share, or ``meta``
+    when they all lie there (a dry run: the launch helpers hand the call
+    to ``meta_call`` and compute nothing).  Raises on a mix of devices or
+    on any other device."""
     devices = {t.device for t in tensors if t is not None}
     if all(d.type == "cpu" for d in devices):
         return None
-    if len(devices) != 1 or next(iter(devices)).type != "cuda":
+    if len(devices) != 1 or next(iter(devices)).type not in ("cuda", "meta"):
         raise ValueError(f"kernel operands must share one CUDA device, got {sorted(map(str, devices))}")
     return next(iter(devices))
+
+
+# Observers of kernel calls on ``meta`` tensors (``launch.cost_analysis``):
+# each is called with the kernel's name and the bytes its bound counts.
+meta_observers: list = []
+
+
+def meta_call(name: str, nbytes: int, out):
+    """A kernel call on ``meta`` operands: no launch and no count on the
+    launch counter; the observers see ``(name, nbytes)``.  Returns
+    ``out``, the call's (``meta``) output."""
+    for observe in meta_observers:
+        observe(name, nbytes)
+    return out
 
 
 def refuse_grad(name: str, tensors) -> None:

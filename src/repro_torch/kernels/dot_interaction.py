@@ -55,6 +55,9 @@ def _launch(name, z, feats, out, z_cols):
     if smem > _SMEM_MAX:
         raise ValueError(f"{name}: F={f}, D={d} need {smem} B of shared memory per block, "
                          f"over {_SMEM_MAX}")
+    if device.type == "meta":
+        return _build.meta_call(name, sum(t.numel() * t.element_size()
+                                          for t in (z, feats, out)), out)
     if b == 0 or out.shape[1] == 0:
         return out
     code = _build.library("dot_interaction").dot_interaction(

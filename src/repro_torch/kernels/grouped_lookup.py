@@ -180,6 +180,8 @@ def launch(counter, name, idx, mask, tables, *, bag: bool, idx_b=None):
     _require(smem <= _SMEM_MAX, name, lambda: f"projections need {smem} B of shared memory "
                                               f"per block, over {_SMEM_MAX}")
     out = torch.empty((b, n_tables, d_out), dtype=out_dtype, device=idx.device)
+    if idx.device.type == "meta":
+        return _build.meta_call(name, _bound_bytes(idx, idx_b, mask, tables, out), out)
     if b == 0:
         return out
     _call(counter, name, ptrs, ints, n_tables, idx, idx_b, idx.stride(), mask,
@@ -224,6 +226,11 @@ def launch_bag_pair(counter, name, idx, mask, w_a, w_b, *, m: int, op: str, idx_
     ptrs = (w_a.data_ptr(), w_b.data_ptr(), 0, 0, 0, 0, 0)
     ints = (m, d, _TYPES[dtype], int(op == "mult"), _vec_bytes(w_a, w_b, tpb))
     out = torch.empty((b, d), dtype=dtype, device=idx.device)   # (B, T=1, d) contiguous
+    if idx.device.type == "meta":
+        return _build.meta_call(name, _bound_bytes(idx[:, None], None if idx_b is None
+                                                   else idx_b[:, None], mask[:, None],
+                                                   [GroupTable(w_a, w_b, m=m, op=op)], out),
+                                out)
     if b == 0:
         return out
     sb, sl = idx.stride()
@@ -231,6 +238,26 @@ def launch_bag_pair(counter, name, idx, mask, w_a, w_b, *, m: int, op: str, idx_
     _call(counter, name, ptrs, ints, 1, idx, idx_b, (sb, 0, sl), mask, (mb, 0, ml), out,
           length, True, True, tpb, 0)
     return out
+
+
+def _bound_bytes(idx, idx_b, mask, tables, out) -> int:
+    """The bytes a call's bound counts (``PERF.md``'s kernel table): ids
+    and mask once, each gathered row once, each projection once, the
+    output once.  Without the ids' values (``meta``), a table's distinct
+    rows are taken as many as its slots, at most its rows."""
+    nbytes = sum(t.numel() * t.element_size() for t in (idx, idx_b, mask, out)
+                 if t is not None)
+    slots = idx.shape[0] * (idx.shape[2] if idx.dim() == 3 else 1)
+    for tab in tables:
+        for w, scale, zp in ((tab.w_a, tab.scale_a, tab.zp_a), (tab.w_b, tab.scale_b, tab.zp_b)):
+            if w is None:
+                continue
+            row = w.shape[1] * w.element_size() + sum(
+                x.element_size() for x in (scale, zp) if x is not None)
+            nbytes += min(slots, w.shape[0]) * row
+        if tab.proj is not None:
+            nbytes += tab.proj.numel() * 4
+    return nbytes
 
 
 def _call(counter, name, ptrs, ints, n_tables, idx, idx_b, idx_strides, mask, mask_strides,

@@ -20,6 +20,7 @@ import torch
 
 from ..core import (CompositionalEmbedding, EmbeddingSpec, FullEmbedding,
                     HashEmbedding, bag_pool, make_embedding)
+from ..dist.sharding import kernel_map
 from ..kernels import ops
 
 __all__ = ["DLRMConfig", "dlrm_init", "dlrm_forward", "dlrm_loss_fn",
@@ -263,7 +264,7 @@ def dlrm_forward_from_features(params, dense_x, feats, cfg: DLRMConfig):
         feats = torch.stack(feats, dim=1)
     feats = feats.to(z.dtype)
     if cfg.use_kernel:
-        top_in = ops.dlrm_interact_concat(z, feats)
+        top_in = kernel_map(ops.dlrm_interact_concat, (z, feats))
     else:
         x = torch.cat([z[:, None, :], feats], dim=1)
         top_in = torch.cat([z, _interact_plain(x)], dim=-1)

@@ -24,8 +24,8 @@ written in place through per-layer views, and the cross-attention K/V,
 computed once from the encoder memory at prefill: ``encdec_prefill``
 returns them at the frames' length ``S_enc`` (not the allocated
 ``max_len // enc_ratio`` of ``encdec_make_cache``), as the reference
-does.  The reference's ``constrain_batch`` calls are sharding only and
-wait for ROADMAP item 18c.
+does.  The reference's ``constrain_batch`` calls stand where it has them
+(the identity on plain tensors).
 """
 
 from __future__ import annotations
@@ -37,6 +37,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from ..core import EmbeddingSpec
+from ..dist.sharding import constrain_batch
 from ..nn.layers import (AttnConfig, attention, attention_init, attention_with_kv, cross_kv,
                          dense, dense_init, mlp, mlp_init, rmsnorm, rmsnorm_init)
 from .lm import _dtype, chunked_xent, embed_module, embed_serving, embed_tokens, stack_layers, \
@@ -128,19 +129,21 @@ def _stack(layer_fn, stacked, h, cfg, *args):
 
 def _enc_layer(lp, h, cfg: EncDecConfig):
     h = h + attention(lp["attn"], rmsnorm(lp["norm1"], h), cfg.attn_cfg(False), cfg.cdtype)
-    return h + mlp(lp["mlp"], rmsnorm(lp["norm2"], h), cfg.cdtype, cfg.ffn_kind)
+    return constrain_batch(h + mlp(lp["mlp"], rmsnorm(lp["norm2"], h), cfg.cdtype,
+                                   cfg.ffn_kind))
 
 
 def _dec_layer(lp, h, cfg: EncDecConfig, memory):
     h = h + attention(lp["self_attn"], rmsnorm(lp["norm1"], h), cfg.attn_cfg(True), cfg.cdtype)
     h = h + attention(lp["cross_attn"], rmsnorm(lp["norm_x"], h), cfg.attn_cfg(False),
                       cfg.cdtype, kv_x=memory)
-    return h + mlp(lp["mlp"], rmsnorm(lp["norm2"], h), cfg.cdtype, cfg.ffn_kind)
+    return constrain_batch(h + mlp(lp["mlp"], rmsnorm(lp["norm2"], h), cfg.cdtype,
+                                   cfg.ffn_kind))
 
 
 def encode(params, frames, cfg: EncDecConfig):
     """frames: (B, S_enc, d_model) stub embeddings → encoder memory."""
-    h = dense(params["frontend_proj"], frames.to(cfg.cdtype), cfg.cdtype)
+    h = constrain_batch(dense(params["frontend_proj"], frames.to(cfg.cdtype), cfg.cdtype))
     return rmsnorm(params["enc_norm"], _stack(_enc_layer, params["encoder"], h, cfg))
 
 

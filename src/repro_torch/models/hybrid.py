@@ -28,7 +28,7 @@ through ``lm.embed_serving``, one K1 launch per call on the card for a
 QR mult/add pair.  Prefill and decode write the caches in place, through
 per-layer views of the stacked tensors (the reference returns updated
 copies; the function is the same).  The reference's ``constrain_batch``
-calls are sharding only and wait for ROADMAP item 18c.
+calls stand where it has them (the identity on plain tensors).
 """
 
 from __future__ import annotations
@@ -40,6 +40,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from ..core import EmbeddingSpec
+from ..dist.sharding import constrain_batch
 from ..nn.layers import (AttnConfig, attention, attention_init, dense, dense_init, make_cache,
                          mlp, mlp_init, rmsnorm, rmsnorm_init)
 from ..nn.ssm import SSMConfig, ssm_apply, ssm_decode, ssm_init, ssm_make_cache
@@ -61,7 +62,7 @@ def _mamba_layer_init(generator, d_model, ssm_cfg: SSMConfig, pdtype, device):
 
 
 def _mamba_layer(lp, h, cfg):
-    return h + ssm_apply(lp["ssm"], rmsnorm(lp["norm"], h), cfg.ssm, cfg.cdtype)
+    return constrain_batch(h + ssm_apply(lp["ssm"], rmsnorm(lp["norm"], h), cfg.ssm, cfg.cdtype))
 
 
 def _prefill_layer(lp, h, cache_l, cfg):

@@ -43,6 +43,7 @@ from torch.utils.checkpoint import checkpoint
 from .. import tree
 from ..core import CompositionalEmbedding, EmbeddingSpec, make_embedding
 from ..core.partitions import QuotientPartition, RemainderPartition
+from ..dist.sharding import constrain, constrain_batch, kernel_map, replicate_dim
 from ..kernels import ops
 from ..nn.layers import (AttnConfig, attention, attention_init, dense, dense_init,
                          make_cache, mlp, mlp_init, rmsnorm, rmsnorm_init)
@@ -173,7 +174,7 @@ def embed_module(cfg: LMConfig):
 def unstack(stacked) -> list:
     """One tree per index of the leaves' leading axis, each leaf a view of
     the stacked leaf (``unbind``: one backward that stacks the gradients)."""
-    cols = [leaf.unbind(0) for leaf in tree.leaves(stacked)]
+    cols = [replicate_dim(leaf, 0).unbind(0) for leaf in tree.leaves(stacked)]
     return [tree.unflatten(stacked, [c[i] for c in cols]) for i in range(len(cols[0]))]
 
 
@@ -215,6 +216,7 @@ def forward_hidden(params, h, cfg: LMConfig, positions=None):
             h, aux = checkpoint(_layer_apply, lp, h, cfg, positions, use_reentrant=False)
         else:
             h, aux = _layer_apply(lp, h, cfg, positions)
+        h = constrain_batch(h)
         if aux is not None:
             auxs.append(aux)
     total = torch.stack(auxs).sum() if auxs else torch.zeros((), dtype=torch.float32,
@@ -225,7 +227,12 @@ def forward_hidden(params, h, cfg: LMConfig, positions=None):
 def embed_tokens(params, tokens, cfg: LMConfig):
     """The plain lookup: ``embed.apply`` (differentiable), cast to the
     compute dtype."""
-    return embed_module(cfg).apply(params["embed"], tokens).to(cfg.cdtype)
+    module, emb = embed_module(cfg), params["embed"]
+    # on DTensors the lookup (an indexed gather, whose backward is an
+    # index_put) runs on each rank's tokens with the tables whole
+    h = kernel_map(lambda ids, *leaves: module.apply(tree.unflatten(emb, list(leaves)), ids),
+                   (tokens,), whole=tuple(tree.leaves(emb)))
+    return constrain_batch(h.to(cfg.cdtype))
 
 
 def _k1_pair(module) -> bool:
@@ -247,8 +254,9 @@ def embed_serving(params, tokens, cfg: LMConfig):
     module = embed_module(cfg)
     if _k1_pair(module):
         p = params["embed"]
-        out = ops.qr_lookup_grouped(tokens.reshape(-1, 1),
-                                    [(p["table_0"], p["table_1"], 0, module.op, None)])
+        out = kernel_map(lambda ids, t0, t1: ops.qr_lookup_grouped(
+            ids, [(t0, t1, 0, module.op, None)]), (tokens.reshape(-1, 1),),
+            whole=(p["table_0"], p["table_1"]))
         if out is not None:
             return out.reshape(*tokens.shape, out.shape[-1]).to(cfg.cdtype)
     return embed_tokens(params, tokens, cfg)
@@ -271,7 +279,9 @@ def chunked_xent(h, labels, mask, head_w, chunk: int):
     total = torch.zeros((), dtype=torch.float32, device=h.device)
     for c in range(0, s + pad, chunk):
         hc, lc, mc = h[:, c:c + chunk], labels[:, c:c + chunk], mask[:, c:c + chunk]
-        logits = (hc @ head_w.to(hc.dtype)).to(torch.float32)
+        # on DTensors the vocabulary whole on each rank: the gold logit's
+        # gather has no strategy over a split vocabulary
+        logits = constrain((hc @ head_w.to(hc.dtype)).to(torch.float32), "dp", None, None)
         logz = torch.logsumexp(logits, dim=-1)
         gold = torch.gather(logits, -1, lc[..., None].long())[..., 0]
         total = total + ((logz - gold) * mc).sum()

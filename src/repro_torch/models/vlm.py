@@ -25,6 +25,7 @@ import dataclasses
 import torch
 import torch.nn.functional as tf
 
+from ..dist.sharding import constrain_batch
 from ..nn.layers import dense, dense_init
 from . import lm as lm_mod
 from .lm import LMConfig, chunked_xent
@@ -59,7 +60,7 @@ def _project(params, patches, cfg: VLMConfig):
 
 def _prefix_hidden(params, patches, text_h, cfg: VLMConfig):
     """The projected patches, then the embedded text ``text_h``."""
-    return torch.cat([_project(params, patches, cfg), text_h], dim=1)
+    return constrain_batch(torch.cat([_project(params, patches, cfg), text_h], dim=1))
 
 
 def vlm_forward(params, patches, text_h, cfg: VLMConfig):

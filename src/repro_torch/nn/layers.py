@@ -27,6 +27,9 @@ from typing import Optional
 import torch
 import torch.nn.functional as tf
 
+from ..dist.sharding import (axis_sizes, constrain, constrain_batch, dp_entry, is_dtensor,
+                             model_divides, replicate_dim, to_placements)
+
 __all__ = [
     "dense_init", "dense", "rmsnorm_init", "rmsnorm", "mlp_init", "mlp",
     "rope", "attention_init", "attention", "make_cache", "AttnConfig",
@@ -71,7 +74,11 @@ def mlp_init(generator, d_model, d_ff, param_dtype, kind: str = "swiglu", device
 
 def mlp(params, x, compute_dtype, kind: str = "swiglu"):
     """Transformer FFN: ``wo(act(wi x))``, with ``silu(wg x) * wi x`` for
-    swiglu, the tanh-approximated gelu (``jax.nn.gelu``'s default) or relu."""
+    swiglu, the tanh-approximated gelu (``jax.nn.gelu``'s default) or relu.
+    On DTensors the reference's pinning: batch-sharded input, hidden
+    sharded over ``model``, batch-sharded output (weights gather, the
+    activations stay put)."""
+    x = constrain_batch(x)
     h = dense(params["wi"], x, compute_dtype)
     if kind == "swiglu":
         h = tf.silu(dense(params["wg"], x, compute_dtype)) * h
@@ -79,7 +86,9 @@ def mlp(params, x, compute_dtype, kind: str = "swiglu"):
         h = tf.gelu(h, approximate="tanh")
     else:
         h = torch.relu(h)
-    return dense(params["wo"], h, compute_dtype)
+    if h.dim() == 3:
+        h = constrain(h, "dp", None, "model")
+    return constrain_batch(dense(params["wo"], h, compute_dtype))
 
 
 # ---------------------------------------------------------------- rope
@@ -241,10 +250,51 @@ def flash_attention(q, k, v, *, causal: bool = True, q_offset: int = 0,
     (decode over a cache; that path is not differentiated).
     Returns (B, Sq, H, Dv).
     """
+    if is_dtensor(q) or is_dtensor(k):
+        return _on_local_heads(lambda ql, kl, vl: flash_attention(
+            ql, kl, vl, causal=causal, q_offset=q_offset, block_q=block_q, block_k=block_k,
+            kv_len=kv_len), q, k, v)
     grad = torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v))
     if kv_len is not None or not grad:
         return _flash_fwd_impl(q, k, v, causal, q_offset, block_q, block_k, kv_len)[0]
     return _FlashFn.apply(q, k, v, causal, q_offset, block_q, block_k)
+
+
+def _on_local_heads(fn, q, k, v):
+    """``fn(q, k, v)``, an attention over ``(B, S, H, D)`` heads with GQA, on
+    DTensors through ``local_map``: the batch over the data group, the
+    heads over ``model`` where they split — q and kv heads both, or q heads
+    only when the kv heads divide ``model`` (each rank's q heads then share
+    one kv head, which the rank takes from the whole k / v) — else whole on
+    every rank.  The flash path's custom autograd runs on the local
+    shards; a rank's gradient of the kv head it took is a pending sum
+    (``Partial``) over ``model``."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate
+    from torch.distributed.tensor.experimental import local_map
+    mesh = (q if is_dtensor(q) else k).device_mesh
+    q, k, v = (x if is_dtensor(x) else DTensor.from_local(x, mesh, (Replicate(),) * mesh.ndim)
+               for x in (q, k, v))
+    m = axis_sizes(mesh).get("model", 1)
+    h, hkv = q.shape[2], k.shape[2]
+    g = h // hkv
+    q_heads = "model" if h % m == 0 and (hkv % m == 0 or m % hkv == 0) else None
+    kv_heads = "model" if q_heads and hkv % m == 0 else None
+    dp = dp_entry(mesh, q.shape[0])
+    q_pl = to_placements((dp, None, q_heads, None), mesh)
+    kv_pl = to_placements((dp, None, kv_heads, None), mesh)
+
+    def local(ql, kl, vl):
+        if q_heads and not kv_heads and kl.shape[2] > 1:
+            i = mesh.get_local_rank("model") * ql.shape[2] // g
+            kl, vl = kl[:, :, i:i + 1], vl[:, :, i:i + 1]
+        return fn(ql, kl, vl)
+
+    kv_grad = [Partial() if q_heads and not kv_heads and name == "model" else p
+               for name, p in zip(mesh.mesh_dim_names, kv_pl)]
+    q_pl, kv_pl = list(q_pl), list(kv_pl)
+    return local_map(local, out_placements=q_pl, in_placements=(q_pl, kv_pl, kv_pl),
+                     in_grad_placements=(q_pl, kv_grad, kv_grad), device_mesh=mesh,
+                     redistribute_inputs=True)(q, k, v)
 
 
 # ---------------------------------------------------------------- attention layer
@@ -299,11 +349,17 @@ def attention(params, x, cfg: AttnConfig, compute_dtype, *, positions=None,
     """
     b, s, _ = x.shape
     src = x if kv_x is None else kv_x
-    q = dense(params["wq"], x, compute_dtype).reshape(b, s, cfg.n_heads, cfg.d_head)
-    k = dense(params["wk"], src, compute_dtype).reshape(b, src.shape[1], cfg.n_kv_heads,
-                                                        cfg.d_head)
-    v = dense(params["wv"], src, compute_dtype).reshape(b, src.shape[1], cfg.n_kv_heads,
-                                                        cfg.d_head)
+    # on DTensors the reference's pinning: the flat head dim over ``model``
+    # only where the head count splits over it
+    qm = "model" if model_divides(cfg.n_heads) else None
+    km = "model" if model_divides(cfg.n_kv_heads) else None
+    # (and whole where it does not: a split head dim cannot be unflattened)
+    q = _flat_heads(constrain(dense(params["wq"], x, compute_dtype), "dp", None, qm), qm) \
+        .reshape(b, s, cfg.n_heads, cfg.d_head)
+    k = _flat_heads(constrain(dense(params["wk"], src, compute_dtype), "dp", None, km), km) \
+        .reshape(b, src.shape[1], cfg.n_kv_heads, cfg.d_head)
+    v = _flat_heads(constrain(dense(params["wv"], src, compute_dtype), "dp", None, km), km) \
+        .reshape(b, src.shape[1], cfg.n_kv_heads, cfg.d_head)
     if cfg.qk_norm:
         q = rmsnorm(params["q_norm"], q)
         k = rmsnorm(params["k_norm"], k)
@@ -318,17 +374,47 @@ def attention(params, x, cfg: AttnConfig, compute_dtype, *, positions=None,
 
     if cache is not None:
         start = 0 if cache_index is None else cache_index
-        cache["k"][:, start:start + s] = k.to(cache["k"].dtype)
-        cache["v"][:, start:start + s] = v.to(cache["v"].dtype)
+        cache_write(cache["k"], k, start)
+        cache_write(cache["v"], v, start)
         if cache_index is not None:  # decode: attend over the cache's first index + s rows
             out = _decode_attend(q, cache["k"], cache["v"], cache_index + s, compute_dtype)
         else:  # prefill into the cache
             out = flash_attention(q, k, v, causal=cfg.causal)
-        out = out.reshape(b, s, cfg.n_heads * cfg.d_head)
-        return dense(params["wo"], out, compute_dtype), cache
+        out = constrain(out.reshape(b, s, cfg.n_heads * cfg.d_head), "dp", None, "model")
+        return constrain_batch(dense(params["wo"], out, compute_dtype)), cache
 
     out = flash_attention(q, k, v, causal=cfg.causal and kv_x is None)
-    return dense(params["wo"], out.reshape(b, s, cfg.n_heads * cfg.d_head), compute_dtype)
+    out = constrain(out.reshape(b, s, cfg.n_heads * cfg.d_head), "dp", None, "model")
+    return constrain_batch(dense(params["wo"], out, compute_dtype))
+
+
+def _flat_heads(x, split):
+    """``x`` (B, S, H·D) whole along the flat head dim unless ``split``."""
+    return x if split else replicate_dim(x, 2)
+
+
+def cache_write(cache_t, new, start: int) -> None:
+    """``cache_t[:, start:start + S] = new`` in place, ``new`` (B, S, ...)
+    cast to the cache's dtype.  A DTensor cache is written through its
+    local shard (an in-place write has no sharding strategy): ``new``
+    takes the cache's layout, whole along the sequence, and each rank
+    writes the rows of its own sequence range."""
+    if not is_dtensor(cache_t):
+        cache_t[:, start:start + new.shape[1]] = new.to(cache_t.dtype)
+        return
+    from torch.distributed.tensor import DTensor, Replicate
+    from torch.distributed.tensor._utils import compute_local_shape_and_global_offset
+    mesh, pl = cache_t.device_mesh, cache_t.placements
+    if not is_dtensor(new):
+        new = DTensor.from_local(new, mesh, (Replicate(),) * mesh.ndim)
+    whole_seq = tuple(Replicate() if getattr(p, "dim", None) == 1 else p for p in pl)
+    new_l = new.redistribute(mesh, whole_seq).to_local()
+    local = cache_t.to_local()
+    _, off = compute_local_shape_and_global_offset(cache_t.shape, mesh, pl)
+    lo, n = off[1], local.shape[1]
+    a, e = max(start, lo), min(start + new.shape[1], lo + n)
+    if a < e:
+        local[:, a - lo:e - lo] = new_l[:, a - start:e - start].to(local.dtype)
 
 
 def cross_kv(params, kv_x, cfg: AttnConfig, compute_dtype):
@@ -355,7 +441,17 @@ def attention_with_kv(params, x, k, v, cfg: AttnConfig, compute_dtype):
 def _decode_attend(q, k_cache, v_cache, kv_len, compute_dtype):
     """Single/few-token attention over a cache: O(S) scores, no S×S.  The
     scores and softmax in f32; the probabilities round to the compute
-    dtype, and their product with v is in it."""
+    dtype, and their product with v is in it.  A DTensor cache is attended
+    shard by shard (``over_cache_shards``)."""
+    if is_dtensor(k_cache):
+        return over_cache_shards(
+            lambda ql, kl, vl, key_offset, groups: _decode_attend_local(
+                ql, kl, vl, kv_len, compute_dtype, key_offset, groups),
+            q, k_cache, v_cache)
+    return _decode_attend_local(q, k_cache, v_cache, kv_len, compute_dtype)
+
+
+def _decode_attend_local(q, k_cache, v_cache, kv_len, compute_dtype, key_offset=0, groups=()):
     b, s, h, dh = q.shape
     hkv = k_cache.shape[2]
     g = h // hkv
@@ -363,8 +459,56 @@ def _decode_attend(q, k_cache, v_cache, kv_len, compute_dtype):
     scores = torch.einsum("bqhgd,bkhd->bhgqk", qg,
                           k_cache.to(compute_dtype).to(torch.float32))
     scores = scores * (dh ** -0.5)
-    kpos = torch.arange(k_cache.shape[1], device=q.device)
+    kpos = key_offset + torch.arange(k_cache.shape[1], device=q.device)
     scores = torch.where(kpos < kv_len, scores, -torch.inf)
-    p = torch.softmax(scores, dim=-1)
-    out = torch.einsum("bhgqk,bkhd->bqhgd", p.to(compute_dtype), v_cache.to(compute_dtype))
+    out = split_softmax_product(
+        scores, lambda p: torch.einsum("bhgqk,bkhd->bqhgd", p.to(compute_dtype),
+                                       v_cache.to(compute_dtype)), groups)
     return out.reshape(b, s, h, dh)
+
+
+def split_softmax_product(scores, product, groups=()):
+    """``product(softmax(scores, -1))`` where ``product`` is linear in the
+    probabilities.  With ``groups`` (``(mesh, mesh dim)`` pairs over whose
+    ranks the key axis is split) each rank holds its keys' scores: the
+    max, the denominator and the product are all-reduced over the groups
+    (the partial reductions GSPMD makes of a softmax over a sharded
+    axis)."""
+    if not groups:
+        return product(torch.softmax(scores, dim=-1))
+    from torch.distributed import _functional_collectives as funcol
+    m = scores.amax(dim=-1, keepdim=True)
+    for group in groups:
+        m = funcol.all_reduce(m, "max", group)
+    p = torch.exp(scores - m)
+    den = p.sum(dim=-1, keepdim=True)
+    for group in groups:
+        den = funcol.all_reduce(den, "sum", group)
+    out = product(p / den)
+    for group in groups:
+        out = funcol.all_reduce(out, "sum", group)
+    return out
+
+
+def over_cache_shards(fn, q, *caches):
+    """``fn(q, *caches, key_offset, groups)`` on the local shards of
+    DTensor caches ``(B, T, ...)``: q (B, S, ...) takes the caches' batch
+    layout and is whole otherwise, each rank attends over its own key range
+    (the caches' dim 1, which starts at ``key_offset`` on this rank) and
+    ``groups`` names the mesh dims that split it, for
+    ``split_softmax_product``.  A cache split on a dim past the keys is
+    gathered along it first.  Returns q's layout."""
+    from torch.distributed.tensor import DTensor, Replicate
+    from torch.distributed.tensor._utils import compute_local_shape_and_global_offset
+    mesh = caches[0].device_mesh
+    pl = tuple(p if getattr(p, "dim", None) in (0, 1) else Replicate()
+               for p in caches[0].placements)
+    caches = [c.redistribute(mesh, pl) if tuple(c.placements) != pl else c for c in caches]
+    q_pl = tuple(p if getattr(p, "dim", None) == 0 else Replicate() for p in pl)
+    if not is_dtensor(q):
+        q = DTensor.from_local(q, mesh, (Replicate(),) * mesh.ndim)
+    q = q.redistribute(mesh, q_pl)
+    _, off = compute_local_shape_and_global_offset(caches[0].shape, mesh, pl)
+    groups = [(mesh, i) for i, p in enumerate(pl) if getattr(p, "dim", None) == 1]
+    out = fn(q.to_local(), *(c.to_local() for c in caches), off[1], groups)
+    return DTensor.from_local(out, mesh, q_pl, run_check=False)

@@ -15,8 +15,9 @@ The cache is ``{"ckv": (B, T, kv_lora), "krope": (B, T, d_rope)}`` in the
 compute dtype, written in place (prefill at offset 0, decode at
 ``cache_index``), as the port's dense attention writes its KV cache; the
 reference returns an updated copy, the function is the same.  Its
-``constrain`` calls are sharding only (the identity on one device) and
-are left out until ROADMAP item 18c.
+``constrain`` calls are the reference's (the identity on plain tensors);
+on DTensors the cache is written and attended through each rank's shard
+(``layers.cache_write``, ``layers.over_cache_shards``).
 """
 
 from __future__ import annotations
@@ -25,7 +26,9 @@ import dataclasses
 
 import torch
 
-from .layers import dense, dense_init, flash_attention, rmsnorm, rmsnorm_init, rope
+from ..dist.sharding import constrain, is_dtensor
+from .layers import (cache_write, dense, dense_init, flash_attention, over_cache_shards, rmsnorm,
+                     rmsnorm_init, rope, split_softmax_product)
 
 __all__ = ["MLAConfig", "mla_init", "mla_apply", "mla_make_cache"]
 
@@ -89,19 +92,36 @@ def _absorbed_decode(params, q_nope, q_rope, cache, cfg, compute_dtype, kv_len):
     b, s, h, _ = q_nope.shape
     wk_b = params["wk_b"]["w"].to(compute_dtype).reshape(cfg.kv_lora, h, cfg.d_nope)
     wv_b = params["wv_b"]["w"].to(compute_dtype).reshape(cfg.kv_lora, h, cfg.d_v)
-    ckv = cache["ckv"].to(compute_dtype)
     # q absorbed into latent space: (B, s, H, kv_lora)
     q_lat = torch.einsum("bshn,khn->bshk", q_nope, wk_b)
-    scores = (torch.einsum("bshk,btk->bhst", q_lat.to(torch.float32), ckv.to(torch.float32))
-              + torch.einsum("bshr,btr->bhst", q_rope.to(torch.float32),
-                             cache["krope"].to(compute_dtype).to(torch.float32)))
-    scores = scores * ((cfg.d_nope + cfg.d_rope) ** -0.5)
-    tpos = torch.arange(ckv.shape[1], device=ckv.device)
-    scores = torch.where(tpos < kv_len, scores, -torch.inf)
-    w = torch.softmax(scores, dim=-1)
-    o_lat = torch.einsum("bhst,btk->bshk", w.to(compute_dtype), ckv)
+    q_both = torch.cat([q_lat.to(torch.float32), q_rope.to(torch.float32)], dim=-1) \
+        if is_dtensor(cache["ckv"]) else None
+    if q_both is not None:   # a DTensor cache: attended shard by shard
+        o_lat = over_cache_shards(
+            lambda ql, ckv, krope, key_offset, groups: _latent_attend(
+                ql[..., :cfg.kv_lora], ql[..., cfg.kv_lora:], ckv, krope, cfg, compute_dtype,
+                kv_len, key_offset, groups), q_both, cache["ckv"], cache["krope"])
+    else:
+        o_lat = _latent_attend(q_lat, q_rope, cache["ckv"], cache["krope"], cfg, compute_dtype,
+                               kv_len)
     out = torch.einsum("bshk,khv->bshv", o_lat, wv_b)
     return dense(params["wo"], out.reshape(b, s, h * cfg.d_v), compute_dtype)
+
+
+def _latent_attend(q_lat, q_rope, ckv, krope, cfg, compute_dtype, kv_len, key_offset=0,
+                   groups=()):
+    """The absorbed attention over the latent cache ``ckv`` / ``krope``
+    (its keys from ``key_offset``; ``groups`` as
+    ``layers.split_softmax_product``) → (B, s, H, kv_lora)."""
+    ckv = ckv.to(compute_dtype)
+    scores = (torch.einsum("bshk,btk->bhst", q_lat.to(torch.float32), ckv.to(torch.float32))
+              + torch.einsum("bshr,btr->bhst", q_rope.to(torch.float32),
+                             krope.to(compute_dtype).to(torch.float32)))
+    scores = scores * ((cfg.d_nope + cfg.d_rope) ** -0.5)
+    tpos = key_offset + torch.arange(ckv.shape[1], device=ckv.device)
+    scores = torch.where(tpos < kv_len, scores, -torch.inf)
+    return split_softmax_product(
+        scores, lambda w: torch.einsum("bhst,btk->bshk", w.to(compute_dtype), ckv), groups)
 
 
 def mla_apply(params, x, cfg: MLAConfig, compute_dtype, *, positions=None,
@@ -120,8 +140,9 @@ def mla_apply(params, x, cfg: MLAConfig, compute_dtype, *, positions=None,
 
     if cache is not None:
         start = 0 if cache_index is None else cache_index
-        cache["ckv"][:, start:start + s] = ckv.to(cache["ckv"].dtype)
-        cache["krope"][:, start:start + s] = krope.to(cache["krope"].dtype)
+        # prefill: the write takes the cache's (feature-split) layout
+        cache_write(cache["ckv"], constrain(ckv, "dp", None, "model"), start)
+        cache_write(cache["krope"], krope, start)
         if cache_index is not None:
             return _absorbed_decode(params, q_nope, q_rope, cache, cfg, compute_dtype,
                                     cache_index + s), cache
@@ -129,10 +150,14 @@ def mla_apply(params, x, cfg: MLAConfig, compute_dtype, *, positions=None,
     # train / prefill: materialise per-head K/V, flash attend
     wk_b = params["wk_b"]["w"].to(compute_dtype).reshape(cfg.kv_lora, h, cfg.d_nope)
     wv_b = params["wv_b"]["w"].to(compute_dtype).reshape(cfg.kv_lora, h, cfg.d_v)
-    k_nope = torch.einsum("btk,khn->bthn", ckv, wk_b)
-    vv = torch.einsum("btk,khv->bthv", ckv, wv_b)
+    # the per-head tensors are the memory hot spot (S·H·d ≫ S·kv_lora): on
+    # DTensors their heads split over ``model``
+    k_nope = constrain(torch.einsum("btk,khn->bthn", ckv, wk_b), "dp", None, "model", None)
+    vv = constrain(torch.einsum("btk,khv->bthv", ckv, wv_b), "dp", None, "model", None)
     kk = torch.cat([k_nope, krope[:, :, None, :].expand(b, s, h, cfg.d_rope)], dim=-1)
     qq = torch.cat([q_nope, q_rope], dim=-1)
+    kk = constrain(kk, "dp", None, "model", None)
+    qq = constrain(qq, "dp", None, "model", None)
     out = flash_attention(qq, kk, vv, causal=True)
     out = dense(params["wo"], out.reshape(b, s, h * cfg.d_v), compute_dtype)
     return out if cache is None else (out, cache)

@@ -17,11 +17,17 @@ contiguous groups; routing and capacity are decided within a group):
   5. the results gathered back, unsorted and gate-weighted over the k
      routes.
 
-The reference's ``constrain(...)`` calls and its ``inference`` switch are
-sharding annotations only: on one device they are the identity, and the
-port has no ``constrain`` until the DTensor mapping (ROADMAP item 18c), so
-they are left out here.  The products are plain ``torch.bmm`` / einsum:
-the reference computes them outside any Pallas kernel.
+On DTensors (the dry run's production mesh) the layer keeps the
+reference's layout: token groups over the data axes (replicated at decode
+scale, the reference's ``inference`` switch), experts over ``model``.
+Routing and the two scatters (argsort, searchsorted, index_put) have no
+sharding strategy: they run through ``local_map`` on each rank's token
+groups (``_dispatch`` / ``_combine``), the expert FFN runs on DTensors
+with the buffer's experts split over ``model``, and its output is gathered
+whole along the experts before the combine (where the reference's
+expert→token all-to-all stands).  On plain tensors those steps are the
+identity.  The products are plain ``torch.bmm`` / einsum: the reference
+computes them outside any Pallas kernel.
 
 Shared ("always-on") experts (DeepSeek-V2) and a parallel dense residual
 branch (Arctic) are composed in the model layer (``models/lm.py``), not
@@ -37,6 +43,7 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as tf
 
+from ..dist.sharding import constrain, dp_entry, is_dtensor, replicate_dim, to_placements
 from .layers import dense_init
 
 __all__ = ["MoEConfig", "Routes", "moe_init", "moe_apply", "route"]
@@ -127,39 +134,82 @@ def _experts(params, ebuf, compute_dtype):
     return eout.reshape(e, g, cap, d).permute(1, 0, 2, 3)
 
 
+def _dispatch(xf, router_w, cfg: MoEConfig, cap: int, compute_dtype):
+    """Route the groups ``xf`` (G, Ng, D) and scatter each route's token into
+    the ``(G, E·C + 1, D)`` buffer (row ``E·C`` sacrificial).  Returns the
+    buffer and the routing tensors ``_combine`` reads."""
+    g, _, d = xf.shape
+    e, k = cfg.n_experts, cfg.top_k
+    r = route({"router": {"w": router_w}}, xf, cfg, cap)
+    rows = torch.arange(g, device=xf.device)[:, None]
+    xs = xf[rows, r.order // k].to(compute_dtype)                  # (G, Nk, D)
+    # every dropped route lands on the sacrificial row E*C, so that row's
+    # value is whichever write lands last (nondeterministic on CUDA); it is
+    # cut off below and never read, and its gradient is zero.  index_put on
+    # a fresh buffer (not in place) keeps autograd through the scatter.
+    buf = torch.zeros((g, e * cap + 1, d), dtype=compute_dtype, device=xf.device)
+    buf = buf.index_put((rows, r.dest), xs)
+    return buf, r.order, r.dest, r.gate, r.probs, r.starts
+
+
+def _combine(eout, order, dest, gate, probs, starts, cfg: MoEConfig):
+    """Gather the expert outputs ``eout`` (G, E, C, D) back to the routes,
+    unsort, gate-weight and sum over the k routes → (G, Ng, D); and each
+    group's load-balance term ``sum_e f_e · P_e`` (G,), f_e before
+    capacity."""
+    g, e, cap, d = eout.shape
+    k = cfg.top_k
+    nk = order.shape[1]
+    rows = torch.arange(g, device=eout.device)[:, None]
+    outb = torch.cat([eout.reshape(g, e * cap, d),
+                      torch.zeros((g, 1, d), dtype=eout.dtype, device=eout.device)], dim=1)
+    out_sorted = outb[rows, dest]                                   # dropped routes read 0
+    out_flat = torch.zeros((g, nk, d), dtype=eout.dtype, device=eout.device)
+    out_flat = out_flat.index_put((rows, order), out_sorted)        # a permutation: unique
+    out = (out_flat.reshape(g, nk // k, k, d) * gate[..., None].to(eout.dtype)).sum(dim=2)
+    counts = torch.diff(starts, dim=1,
+                        append=torch.full((g, 1), nk, dtype=starts.dtype, device=eout.device))
+    f_e = counts.to(torch.float32) / nk
+    p_e = probs.mean(dim=1)
+    return out, (f_e * p_e).sum(-1)
+
+
 def moe_apply(params, x, cfg: MoEConfig, compute_dtype):
     """x: (B, S, D) → (out (B, S, D) in ``x``'s dtype, aux_loss f32 scalar)."""
     b, s, d = x.shape
     n = b * s
     g = math.gcd(n, cfg.groups)
     ng = n // g
-    e, k = cfg.n_experts, cfg.top_k
-    nk = ng * k
-    cap = max(1, int(math.ceil(nk / e * cfg.capacity_factor)))
+    e = cfg.n_experts
+    cap = max(1, int(math.ceil(ng * cfg.top_k / e * cfg.capacity_factor)))
+    dp = None if n <= 4096 else "dp"   # decode-scale token counts: groups whole
 
-    xf = x.reshape(g, ng, d)
-    r = route(params, xf, cfg, cap)
-    rows = torch.arange(g, device=x.device)[:, None]
-    xs = xf[rows, r.order // k].to(compute_dtype)                  # (G, Nk, D)
-    # every dropped route lands on the sacrificial row E*C, so that row's
-    # value is whichever write lands last (nondeterministic on CUDA); it is
-    # cut off below and never read, and its gradient is zero.  index_put on
-    # a fresh buffer (not in place) keeps autograd through the scatter.
-    buf = torch.zeros((g, e * cap + 1, d), dtype=compute_dtype, device=x.device)
-    buf = buf.index_put((rows, r.dest), xs)
-    eout = _experts(params, buf[:, : e * cap].reshape(g, e, cap, d), compute_dtype)
-
-    outb = torch.cat([eout.reshape(g, e * cap, d),
-                      torch.zeros((g, 1, d), dtype=compute_dtype, device=x.device)], dim=1)
-    out_sorted = outb[rows, r.dest]                                 # dropped routes read 0
-    out_flat = torch.zeros((g, nk, d), dtype=compute_dtype, device=x.device)
-    out_flat = out_flat.index_put((rows, r.order), out_sorted)      # a permutation: unique
-    out = (out_flat.reshape(g, ng, k, d) * r.gate[..., None].to(compute_dtype)).sum(dim=2)
-
-    # Switch-style load-balance aux: E * <f_e * P_e>, f_e before capacity
-    counts = torch.diff(r.starts, dim=1,
-                        append=torch.full((g, 1), nk, dtype=r.starts.dtype, device=x.device))
-    f_e = counts.to(torch.float32) / nk
-    p_e = r.probs.mean(dim=1)
-    aux = cfg.aux_weight * e * (f_e * p_e).sum(-1).mean()
+    xf = constrain(x.reshape(g, ng, d), dp, None, None)
+    buf, *routes = _on_groups(lambda xl, w: _dispatch(xl, w, cfg, cap, compute_dtype),
+                              xf, whole=(params["router"]["w"],), n_out=6)
+    ebuf = constrain(buf[:, : e * cap].reshape(g, e, cap, d), dp, "model", None, None)
+    eout = replicate_dim(_experts(params, ebuf, compute_dtype), 1)
+    out, balance = _on_groups(lambda el, *rl: _combine(el, *rl, cfg), eout, *routes, n_out=2)
+    aux = cfg.aux_weight * e * balance.mean()
     return out.reshape(b, s, d).to(x.dtype), aux
+
+
+def _on_groups(fn, grouped, *rest, whole=(), n_out: int):
+    """``fn(grouped, *rest, *whole)`` with dim 0 of ``grouped``, of each of
+    ``rest`` and of every output the token groups: on DTensors through
+    ``local_map``, the groups split over the data axes as ``grouped`` is
+    (or whole), each of ``whole`` whole on every rank (its gradient a
+    pending sum over the dims that split the groups)."""
+    if not is_dtensor(grouped):
+        return fn(grouped, *rest, *whole)
+    from torch.distributed.tensor import Partial, Replicate
+    from torch.distributed.tensor.experimental import local_map
+    mesh = grouped.device_mesh
+    split = any(getattr(p, "dim", None) == 0 for p in grouped.placements)
+    group_pl = list(to_placements((dp_entry(mesh, grouped.shape[0]) if split else None,), mesh))
+    whole_pl = [Replicate()] * mesh.ndim
+    share_pl = [Replicate() if isinstance(p, Replicate) else Partial() for p in group_pl]
+    return local_map(fn, out_placements=tuple([group_pl] * n_out),
+                     in_placements=(group_pl,) * (1 + len(rest)) + (whole_pl,) * len(whole),
+                     in_grad_placements=(group_pl,) * (1 + len(rest)) + (share_pl,) * len(whole),
+                     device_mesh=mesh, redistribute_inputs=True)(grouped, *rest, *whole)

@@ -24,8 +24,9 @@ Decode and teacher forcing compute one function with other roundings:
 the decode conv is one product over the window, the prefill conv
 ``d_conv`` shifted adds in the compute dtype.
 
-The reference's ``constrain`` calls are sharding only (the identity on
-one device) and are left out until ROADMAP item 18c.  The products are
+The chunked block keeps the reference's ``constrain`` calls (the identity
+on plain tensors; on DTensors the input and output batch-split, the input
+projection's features over ``model``).  The products are
 plain ``torch`` einsums: the reference computes them outside any Pallas
 kernel.
 """
@@ -38,6 +39,7 @@ import math
 import torch
 import torch.nn.functional as tf
 
+from ..dist.sharding import constrain, constrain_batch, kernel_map
 from .layers import dense, dense_init
 
 __all__ = ["SSMConfig", "ssm_init", "ssm_apply", "ssm_decode", "ssm_make_cache"]
@@ -158,10 +160,13 @@ def ssm_apply(params, u, cfg: SSMConfig, compute_dtype, *, return_state: bool = 
     if return_state and s < cfg.d_conv - 1:
         raise ValueError(f"a prompt of {s} tokens is shorter than the conv window's "
                          f"d_conv - 1 = {cfg.d_conv - 1} steps that the decode cache holds")
-    zxbcdt = dense(params["in_proj"], u, compute_dtype)
+    zxbcdt = constrain(dense(params["in_proj"], constrain_batch(u), compute_dtype),
+                       "dp", None, "model")
     z, xbc_raw, dt_raw = _split_proj(zxbcdt, cfg)
-    xbc = _causal_conv(xbc_raw, params["conv_w"].to(compute_dtype),
-                       params["conv_b"].to(compute_dtype))
+    # on DTensors the conv (its shifts pad a split sequence) runs on each
+    # rank's rows with the channels whole
+    xbc = kernel_map(_causal_conv, (xbc_raw,), whole=(params["conv_w"].to(compute_dtype),
+                                                      params["conv_b"].to(compute_dtype)))
     di, ds, nh, p = cfg.d_inner, cfg.d_state, cfg.n_heads, cfg.headdim
     x = xbc[..., :di].reshape(b, s, nh, p)
     bmat = xbc[..., di : di + ds]                                   # (B, S, N)
@@ -189,7 +194,9 @@ def ssm_apply(params, u, cfg: SSMConfig, compute_dtype, *, return_state: bool = 
     dtc = dt.reshape(b, nc, q, nh)
     dac = da.reshape(b, nc, q, nh)
 
-    cs = torch.cumsum(dac, dim=2)                                   # inclusive, (B,nc,Q,H)
+    # inclusive, (B,nc,Q,H); on DTensors on each rank's rows (the
+    # backward's flip has no sharding strategy in every PyTorch)
+    cs = kernel_map(lambda t: torch.cumsum(t, dim=2), (dac,))
     # --- intra-chunk (quadratic within Q): the decay masked in its exponent
     cb = torch.einsum("bcin,bcjn->bcij", cc, bc)                    # f32 operands, f32 product
     mask = torch.ones((q, q), dtype=torch.bool, device=u.device).tril()
@@ -214,7 +221,7 @@ def ssm_apply(params, u, cfg: SSMConfig, compute_dtype, *, return_state: bool = 
     y = y_intra + y_inter + params["D"][:, None] * xc.to(torch.float32)
     y = y.reshape(b, nc * q, di)[:, :s].to(compute_dtype)
     y = _gated_norm(y, z, params["norm_g"])
-    out = dense(params["out_proj"], y, compute_dtype)
+    out = constrain_batch(dense(params["out_proj"], y, compute_dtype))
     if return_state:
         # the conv cache holds the raw (pre-conv) projections of the last K-1 steps
         return out, {"ssm": state, "conv": xbc_raw[:, s - (cfg.d_conv - 1):]}

@@ -193,6 +193,7 @@ def adafactor(lr=1e-2, eps: float = 1e-30, clip_threshold: float = 1.0,
     order as the out-of-place formula, so the same values): at most two
     leaf-sized f32 temporaries are alive at once, which is what lets a
     stacked expert leaf of billions of elements take its step on one card."""
+    from ..dist.sharding import settle
     sched = _sched(lr)
 
     def init_leaf(p):
@@ -207,8 +208,10 @@ def adafactor(lr=1e-2, eps: float = 1e-30, clip_threshold: float = 1.0,
         g32 = g.to(torch.float32, copy=True)
         g2 = torch.square(g32).add_(eps)
         if g.dim() >= 2:
-            vr = beta * s["vr"] + (1 - beta) * g2.mean(dim=-1)
-            vc = beta * s["vc"] + (1 - beta) * g2.mean(dim=-2)
+            # on DTensors the means' pending reductions settle before they
+            # meet the state and the in-place steps below
+            vr = settle(beta * s["vr"] + (1 - beta) * settle(g2.mean(dim=-1)))
+            vc = settle(beta * s["vc"] + (1 - beta) * settle(g2.mean(dim=-2)))
             del g2
             ns = {"vr": vr, "vc": vc}
             denom = (vr[..., None] * vc[..., None, :]).div_(

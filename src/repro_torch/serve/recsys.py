@@ -53,10 +53,19 @@ variable-length multi-hot id bag per categorical feature.  The engine:
   ``DeviceHotRowCache`` is mirrored per rank and holds replicated
   features only.
 
+* serves **on a DTensor mesh** with ``mesh=`` (a named ``DeviceMesh``,
+  ``launch.mesh.make_local_mesh``): every rank of the mesh's group runs
+  the engine on the same request stream.  The parameters are laid out by
+  ``tree_shardings(params, mesh, INFERENCE_OVERRIDES)`` (the reference's
+  placement minus FSDP); the dense stage runs on DTensors, the wave's
+  rows split over the data axis.  The kernels take plain tensors: a leaf
+  whole on every mesh dim of size > 1 gives its local tensor, any other
+  is gathered whole each wave (``full_tensor``, the gather GSPMD puts
+  around a custom call), and ``metrics()["mesh"]`` counts those bytes.
+  ``mesh=`` and ``mesh_devices=`` are two layouts: give one.
+
 Deterministic given (params, request stream): no sampling, logical-clock
-cache, fixed bucket grid, sorted unique keys.  ``mesh=`` (the reference's
-GSPMD re-layout of the parameters) raises: its DTensor counterpart is
-ROADMAP item 18.
+cache, fixed bucket grid, sorted unique keys.
 """
 
 from __future__ import annotations
@@ -158,11 +167,16 @@ class RecsysEngine:
                  plan=None, obs=None, device="cuda"):
         if batching not in BATCHING_MODES:
             raise ValueError(f"batching={batching!r} not in {BATCHING_MODES}")
-        if mesh is not None:
-            raise NotImplementedError(
-                "RecsysEngine(mesh=...) re-lays the parameters under GSPMD in the reference; "
-                "its DTensor counterpart is not ported yet (ROADMAP, modules to port: item 18). "
-                "Sharded serving is mesh_devices=N")
+        if mesh is not None and mesh_devices is not None:
+            raise ValueError("mesh= (parameters laid out as DTensors) and mesh_devices= "
+                             "(tables placed over the ranks) are two layouts: give one")
+        if mesh is not None and not getattr(mesh, "mesh_dim_names", None):
+            raise TypeError(f"mesh= takes a named DeviceMesh (launch.mesh.make_local_mesh), "
+                            f"got {type(mesh).__name__}")
+        if mesh is not None and cache is not None:
+            raise NotImplementedError("the meshed engine serves without the hot-row cache")
+        self.mesh = mesh
+        self.mesh_gather_bytes = 0
         if cfg.embedding.kind == "feature":
             raise NotImplementedError(
                 "feature-generation mode has no serving path (F varies)")
@@ -231,6 +245,8 @@ class RecsysEngine:
         self.cfg = cfg
         self.modules = tables_for(cfg)
         self.params = _to_device(params, self.device)
+        if self.mesh is not None:
+            self.params = self._distribute(self.params)
         self._dense_stage = _dense_stage_for(cfg)
 
         widths = tuple(sorted({mod.out_dim for mod in self.modules}))
@@ -267,14 +283,59 @@ class RecsysEngine:
 
     def _embed_fwd(self, idx, mask):
         self._seen("embed" if self._gathers is None else "sharded_embed", idx, mask)
-        feats = embed_features(self.params["tables"], idx, self.cfg,
-                               modules=self.modules, mask=mask,
-                               proj=self.params.get("proj"), gathers=self._gathers)
+        tables, proj = self.params["tables"], self.params.get("proj")
+        if self.mesh is not None:
+            tables, proj = self._whole(tables), self._whole(proj)
+        feats = embed_features(tables, idx, self.cfg, modules=self.modules, mask=mask,
+                               proj=proj, gathers=self._gathers)
         return feats if torch.is_tensor(feats) else torch.stack(feats, dim=1)
 
     def _dense_fwd(self, dense, feats):
         self._seen("dense", dense, feats)
-        return self._dense_stage(self.params, dense, feats, self.cfg)
+        if self.mesh is None:
+            return self._dense_stage(self.params, dense, feats, self.cfg)
+        from torch.distributed.tensor import DTensor, Replicate
+        from torch.distributed.tensor.experimental import implicit_replication
+
+        from ..dist.sharding import constrain_batch
+        whole = (Replicate(),) * self.mesh.ndim
+        dense, feats = (constrain_batch(DTensor.from_local(x, self.mesh, whole, run_check=False))
+                        for x in (dense, feats))
+        with implicit_replication():
+            return self._dense_stage(self.params, dense, feats, self.cfg).full_tensor()
+
+    # ------------------------------------------------------------- the mesh
+
+    def _distribute(self, params):
+        """``params`` as DTensors on ``self.mesh`` by the inference
+        placement, each rank cutting its own blocks (nothing crosses the
+        wire)."""
+        from .. import tree
+        from ..dist.sharding import INFERENCE_OVERRIDES, distribute, tree_shardings
+        shardings = tree.leaves(tree_shardings(params, self.mesh, INFERENCE_OVERRIDES))
+        return tree.unflatten(params, [distribute(leaf, sh) for leaf, sh in
+                                       zip(tree.leaves(params), shardings)])
+
+    def _whole(self, params):
+        """Plain tensors for the kernels: a leaf whole on every mesh dim of
+        size > 1 gives its local tensor, any other is gathered whole
+        (``full_tensor``) and its received bytes counted."""
+        if params is None:
+            return None
+        from torch.distributed.tensor import Replicate
+
+        from .. import tree
+        out = []
+        for leaf in tree.leaves(params):
+            if all(isinstance(p, Replicate) or self.mesh.size(i) == 1
+                   for i, p in enumerate(leaf.placements)):
+                out.append(leaf.to_local())
+                continue
+            full = leaf.full_tensor()
+            self.mesh_gather_bytes += (full.numel() - leaf.to_local().numel()) \
+                * full.element_size()
+            out.append(full)
+        return tree.unflatten(params, out)
 
     def _slab_pool(self, slabs, slots, mask):
         """Gather each feature's rows from its width's slab, mask-pool them
@@ -937,6 +998,7 @@ class RecsysEngine:
         self.wave_sizes = []
         self._t_first = self._t_last = None
         self.cache_paths = dict.fromkeys(_CACHE_PATHS, 0)
+        self.mesh_gather_bytes = 0
         if self.cache is not None:
             self.cache.stats = CacheStats(bytes_cached=self.cache.stats.bytes_cached)
         if self._obs is not None:
@@ -965,6 +1027,9 @@ class RecsysEngine:
             "qps": (sum(self.wave_sizes) / wall) if wall > 0 else 0.0,
             "buckets": sorted(self.buckets_seen),
         }
+        if self.mesh is not None:
+            from ..dist.sharding import axis_sizes
+            out["mesh"] = {"axes": axis_sizes(self.mesh), "gather_bytes": self.mesh_gather_bytes}
         if self.cache is not None:
             out["cache"] = self.cache.stats.as_dict()
             out["cache_paths"] = dict(self.cache_paths)

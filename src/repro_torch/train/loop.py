@@ -41,6 +41,7 @@ on the same global batch and keeps its own block of it.
 from __future__ import annotations
 
 import dataclasses
+import math
 import statistics
 import time
 from typing import Any, Callable, Optional
@@ -103,27 +104,29 @@ def make_train_step(loss_fn, optimizer: Optimizer, *, clip_norm=None,
 
     ``accum`` > 1 splits the global batch into ``accum`` microbatches along
     dim 0 and runs them one after another, accumulating the gradients in
-    ``accum_dtype``; loss and metrics are microbatch means.
+    ``accum_dtype``; loss and metrics are microbatch means.  A DTensor
+    batch split over ranks along dim 0 is split on each rank
+    (``_microbatch``), into ``gcd(accum, local rows)`` microbatches where a
+    rank holds fewer rows than ``accum``.
     """
     grads_of = value_and_grad(loss_fn)
 
     def step(state, batch):
         params = state["params"]
-        if accum == 1:
+        n_micro = _n_micro(batch, accum)
+        if n_micro == 1:
             (loss, metrics), grads = grads_of(params, batch)
         else:
-            g_acc = [torch.zeros(p.shape, dtype=accum_dtype, device=p.device)
-                     for p in tree.leaves(params)]
+            g_acc = [torch.zeros_like(p, dtype=accum_dtype) for p in tree.leaves(params)]
             loss_sum, metricss = 0.0, []
-            for i in range(accum):
-                micro = {k: v.reshape((accum, v.shape[0] // accum) + v.shape[1:])[i]
-                         for k, v in batch.items()}
+            for i in range(n_micro):
+                micro = {k: _microbatch(v, n_micro, i) for k, v in batch.items()}
                 (mloss, mmetrics), g = grads_of(params, micro)
                 g_acc = [a + b.to(accum_dtype) for a, b in zip(g_acc, tree.leaves(g))]
                 loss_sum = loss_sum + mloss
                 metricss.append(mmetrics)
-            grads = tree.unflatten(params, [g / accum for g in g_acc])
-            loss = loss_sum / accum
+            grads = tree.unflatten(params, [g / n_micro for g in g_acc])
+            loss = loss_sum / n_micro
             metrics = {k: torch.stack([m[k] for m in metricss]).mean() for k in metricss[0]}
         if clip_norm is not None:
             grads, gnorm = clip_by_global_norm(grads, clip_norm)
@@ -133,6 +136,27 @@ def make_train_step(loss_fn, optimizer: Optimizer, *, clip_norm=None,
         return new_state, dict(metrics, loss=loss)
 
     return step
+
+
+def _n_micro(batch, accum: int) -> int:
+    """``accum``, or for a DTensor batch ``gcd(accum, rows per rank)``."""
+    from ..dist.sharding import is_dtensor
+    x = next(iter(batch.values()))
+    return math.gcd(accum, x.to_local().shape[0]) if is_dtensor(x) else accum
+
+
+def _microbatch(x, accum: int, i: int):
+    """Microbatch ``i`` of ``accum`` along dim 0: rows ``[i·B/accum,
+    (i+1)·B/accum)``.  A DTensor batch split over ranks along dim 0 is
+    split on each rank (its local rows), as data-parallel microbatching
+    runs: the microbatches hold other rows, and the same rows in all."""
+    from ..dist.sharding import is_dtensor
+    if is_dtensor(x):
+        from torch.distributed.tensor import DTensor
+        local = x.to_local()
+        part = local.reshape((accum, local.shape[0] // accum) + local.shape[1:])[i]
+        return DTensor.from_local(part, x.device_mesh, x.placements, run_check=False)
+    return x.reshape((accum, x.shape[0] // accum) + x.shape[1:])[i]
 
 
 def _resolve_compress(compress):

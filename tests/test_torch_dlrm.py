@@ -142,13 +142,26 @@ def test_init_layout_matches_reference():
 def test_one_hot_qr_kernel_route_on_card_is_refused():
     """The one-hot QR kernel route goes through the K1 wrapper, which never
     takes the plain version for a tensor off the CPU.  With no card here,
-    tensors on the meta device stand in for one: the kernel route raises
-    instead of computing, and the plain route stays plain on any device."""
+    tensors on the meta device stand in for one: the kernel route reaches
+    the wrapper's launch path (on ``meta`` tensors a dry run's call, which
+    computes nothing and reports its bytes to ``_build.meta_observers``),
+    operands split between the CPU and another device are refused, and the
+    plain route stays plain on any device."""
+    from repro_torch.kernels import _build
     _, tcfg = _cfgs(KINDS["qr"], use_kernel=True)
     tp = tdlrm.dlrm_init(tcfg, torch.Generator().manual_seed(0), device="cpu")
     tables = [{k: v.to("meta") for k, v in t.items()} for t in tp["tables"]]
     idx = torch.zeros((2, len(SIZES)), dtype=torch.int32, device="meta")
+    calls = []
+    _build.meta_observers.append(lambda name, nbytes: calls.append((name, nbytes > 0)))
+    try:
+        feats = tdlrm.embed_features(tables, idx, tcfg)
+        plain = tdlrm.embed_features(tables, idx, dataclasses.replace(tcfg, use_kernel=False))
+    finally:
+        _build.meta_observers.pop()
+    pairs = sum(tdlrm._qr2(m) for m in tdlrm.tables_for(tcfg))
+    assert pairs > 0 and calls == [("qr_gather", True)] * pairs   # one K1 per QR pair
+    assert [(tuple(f.shape), f.device.type) for f in feats] == [((2, 8), "meta")] * len(SIZES)
     with pytest.raises(ValueError, match="one CUDA device"):
-        tdlrm.embed_features(tables, idx, tcfg)
-    feats = tdlrm.embed_features(tables, idx, dataclasses.replace(tcfg, use_kernel=False))
-    assert [tuple(f.shape) for f in feats] == [(2, 8)] * len(SIZES)
+        tdlrm.embed_features(tables, torch.zeros(idx.shape, dtype=idx.dtype), tcfg)
+    assert [tuple(f.shape) for f in plain] == [(2, 8)] * len(SIZES)

@@ -1439,6 +1439,53 @@ def test_sharded_engine_launches_one_k4_and_one_k2_per_wave_per_rank(cuda, tmp_p
     assert res["diff"] <= 1e-4
 
 
+def _meshed_engine_on_one_card(rank, world_size, out):
+    """A NCCL world of one: the meshed engine on a (1, 1) mesh against the
+    unmeshed engine on the same requests."""
+    import json as _json
+
+    from repro_torch.kernels import launch_counters
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.launch.serve import request_stream
+    cfg = dataclasses.replace(dlrm_criteo.config(reduced=True), use_kernel=True)
+    params = dlrm_criteo.api(cfg, device="cpu").init(torch.Generator().manual_seed(0))
+    qp = quantize_params(params, mode="int8")
+    reqs = list(request_stream(np.random.default_rng(0), cfg.table_sizes, 13, 256, 4))
+    res = {}
+    for label, kw in (("one", {}), ("mesh", {"mesh": make_local_mesh(1, 1)})):
+        engine = RecsysEngine(cfg, qp, max_batch=64, batching="waves", device="cuda", **kw)
+        for fn in launch_counters().values():
+            fn.launches = 0
+        uids = [engine.submit(*r) for r in reqs]
+        done = engine.run_until_drained()
+        res[label] = {"scores": [done[u].score for u in uids],
+                      "counts": {name: fn.launches for name, fn in launch_counters().items()},
+                      "metrics": engine.metrics()}
+    with open(out, "w") as f:
+        _json.dump(res, f)
+
+
+def test_meshed_engine_on_nccl_world_of_one_is_bit_equal(cuda, tmp_path):
+    """``RecsysEngine(mesh=)`` on a (1, 1) NCCL mesh: scores bit-equal to
+    the unmeshed engine's, one grouped K4 and one K2 per wave and nothing
+    else, no gather of the tables."""
+    import json as _json
+
+    from repro_torch.dist import world
+    out = tmp_path / "mesh.json"
+    world.spawn(_meshed_engine_on_one_card, 1, "nccl", str(out))
+    res = _json.loads(out.read_text())
+    assert res["mesh"]["scores"] == res["one"]["scores"]
+    assert np.isfinite(res["mesh"]["scores"]).all()
+    for label in ("one", "mesh"):
+        waves = res[label]["metrics"]["waves"]
+        assert waves == 4
+        assert res[label]["counts"]["fused_serve_pool"] == waves
+        assert res[label]["counts"]["dot_interaction"] == waves
+        assert sum(res[label]["counts"].values()) == 2 * waves
+    assert res["mesh"]["metrics"]["mesh"] == {"axes": {"data": 1, "model": 1}, "gather_bytes": 0}
+
+
 # ------------------------------------------------- the analyzer on the card
 
 def _acc_programs():

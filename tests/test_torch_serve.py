@@ -72,9 +72,9 @@ def test_engine_matches_reference_engine(batching):
 def test_engine_refuses_what_is_not_ported():
     _, tcfg = _cfgs()
     params = {"tables": [], "bottom": [], "top": []}
-    # mesh= (the reference's GSPMD re-layout) waits for the DTensor mapping;
-    # sharded serving needs a process group of mesh_devices ranks
-    with pytest.raises(NotImplementedError, match="item 18"):
+    # mesh= takes a named DeviceMesh (the DTensor re-layout); sharded
+    # serving needs a process group of mesh_devices ranks
+    with pytest.raises(TypeError, match="named DeviceMesh"):
         RecsysEngine(tcfg, params, device="cpu", mesh=object())
     with pytest.raises(RuntimeError, match="none is initialized"):
         RecsysEngine(tcfg, params, max_batch=4, device="cpu", mesh_devices=2)

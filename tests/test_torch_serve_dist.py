@@ -205,7 +205,7 @@ def test_engine_sharded_mode_validation():
     with pytest.raises(NotImplementedError, match="DeviceHotRowCache"):
         RecsysEngine(cfg, qparams, max_batch=16, mesh_devices=8, cache=HotRowCache(),
                      device="cpu")
-    with pytest.raises(NotImplementedError, match="item 18"):
+    with pytest.raises(TypeError, match="named DeviceMesh"):
         RecsysEngine(cfg, qparams, device="cpu", mesh=object())
     with pytest.raises(RuntimeError, match="none is initialized"):
         RecsysEngine(cfg, qparams, max_batch=16, mesh_devices=8, device="cpu")
