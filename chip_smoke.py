@@ -158,18 +158,18 @@ Phases (any failure exits non-zero, and no result line is printed):
 16. ``[dist]``: the data-parallel step with compressed gradient exchange
    on the full-width DLRM-Criteo (Adagrad 1e-2, global batch 256), in
    spawned worlds: (a) NCCL, a world of one — per policy (none, bf16,
-   int8, auto) ``init_dp_state`` + ``make_dp_train_step`` for 5 steps, the
+   int8, auto) ``init_dp_state`` + ``make_dp_train_step`` for 3 steps, the
    "none" step's gradients, parameters and Adagrad state against
    ``make_train_step``'s (1e-6 of each leaf's largest |value|), the NCCL
    calls ``dist.wire`` recorded (0 bytes at n = 1); (b) gloo, a world of
    4 with every rank on cuda:0 (NCCL takes one rank per card) — per policy
-   5 steps with the replicas' parameters bitwise equal after each (gathered
+   3 steps with the replicas' parameters bitwise equal after each (gathered
    checksums), recorded bytes equal to ``dp_step_wire_bytes`` within 10%,
    int8 / none below 0.30, ``ef_psum_grads`` on the card equal to the same
    call on the CPU in the same world (int8 and bf16 bit for bit, none
    within 1e-6), "none" against one device on the whole batch (1e-4 of
    each leaf's largest |g|); (c) the "auto" steps through
-   ``Trainer(obs=, step_wire=)`` (counters = 5 × each leaf's accounted
+   ``Trainer(obs=, step_wire=)`` (counters = 3 × each leaf's accounted
    bytes, within 10% of the bytes recorded for it) and the training
    launcher at full width as a world of one; then the tables trained under
    "auto" scored on the 12 held-out batches through one K1 and one K2 per
@@ -179,7 +179,7 @@ Phases (any failure exits non-zero, and no result line is printed):
    Adagrad 1e-2, global batch 256) in two spawned worlds: (a) NCCL, a
    world of one, deterministic algorithms — 3 "none" steps bit-equal to
    ``make_train_step``'s, parameters and Adagrad state; (b) gloo, a world
-   of 4 on cuda:0 — 5 steps per lane (none, bf16, int8, auto, and auto
+   of 4 on cuda:0 — 3 steps per lane (none, bf16, int8, auto, and auto
    with the bf16 parameter gather) with the replicas' parameters bitwise
    equal after each (the bf16-gather lane's scattered leaves compared at
    bf16: each rank keeps its own shard exact), the recorded bytes per step
@@ -187,7 +187,7 @@ Phases (any failure exits non-zero, and no result line is printed):
    1/4 of DP's for the scattered leaves, "none" FSDP's first-step reduced
    gradients within 1e-6 of "none" DP's, "none" FSDP and DP bit-equal on a
    loss whose sums are exact, a checkpoint gathered and written at step 2,
-   restored at world 4 and continued to step 5 bit-equal to the
+   restored at world 4 and continued to step 3 bit-equal to the
    uninterrupted run, and restored with world-2 shardings equal to the
    full leaves cut; peak memory per rank; then the "auto"-trained tables
    scored through one K1 and one K2 per held-out batch (1e-4 of plain);
@@ -237,7 +237,7 @@ Phases (any failure exits non-zero, and no result line is printed):
    (finite logits, peak memory below one 32 x 8,192 x 8,192 f32 score
    matrix); the same widths at 2 layers in f32 (TF32 off) against the CPU
    (a prefill and 4 decode steps within 1e-3, a ``loss_fn``
-   value-and-grad within 1e-5 and 1e-4 of each leaf's largest |g|); 20
+   value-and-grad within 1e-5 and 1e-4 of each leaf's largest |g|); 10
    Adam (3e-4) steps through ``Trainer`` at B=4, S=256 (the loss falls),
    one wave served from the trained parameters through K1, and the same
    call refused with parameters that require grad; the serving and
@@ -296,14 +296,27 @@ Phases (any failure exits non-zero, and no result line is printed):
    into a cache of ``max_len + 1,152`` rows (ROADMAP §3 finding 13), with
    [encdec]'s gates (K1 embeds the text only); 10 Adafactor (1e-4) steps
    at 2 layers, B=2, 1,152 patches + 256 tokens (the loss falls);
-25. ``[mesh]``: the full-width int8 DLRM-Criteo (135,528,097 parameters)
+25. ``[granite]``: granite-8b (``configs/granite_8b``: the llama arch at
+   36 x 4,096, 32 heads, 8 KV heads of 128, d_ff 14,336; vocab 49,152 as
+   a bf16 QR pair of 12,288 + 4 rows x 4,096; 8,103,710,720 parameters)
+   whole: first 2 layers in f32 against the machine's CPU ([lm]'s bounds),
+   then [lm]'s 48 greedy requests with [lm]'s gates (one K1 per call and
+   nothing else, K1 and the prefill logits bit-equal to the plain route,
+   decode within the f32 gap x 2^16 x sqrt(36 / 2) of teacher forcing), a
+   decode step's device time, operations and busy share; 10 Adam (3e-4)
+   steps through ``Trainer`` at 8 of the 36 layers, B=4, S=256 (the loss
+   falls; the peak taken apart);
+26. ``[mesh]``: the full-width int8 DLRM-Criteo (135,528,097 parameters)
    served by ``RecsysEngine(mesh=)`` on a ``(data=1, model=1)`` NCCL
    ``DeviceMesh`` of this card (the parameters DTensors by the inference
    placement, the dense stage on DTensors, the kernels on local tensors)
    and by the unmeshed engine, on the 2,048 requests in waves of 256:
    scores bit-equal, one grouped K4 and one K2 per wave and nothing else,
-   no bytes gathered; p50 / p99 / QPS of both;
-26. ``[dryrun]``: the dry run (``repro_torch.launch.dryrun``) of one cell
+   no bytes gathered; then both engines through a 1 << 20-row
+   ``DeviceHotRowCache`` and through a 4,096-row host ``HotRowCache``:
+   scores bit-equal, the cache's statistics, its branches and the
+   launches equal, no bytes gathered; p50 / p99 / QPS of every lane;
+27. ``[dryrun]``: the dry run (``repro_torch.launch.dryrun``) of one cell
    per family of the ten assigned archs at full width on pod_32x8 —
    tinyllama-1.1b at train_4k, prefill_32k and decode_32k,
    deepseek-v2-236b, zamba2-1.2b, seamless-m4t-large-v2 and
@@ -314,7 +327,7 @@ Phases (any failure exits non-zero, and no result line is printed):
    MODEL/counted flops (at most 1), the arguments over 256 GPUs at least
    the unsharded ones; then the roofline table at the H100 constants
    (derived, not measured);
-27. run the paper's §5 experiment (``repro_torch.benchmarks.paper_tables``)
+28. run the paper's §5 experiment (``repro_torch.benchmarks.paper_tables``)
    on the card for ``PAPER_ROWS``: fig4's six rows (DLRM and DCN x full,
    hash, QR mult) and QR add, concat, feature mode, threshold 2,000 and
    the path-based table at hidden 16, each trained 400 steps at B=256 on
@@ -333,7 +346,7 @@ Phases (any failure exits non-zero, and no result line is printed):
    ``fig4/dlrm/qr_mult`` 400 steps on the machine's CPU and print its
    held-out |Δ| from the card, and profile one DLRM and one DCN row's
    step (device ms, device operations, busy share);
-28. time each kernel, its plain version and a PyTorch yardstick with CUDA
+29. time each kernel, its plain version and a PyTorch yardstick with CUDA
    events, compute each kernel's bound from this run's inputs, and print
    the ``kernels`` JSON line.  The grouped kernels are timed at a full
    26-table wave (K4) and batch (K1 in f32, K5) at 1 to 16 threads per
@@ -345,12 +358,23 @@ Phases (any failure exits non-zero, and no result line is printed):
    sweep of threads per bag for wide rows (8, 16, 32); and K1's per-table
    entry at the kernel bench's D=128 on int32 ids, int64 ids read in place
    and int64 ids cast first; grouped K4 at the planned wave of 13; and
-   K1 at TinyLlama's, DeepSeek-V2's, Mamba2's, Qwen3's, seamless-m4t's
-   and llava-next's prefill (8,192 ids) and decode (16 ids) shapes.
+   K1 at TinyLlama's, DeepSeek-V2's, Mamba2's, Qwen3's, seamless-m4t's,
+   llava-next's and granite's prefill (8,192 ids) and decode (16 ids)
+   shapes.
 
-Each of the paths in 8 to 27 runs with every launch count set to 0
+The phases print in the order above, but what waits on nothing before
+it starts early and runs beside them, so the smoke stays well inside its
+time limit: [sweep] (15) and [paper] (28) run in a process of their own
+(``rows_worker``), started with [dist] and printed where [paper] stands;
+the launchers of [dist], [serve_dist] and [lm], [analysis]'s injected run
+and the dry run's processes (27: the CPU alone, the lowest priority)
+start with [dist] too; and in [dist] and [fsdp], world (a) runs beside
+world (b).  The phases before [dist] and from [lm] on run alone.  Each is read, and its exit code
+checked, at its phase; a time taken beside other work says so.
+
+Each of the paths in 8 to 28 runs with every launch count set to 0
 just before it and read just after (in 18, in each rank's process: the
-``kernels`` line sums the ranks); launches made to compare a kernel
+``kernels`` line sums the ranks; in 28, in the worker's process); launches made to compare a kernel
 with its plain version count nowhere.  Peak device memory is printed as
 the process's peak and as the peak above what the phase found allocated
 (earlier phases keep their check inputs for the timing phase).
@@ -376,6 +400,10 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 # cuBLAS reads this when it makes its first handle: [train]'s restart check
 # runs with torch.use_deterministic_algorithms(True), which needs it
 os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+# the gloo worlds (and the launchers' and the analyzer's, which inherit this)
+# bind the loopback device by name, so no world waits on a lookup of the
+# host's own name
+os.environ.setdefault("GLOO_SOCKET_IFNAME", "lo")
 
 # Published H100 SXM peaks (NVIDIA data sheet): HBM3 rate, and f32 outside
 # the tensor cores — every kernel here does f32 arithmetic on CUDA cores.
@@ -437,6 +465,114 @@ def _card_line() -> str:
                           "--format=csv,noheader"], capture_output=True, text=True,
                          check=True, timeout=60).stdout
     return out.strip().splitlines()[0]
+
+
+# Work that need not wait for the phase that reads it: subprocesses started
+# early, which run beside the phases in between, each in a session of its
+# own (so its own children end with it), its output in files under
+# build/background/; the phase reads the output and checks the exit code.
+BACKGROUND_DIR = os.path.join(ROOT, "build", "background")
+
+
+class _Background:
+    def __init__(self):
+        self.jobs = {}
+
+    def start(self, name, cmd, env=None, nice=0):
+        """Start ``cmd`` as job ``name``; ``nice`` lowers its priority, so it
+        takes only the cores the phases leave idle."""
+        import threading
+
+        os.makedirs(BACKGROUND_DIR, exist_ok=True)
+        out = open(os.path.join(BACKGROUND_DIR, f"{name}.out"), "w+")
+        err = open(os.path.join(BACKGROUND_DIR, f"{name}.err"), "w+")
+        proc = subprocess.Popen(cmd, cwd=ROOT, env=env, stdin=subprocess.DEVNULL, stdout=out,
+                                stderr=err, start_new_session=True)
+        if nice:
+            os.setpriority(os.PRIO_PROCESS, proc.pid, nice)
+        job = {"proc": proc, "out": out, "err": err, "t0": time.perf_counter(), "end": None}
+
+        def watch():
+            proc.wait()
+            job["end"] = time.perf_counter()
+
+        threading.Thread(target=watch, daemon=True).start()
+        self.jobs[name] = job
+
+    def wait(self, name, timeout):
+        """Wait for job ``name``, at most ``timeout`` seconds after its start;
+        returns (the completed process, its seconds from start to exit)."""
+        job = self.jobs.pop(name)
+        proc = job["proc"]
+        try:
+            proc.wait(timeout=max(timeout - (time.perf_counter() - job["t0"]), 1.0))
+        except subprocess.TimeoutExpired:
+            self._kill(proc)
+            _fail(f"{name} ran past {timeout} s")
+        end = job["end"] or time.perf_counter()
+        texts = []
+        for f in (job["out"], job["err"]):
+            f.seek(0)
+            texts.append(f.read())
+            f.close()
+        return subprocess.CompletedProcess(proc.args, proc.returncode, *texts), end - job["t0"]
+
+    def settle(self, timeout):
+        """Wait until every job has exited, at most ``timeout`` seconds after
+        each one's start; the output of those that exited 0 stays to be
+        read, one that did not fails the smoke now."""
+        for name, job in list(self.jobs.items()):
+            try:
+                job["proc"].wait(timeout=max(timeout - (time.perf_counter() - job["t0"]), 1.0))
+            except subprocess.TimeoutExpired:
+                self._kill(job["proc"])
+                _fail(f"{name} ran past {timeout} s")
+            if job["proc"].returncode != 0:
+                proc, _ = self.wait(name, timeout)
+                sys.stdout.write(proc.stdout)
+                _fail(f"{name} exited {proc.returncode}: {proc.stderr[-2000:]}")
+
+    @staticmethod
+    def _kill(proc):
+        if proc.poll() is None:
+            try:
+                os.killpg(proc.pid, 9)
+            except ProcessLookupError:
+                pass
+        proc.wait()
+
+    def stop(self):
+        """End every job still running (the smoke stops, or failed)."""
+        for job in self.jobs.values():
+            self._kill(job["proc"])
+        self.jobs.clear()
+
+
+BACKGROUND = _Background()
+
+
+def _smoke_cmd(fn: str, *args) -> list:
+    """The command that runs ``chip_smoke.<fn>(*args)`` in a process of its
+    own; its return value is the exit code."""
+    return [sys.executable, "-c", f"import sys; sys.path.insert(0, {ROOT!r}); import chip_smoke; "
+            f"sys.exit(chip_smoke.{fn}(*{args!r}))"]
+
+
+def _beside(fn, *args):
+    """Run ``fn(*args)`` in a thread beside the caller (a spawned world
+    waits there, its processes run on their own); returns a future whose
+    ``result()`` is ``fn``'s seconds, or raises what ``fn`` raised."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    def timed():
+        t = time.perf_counter()
+        fn(*args)
+        return time.perf_counter() - t
+
+    pool = ThreadPoolExecutor(max_workers=1)
+    fut = pool.submit(timed)
+    pool.shutdown(wait=False)
+    return fut
 
 
 def _time_ms(torch, fn, iters: int) -> float:
@@ -2548,7 +2684,7 @@ def sweep_rows(torch, card):
 # workers are the module-level functions below and report through JSON
 # files under build/dist/.
 DIST_POLICIES = ("none", "bf16", "int8", "auto")
-DIST_STEPS = 5
+DIST_STEPS = 3
 DIST_WORLD = 4
 DIST_DIR = os.path.join(ROOT, "build", "dist")
 # (a) the DP step at n = 1 with "none" against make_train_step: the same
@@ -2806,18 +2942,27 @@ def _dist_four(rank, world_size, out, params_out):
             json.dump(res, f)
 
 
-def _dist_launcher(card):
-    """(c): the training launcher at full width as a world of one."""
-    metrics = os.path.join(DIST_DIR, "m.jsonl")
-    if os.path.exists(metrics):
-        os.remove(metrics)
+DIST_METRICS = os.path.join(DIST_DIR, "m.jsonl")
+
+
+def _dist_launcher_start():
+    """Start (c)'s launcher: the training launcher at full width as a world
+    of one."""
+    os.makedirs(DIST_DIR, exist_ok=True)
+    if os.path.exists(DIST_METRICS):
+        os.remove(DIST_METRICS)
     cmd = [sys.executable, "-m", "repro_torch.launch.train", "--arch", "dlrm-criteo",
            "--no-reduced", "--compress-policy", "auto", "--steps", "20",
-           "--metrics-out", os.path.relpath(metrics, ROOT)]
-    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
-    t = time.perf_counter()
-    proc = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True, text=True, timeout=600)
-    secs = time.perf_counter() - t
+           "--metrics-out", os.path.relpath(DIST_METRICS, ROOT)]
+    BACKGROUND.start("dist_launcher", cmd, env=dict(os.environ,
+                                                    PYTHONPATH=os.path.join(ROOT, "src")))
+
+
+def _dist_launcher(card):
+    """(c): the training launcher's run, started beside the worlds."""
+    metrics = DIST_METRICS
+    proc, secs = BACKGROUND.wait("dist_launcher", 600)
+    cmd = proc.args
     print("  $ python -m repro_torch.launch.train " + " ".join(cmd[3:]))
     for line in proc.stdout.strip().splitlines():
         print(f"    {line}")
@@ -2827,7 +2972,7 @@ def _dist_launcher(card):
         lines = [json.loads(x) for x in f if x.strip()]
     wire_lines = [x for x in lines if x["name"] == "train_wire_bytes_total"]
     steps = [x for x in lines if x["name"] == "train_steps_total"]
-    print(f"  launcher: exit 0 in {secs:.1f} s, registry {len(lines)} series "
+    print(f"  launcher: exit 0 in {secs:.1f} s beside the worlds, registry {len(lines)} series "
           f"({len(wire_lines)} per-leaf wire counters, sum {sum(x['value'] for x in wire_lines)}"
           f" B: every ring formula gives 0 bytes at n = 1, as the reference's counters read on "
           f"one device; not asserted), train_steps_total "
@@ -2851,12 +2996,17 @@ def dist_full_width(torch, card):
     os.makedirs(DIST_DIR, exist_ok=True)
     t0 = time.perf_counter()
     one = os.path.join(DIST_DIR, "one.json")
+    four = os.path.join(DIST_DIR, "four.json")
+    auto_params = os.path.join(DIST_DIR, "auto_params.pt")
+    job_a = _beside(world.spawn, _dist_one, 1, "nccl", one)    # (a) beside (b)
     t = time.perf_counter()
-    world.spawn(_dist_one, 1, "nccl", one)
-    one_s = time.perf_counter() - t
+    world.spawn(_dist_four, DIST_WORLD, "gloo", four, auto_params)
+    four_s = time.perf_counter() - t
+    one_s = job_a.result()
     with open(one) as f:
         a = json.load(f)
-    print(f"  (a) {a['backend']}, world of {a['world']} ({one_s:.1f} s with the spawn): 'none' "
+    print(f"  (a) {a['backend']}, world of {a['world']} ({one_s:.1f} s with the spawn, beside "
+          f"(b)): 'none' "
           f"first step vs make_train_step — reduced gradients worst leaf "
           f"{a['none_grads_vs_plain'][1]} {a['none_grads_vs_plain'][0]:.3e}, parameters "
           f"{a['none_params_vs_plain'][0]:.3e}, Adagrad state {a['none_acc_vs_plain'][0]:.3e} "
@@ -2877,11 +3027,6 @@ def dist_full_width(torch, card):
             _fail(f"[dist] (a) {name}: losses not finite, or {p['wire']['calls']} collectives "
                   f"issued where {p['expected_all_reduces']} all-reduces were expected")
 
-    four = os.path.join(DIST_DIR, "four.json")
-    auto_params = os.path.join(DIST_DIR, "auto_params.pt")
-    t = time.perf_counter()
-    world.spawn(_dist_four, DIST_WORLD, "gloo", four, auto_params)
-    four_s = time.perf_counter() - t
     with open(four) as f:
         bres = json.load(f)
     print(f"  (b) gloo, world of {bres['world']}, every rank on cuda:0 ({four_s:.1f} s with the "
@@ -2972,7 +3117,7 @@ def dist_full_width(torch, card):
 # report through JSON files under build/fsdp/
 FSDP_LANES = (("none", "float32"), ("bf16", "float32"), ("int8", "float32"),
               ("auto", "float32"), ("auto", "bfloat16"))
-FSDP_STEPS = 5
+FSDP_STEPS = 3
 FSDP_CKPT_STEP = 2              # the "none" lane checkpoints after this many steps
 FSDP_LINEAR_STEPS = 2
 FSDP_DIR = os.path.join(ROOT, "build", "fsdp")
@@ -3181,19 +3326,21 @@ def fsdp_full_width(torch, card):
     os.makedirs(FSDP_DIR)
     t0 = time.perf_counter()
     one = os.path.join(FSDP_DIR, "one.json")
-    world.spawn(_fsdp_one, 1, "nccl", one)
+    job_a = _beside(world.spawn, _fsdp_one, 1, "nccl", one)    # (a) beside (b)
+    t = time.perf_counter()
+    world.spawn(_fsdp_four, DIST_WORLD, "gloo", FSDP_DIR)
+    four_s = time.perf_counter() - t
+    one_s = job_a.result()
     with open(one) as f:
         a = json.load(f)
     print(f"  (a) {a['backend']}, world of {a['world']}, deterministic algorithms: 'none' FSDP "
-          f"vs make_train_step over 3 steps, {a['differing']} of {a['leaves']} parameter and "
+          f"vs make_train_step over 3 steps ({one_s:.1f} s with the spawn, beside (b)), "
+          f"{a['differing']} of {a['leaves']} parameter and "
           f"Adagrad leaves differ (bit for bit expected); wall ms per step "
           f"{[round(x, 3) for x in a['wall_ms']]} | {card}")
     if a["differing"]:
         _fail("[fsdp] (a) the FSDP step at n = 1 is not make_train_step's bit for bit")
 
-    t = time.perf_counter()
-    world.spawn(_fsdp_four, DIST_WORLD, "gloo", FSDP_DIR)
-    four_s = time.perf_counter() - t
     ranks = []
     for r in range(DIST_WORLD):
         with open(os.path.join(FSDP_DIR, f"four{r}.json")) as f:
@@ -3379,15 +3526,20 @@ def _serve_dist_four(rank, world_size, plan_path, out_dir):
         json.dump(res, f)
 
 
-def _serve_dist_launcher(card):
-    """``launch/serve.py --mesh-devices 4`` under torchrun, every rank on the card."""
+def _serve_dist_launcher_start():
+    """Start ``launch/serve.py --mesh-devices 4`` under torchrun, every rank
+    on the card."""
     cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node",
            str(DIST_WORLD), "-m", "repro_torch.launch.serve", "--mesh-devices", str(DIST_WORLD),
            "--requests", "64", "--batch-size", "14"]
-    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
-    t = time.perf_counter()
-    proc = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True, text=True, timeout=600)
-    secs = time.perf_counter() - t
+    BACKGROUND.start("serve_dist_launcher", cmd,
+                     env=dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src")))
+
+
+def _serve_dist_launcher(card):
+    """The torchrun launcher's run, started with [dist]."""
+    proc, secs = BACKGROUND.wait("serve_dist_launcher", 600)
+    cmd = proc.args
     print(f"  $ torchrun --standalone --nproc_per_node {DIST_WORLD} -m repro_torch.launch.serve "
           + " ".join(cmd[8:]))
     for line in proc.stdout.strip().splitlines():
@@ -3395,7 +3547,7 @@ def _serve_dist_launcher(card):
     if proc.returncode != 0 or "placement: " not in proc.stdout \
             or "served 64 requests" not in proc.stdout:
         _fail(f"[serve_dist] the launcher exited {proc.returncode}: {proc.stderr[-2000:]}")
-    print(f"  launcher: exit 0 in {secs:.1f} s | card: {card}")
+    print(f"  launcher: exit 0 in {secs:.1f} s, started with [dist] | card: {card}")
     return secs
 
 
@@ -3520,6 +3672,16 @@ def _analysis_jit_full_width(torch):
     return findings, tel, counts
 
 
+def _analysis_injected_start():
+    """Start the injected WIRE-001 run: ``REPRO_ANALYSIS_INJECT=wire python
+    -m repro_torch.analysis --device cuda --world 4 --select WIRE-001``,
+    which must exit 1."""
+    env = dict(os.environ, REPRO_ANALYSIS_INJECT="wire", PYTHONPATH=os.path.join(ROOT, "src"))
+    BACKGROUND.start("analysis_injected",
+                     [sys.executable, "-m", "repro_torch.analysis", "--device", "cuda",
+                      "--world", str(ANALYSIS_WORLD), "--select", "WIRE-001"], env=env)
+
+
 def analysis_full_width(torch, card):
     """The [analysis] phase: the analyzer's ten passes on the card (ACC-002
     over the five kernels, WIRE-001 in a gloo world of 4 on cuda:0, JIT-002
@@ -3591,15 +3753,9 @@ def analysis_full_width(torch, card):
     _check_counts("analysis JIT-002 full width", jcounts,
                   {"fused_serve_pool": waves, "dot_interaction": waves})
 
-    t = time.perf_counter()
-    env = dict(os.environ, REPRO_ANALYSIS_INJECT="wire",
-               PYTHONPATH=os.path.join(ROOT, "src"))
-    proc = subprocess.run([sys.executable, "-m", "repro_torch.analysis", "--device", "cuda",
-                           "--world", str(ANALYSIS_WORLD), "--select", "WIRE-001"],
-                          cwd=ROOT, env=env, capture_output=True, text=True, timeout=600)
-    inject_s = time.perf_counter() - t
+    proc, inject_s = BACKGROUND.wait("analysis_injected", 600)
     print(f"  injected WIRE-001 run: exit {proc.returncode}, "
-          f"{proc.stdout.count('WIRE-001')} finding(s), {inject_s:.1f} s")
+          f"{proc.stdout.count('WIRE-001')} finding(s), {inject_s:.1f} s, started with [dist]")
     if proc.returncode != 1 or "drifted apart" not in proc.stdout:
         _fail(f"[analysis] the injected WIRE-001 run exited {proc.returncode}: "
               f"{proc.stdout[-1000:]} {proc.stderr[-2000:]}")
@@ -3624,7 +3780,7 @@ LM_PARAM_BYTES = 2_101_809_152
 LM_QUEUE = ((512, 32), (128, 16))
 LM_BATCH, LM_MAX_LEN, LM_NEW_TOKENS = 16, 1024, 32
 LM_LONG_PROMPT = 8192        # 16 q-blocks x 8 kv-blocks of the flash loop
-LM_TRAIN_STEPS, LM_TRAIN_BATCH, LM_TRAIN_SEQ = 20, 4, 256
+LM_TRAIN_STEPS, LM_TRAIN_BATCH, LM_TRAIN_SEQ = 10, 4, 256
 # decode against teacher forcing, bf16: the decode attention (bf16
 # probabilities times the bf16 cache, a bf16 product) and flash (the same
 # probabilities, an f32 product rounded once) compute one function with
@@ -3748,16 +3904,17 @@ def _lm_teacher(torch, lm, cfg, params, wave, tol_rel, forward=None):
         "median_top2_gap": float(gaps.median())}
 
 
-def _lm_f32_vs_cpu(torch, tiny, lm):
+def _lm_f32_vs_cpu(torch, tiny, lm, phase="[lm]"):
     """The same widths at 2 layers in f32, TF32 off: one prefill and 4
     decode steps, and one ``loss_fn`` value-and-grad, card against CPU; and
-    the decode-vs-teacher-forcing gap at f32."""
+    the decode-vs-teacher-forcing gap at f32.  ``tiny`` is the arch's config
+    module, ``phase`` names the phase in the messages."""
     from repro_torch import tree
     from repro_torch.nn.layers import dense
     from repro_torch.train.loop import value_and_grad
 
     if torch.backends.cuda.matmul.allow_tf32:
-        _fail("[lm] TF32 is on for f32 matrix products")
+        _fail(f"{phase} TF32 is on for f32 matrix products")
     cfg = dataclasses.replace(tiny.config(), n_layers=2, param_dtype="float32",
                               compute_dtype="float32")
     host = lm.init(torch.Generator().manual_seed(3), cfg, "cpu")
@@ -3806,7 +3963,7 @@ def _lm_f32_vs_cpu(torch, tiny, lm):
           f"{dec_rel:.3e} of the largest |logit|")
     if not (logit_rel <= LM_F32_LOGIT_TOL and loss_diff <= LM_F32_LOSS_TOL * abs(float(loss))
             and worst <= GRAD_TOL):
-        _fail("[lm] the f32 model on the card disagrees with the CPU")
+        _fail(f"{phase} the f32 model on the card disagrees with the CPU")
     return res
 
 
@@ -3817,8 +3974,8 @@ def _lm_shape(seq, batch):
 
 
 def _lm_train(torch, tiny, lm, cfg, card):
-    """20 Adam steps through ``Trainer`` at full width on the port's LM
-    stream (plain path, flash backward), timing and memory; then one wave
+    """``LM_TRAIN_STEPS`` Adam steps through ``Trainer`` at full width on the
+    port's LM stream (plain path, flash backward), timing and memory; then one wave
     served from the trained parameters through K1, and the refusal under
     grad.  Returns the profile and the wave's launch counts."""
     from repro_torch import tree
@@ -3908,33 +4065,30 @@ def _lm_train(torch, tiny, lm, cfg, card):
     return prof, counts
 
 
-def _lm_launchers(torch, card):
-    """The serving and training launchers on the LM, as subprocesses run
-    side by side; both must exit 0."""
+LM_LAUNCHERS = (("lm_serve_launcher", ["repro_torch.launch.serve", "--arch", "tinyllama-1.1b"]),
+                ("lm_train_launcher", ["repro_torch.launch.train", "--arch", "tinyllama-1.1b",
+                                       "--steps", "5"]))
+
+
+def _lm_launchers_start():
+    """Start the serving and training launchers on the LM, side by side."""
     env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
-    cmds = [[sys.executable, "-m", "repro_torch.launch.serve", "--arch", "tinyllama-1.1b"],
-            [sys.executable, "-m", "repro_torch.launch.train", "--arch", "tinyllama-1.1b",
-             "--steps", "5"]]
-    t = time.perf_counter()
-    procs = [subprocess.Popen(c, cwd=ROOT, env=env, stdout=subprocess.PIPE,
-                              stderr=subprocess.PIPE, text=True) for c in cmds]
-    outs = []
-    try:
-        for p in procs:
-            outs.append(p.communicate(timeout=300))
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait()
-    secs = time.perf_counter() - t
-    for cmd, p, (out, err) in zip(cmds, procs, outs):
-        print("  $ python -m " + " ".join(cmd[2:]))
-        for line in out.strip().splitlines()[:6]:
+    for name, args in LM_LAUNCHERS:
+        BACKGROUND.start(name, [sys.executable, "-m", *args], env=env)
+
+
+def _lm_launchers(torch, card):
+    """The two launchers' runs, started with [dist]; both must exit 0."""
+    secs = 0.0
+    for name, args in LM_LAUNCHERS:
+        proc, s = BACKGROUND.wait(name, 600)
+        secs = max(secs, s)
+        print("  $ python -m " + " ".join(args))
+        for line in proc.stdout.strip().splitlines()[:6]:
             print(f"    {line}")
-        if p.returncode != 0:
-            _fail(f"[lm] {' '.join(cmd[2:])} exited {p.returncode}: {err[-2000:]}")
-    print(f"  the two launchers in {secs:.1f} s, side by side")
+        if proc.returncode != 0:
+            _fail(f"[lm] {' '.join(args)} exited {proc.returncode}: {proc.stderr[-2000:]}")
+    print(f"  the two launchers in {secs:.1f} s, side by side, started with [dist]")
     return secs
 
 
@@ -3942,7 +4096,7 @@ def lm_full_width(torch, card):
     """The [lm] phase (ROADMAP 18a): the full-width TinyLlama-1.1B served
     through ``ServeEngine`` with its QR vocabulary through K1, held against
     the plain route and teacher forcing, a long prompt, the f32 model
-    against the CPU, 20 Adam steps through ``Trainer``, and the launchers.
+    against the CPU, 10 Adam steps through ``Trainer``, and the launchers.
     Returns the launch counts of the paths and K1's LM inputs for [time]."""
     from repro_torch.configs import tinyllama_1_1b as tiny
     from repro_torch.models import lm
@@ -4667,7 +4821,7 @@ SSM_STATE_TOL = {"ssm": (2e-3, 1e-4), "conv": (1e-4, 1e-5)}
 # the long prompt's peak memory above the parameters against a prompt of
 # half its length: linear in the length allows a ratio of 2 (and a margin)
 SSM_LONG_RATIO = 2.2
-SSM_TRAIN_STEPS = {"mamba2-370m": 20, "zamba2-1.2b": 10}
+SSM_TRAIN_STEPS = {"mamba2-370m": 10, "zamba2-1.2b": 10}
 # the f32 check's depth: Mamba at 2 layers, Zamba at 1 block of 2 layers
 # and 1 tail layer (3 Mamba layers and one application of the shared block)
 SSM_F32_CUT = {"mamba2-370m": {"n_layers": 2},
@@ -4949,18 +5103,18 @@ def _ssm_long(torch, fns, cfg, params, label):
     return {"by_prompt_tokens": out, "peak_ratio": ratio}, k1_ids
 
 
-def _ssm_train(torch, mod, card, steps, phase="[ssm]"):
-    """``steps`` steps of the arch's default Adam(3e-4) at full width, B =
-    4, S = 256, through ``Trainer`` on the port's LM stream (the arch's
-    ``api.batch_fn``): the loss finite and falling; wall and device time
-    per step; and the peak memory taken apart: the train state (parameters
-    and Adam's f32 state), one step's peak above it, and one
-    value-and-grad's peak above it with the model's checkpoints and
-    without them."""
+def _ssm_train(torch, mod, card, steps, phase="[ssm]", cfg=None):
+    """``steps`` steps of the arch's default Adam(3e-4) at full width (at
+    ``cfg``'s depth when given), B = 4, S = 256, through ``Trainer`` on the
+    port's LM stream (the arch's ``api.batch_fn``): the loss finite and
+    falling; wall and device time per step; and the peak memory taken
+    apart: the train state (parameters and Adam's f32 state), one step's
+    peak above it, and one value-and-grad's peak above it with the model's
+    checkpoints and without them."""
     from repro_torch.train.loop import (TrainConfig, Trainer, init_state, make_train_step,
                                         value_and_grad)
 
-    api = mod.api(mod.config())
+    api = mod.api(cfg or mod.config())
     shape = _lm_shape(LM_TRAIN_SEQ, LM_TRAIN_BATCH)
     gc.collect()
     torch.cuda.synchronize()
@@ -5535,6 +5689,97 @@ def mm_full_width(torch, card, kind):
     return {kind: counts}, k1_inputs, emb_diff
 
 
+# ------------------------------------------------------------------ [granite]
+
+# [granite]: the full-width granite-8b (llama arch at 36 x 4,096, 32 heads /
+# 8 KV heads of 128, d_ff 14,336), its 49,152-token vocabulary a bf16 QR pair
+# of 12,288 + 4 rows x 4,096 looked up through K1 when serving.  Served whole;
+# trained at GRANITE_TRAIN_LAYERS of its 36 layers, where Adam's f32 state
+# and the step's new state fit the card (the whole model's Adam state alone
+# is 64.8 GB)
+GRANITE_PARAMS = (8_103_710_720, 16_207_421_440)        # jax.eval_shape of the reference's init
+GRANITE_TRAIN_LAYERS = 8
+GRANITE_TRAIN_PARAMS = (1_996_574_720, 3_993_149_440)   # the same at 8 layers
+GRANITE_TRAIN_STEPS = 10
+
+
+def granite_full_width(torch, card):
+    """The [granite] phase: granite-8b at full width, held as [lm] holds
+    TinyLlama: the f32 model at 2 layers card against CPU, ``LM_QUEUE``'s
+    48 requests served whole through ``ServeEngine`` with one K1 per call
+    (K1 and the prefill logits bit-equal to the plain route, decode within
+    the f32 gap x 2^16 x sqrt(36 / 2) of teacher forcing), a decode step's
+    device time, and ``GRANITE_TRAIN_STEPS`` Adam steps through ``Trainer``
+    at ``GRANITE_TRAIN_LAYERS`` layers.  Returns the serving launch counts,
+    K1's inputs at granite's vocabulary and K1's error."""
+    from repro_torch.configs import granite_8b
+    from repro_torch.models import lm
+
+    t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"  held on the card at the phase's start: {torch.cuda.memory_allocated()} B")
+    f32 = _lm_f32_vs_cpu(torch, granite_8b, lm, phase="[granite]")
+    print(f"  ({time.perf_counter() - t0:.1f} s into [granite])")
+    cfg = granite_8b.config()
+    t = time.perf_counter()
+    params = lm.init(torch.Generator(device="cuda").manual_seed(0), cfg, "cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t
+    n, nbytes = lm.num_params(params), _tree_bytes(params)
+    emb = params["embed"]
+    print(f"  {cfg.name}: vocab {cfg.vocab}, d {cfg.d_model}, {cfg.n_layers} layers, "
+          f"{cfg.n_heads} heads / {cfg.n_kv_heads} KV heads of {cfg.d_head}, d_ff {cfg.d_ff}, "
+          f"QR c={cfg.embedding.num_collisions} {cfg.embedding.op} vocabulary "
+          f"{tuple(emb['table_0'].shape)} + {tuple(emb['table_1'].shape)}, {cfg.param_dtype}: "
+          f"{n:,} parameters, {nbytes:,} B, drawn in {init_s:.1f} s")
+    if (n, nbytes) != GRANITE_PARAMS:
+        _fail(f"[granite] {n} parameters / {nbytes} B, expected {GRANITE_PARAMS}")
+    serve, counts, record, dec_tokens = _ssm_serve(torch, lm, cfg, params, _lm_fns(), cfg.name,
+                                                   LM_QUEUE, LM_NEW_TOKENS, phase="[granite]")
+    print(f"  ({time.perf_counter() - t0:.1f} s into [granite])")
+    tol_rel = _lm_decode_tol(f32["decode_vs_teacher_f32_rel"], cfg.n_layers)
+    emb_diff, pre_diff, dec = _lm_teacher(torch, lm, cfg, params, record, tol_rel)
+    print(f"  wave 0: K1 vs embed.apply max |diff| {emb_diff}; prefill logits vs the plain "
+          f"teacher-forced forward max |diff| {pre_diff}; decode ({dec['steps']} steps) vs "
+          f"teacher forcing max |diff| {dec['max_abs_diff']:.4f} = {dec['rel_diff']:.4f} of the "
+          f"largest |logit| (tol {tol_rel:.4f} = the f32 gap x 2^16 x sqrt({cfg.n_layers} / 2))"
+          f"; greedy agrees on {dec['argmax_agree']}/{dec['positions']}, on "
+          f"{dec['clear_positions']} positions the top-2 gap exceeds the tolerance and "
+          f"{dec['clear_disagree']} of them disagree (the largest teacher-forced top-2 gap where "
+          f"greedy differs {dec['largest_gap_where_greedy_differs']:.4f}, median gap "
+          f"{dec['median_top2_gap']:.4f})")
+    if emb_diff != 0 or pre_diff != 0:
+        _fail("[granite] K1 or the prefill logits differ from the plain route")
+    if dec["rel_diff"] > tol_rel or dec["clear_disagree"]:
+        _fail("[granite] decode disagrees with teacher forcing beyond the tolerance")
+    gen = torch.Generator(device="cuda").manual_seed(10)
+    k1_inputs = {"prefill": torch.randint(0, cfg.vocab, (LM_LONG_PROMPT, 1), generator=gen,
+                                          device="cuda"),
+                 "decode": dec_tokens.reshape(-1, 1),
+                 "tables": (emb["table_0"].clone(), emb["table_1"].clone())}
+    del params, emb, record
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"  ({time.perf_counter() - t0:.1f} s into [granite])")
+    cut = dataclasses.replace(cfg, n_layers=GRANITE_TRAIN_LAYERS)
+    sizes = lm.init(torch.Generator().manual_seed(0), cut, "meta")
+    if (lm.num_params(sizes), _tree_bytes(sizes)) != GRANITE_TRAIN_PARAMS:
+        _fail(f"[granite] the {GRANITE_TRAIN_LAYERS}-layer cut is not {GRANITE_TRAIN_PARAMS}")
+    print(f"  training at {GRANITE_TRAIN_LAYERS} of {cfg.n_layers} layers: "
+          f"{GRANITE_TRAIN_PARAMS[0]:,} parameters, {GRANITE_TRAIN_PARAMS[1]:,} B")
+    train = _ssm_train(torch, granite_8b, card, GRANITE_TRAIN_STEPS, "[granite]", cut)
+    prof = {"card": card, "arch": cfg.name, "parameters": n, "parameter_bytes": nbytes,
+            "init_s": init_s, "serve": serve, "k1_vs_plain_max_abs_diff": emb_diff,
+            "prefill_vs_plain_max_abs_diff": pre_diff, "decode_vs_teacher": dec,
+            "f32_vs_cpu": f32, "train_layers": GRANITE_TRAIN_LAYERS,
+            "train_parameters": GRANITE_TRAIN_PARAMS[0], "train": train,
+            "phase_s": time.perf_counter() - t0}
+    print(f"  card: {card}; [granite] {prof['phase_s']:.1f} s")
+    print(json.dumps({"granite_profile": prof}))
+    return counts, k1_inputs, emb_diff
+
+
 # ------------------------------------------------------------------ [mesh] / [dryrun]
 
 MESH_DIR = os.path.join(ROOT, "build", "mesh")
@@ -5551,7 +5796,8 @@ DRYRUN_TIMEOUT = 600
 
 def _mesh_lane(torch, cfg, qparams, warm, main, label, **kw):
     """One engine over ``warm`` then the timed ``main`` requests; the launch
-    counts of the timed pass, its scores and metrics."""
+    counts of the timed pass (one K2 per dense stage and one grouped K4 per
+    wave the tables served: ``_cache_counts``), its scores and metrics."""
     import numpy as np
 
     from repro_torch.serve.recsys import RecsysEngine
@@ -5570,11 +5816,54 @@ def _mesh_lane(torch, cfg, qparams, warm, main, label, **kw):
     scores = np.array([done[u].score for u in uids], dtype=np.float32)
     if len(scores) != len(main) or not np.isfinite(scores).all():
         _fail(f"[mesh] {label}: not every request was scored with a finite value")
-    _check_counts(f"mesh/{label}", counts, {"fused_serve_pool": m["waves"],
-                                            "dot_interaction": m["waves"]})
+    _check_counts(f"mesh/{label}", counts, _cache_counts(m))
+    cache = "" if "cache" not in m else (
+        f" | paths {m['cache_paths']} | hits {m['cache']['hits']} misses "
+        f"{m['cache']['misses']} evictions {m['cache']['evictions']} rejections "
+        f"{m['cache']['rejections']}")
     print(f"  {label}: {m['requests']} requests in {m['waves']} waves | p50 {m['p50_ms']:.3f} ms "
-          f"p99 {m['p99_ms']:.3f} ms qps {m['qps']:.1f}")
+          f"p99 {m['p99_ms']:.3f} ms qps {m['qps']:.1f}{cache}")
     return counts, scores, m
+
+
+MESH_CACHES = (("device", 1 << 20), ("host", 4096))   # [mesh]'s cache lanes: kind, rows
+
+
+def _mesh_cache_lanes(torch, cfg, qparams, warm, main, mesh):
+    """The meshed engine through each of ``MESH_CACHES`` against the
+    unmeshed engine through the same cache: scores bit-equal, the cache's
+    statistics and branches and the launches equal, nothing gathered.
+    Returns the meshed lanes' launch counts and the lanes' figures."""
+    import numpy as np
+
+    from repro_torch.serve.cache import DeviceHotRowCache, HotRowCache
+
+    total, lanes = {}, {}
+    for kind, rows in MESH_CACHES:
+        make = {"device": DeviceHotRowCache, "host": HotRowCache}[kind]
+        name = f"{kind} cache of {rows} rows"
+        c_one, one, m_one = _mesh_lane(torch, cfg, qparams, warm, main, f"unmeshed, {name}",
+                                       cache=make(rows))
+        c_mesh, got, m_mesh = _mesh_lane(torch, cfg, qparams, warm, main, f"meshed, {name}",
+                                         mesh=mesh, cache=make(rows))
+        if not np.array_equal(got, one):
+            _fail(f"[mesh] {name}: meshed scores differ from the unmeshed engine's: max |diff| "
+                  f"{float(np.abs(got - one).max()):.3e}")
+        for key in ("cache", "cache_paths", "waves"):
+            if m_mesh[key] != m_one[key]:
+                _fail(f"[mesh] {name}: {key} {m_mesh[key]} against the unmeshed {m_one[key]}")
+        if c_mesh != c_one:
+            _fail(f"[mesh] {name}: launches {c_mesh} against the unmeshed {c_one}")
+        if m_mesh["mesh"]["gather_bytes"] != 0:
+            _fail(f"[mesh] {name}: a (1, 1) mesh gathered {m_mesh['mesh']['gather_bytes']} B")
+        print(f"  {name}: meshed scores bit-equal to the unmeshed engine's on {len(main)} "
+              f"requests; cache statistics, branches and launches equal; nothing gathered")
+        _add_counts(total, c_mesh)
+        lanes[kind] = {"rows": rows, "waves": m_mesh["waves"], "paths": m_mesh["cache_paths"],
+                       "hit_rate": m_mesh["cache"]["hit_rate"], "launches": c_mesh,
+                       "unmeshed": {k: m_one[k] for k in ("p50_ms", "p99_ms", "qps")},
+                       "meshed": {k: m_mesh[k] for k in ("p50_ms", "p99_ms", "qps")}}
+    return total, lanes
 
 
 def mesh_full_width(torch, card):
@@ -5582,7 +5871,8 @@ def mesh_full_width(torch, card):
     ``RecsysEngine(mesh=)`` on a (data=1, model=1) NCCL ``DeviceMesh`` of
     this card, and by the unmeshed engine on the same 2,048 requests in
     waves of 256: scores bit-equal, one grouped K4 and one K2 per wave and
-    nothing else on each, nothing gathered.  Returns the meshed run's
+    nothing else on each, nothing gathered; then both through each of
+    ``MESH_CACHES`` (``_mesh_cache_lanes``).  Returns the meshed runs'
     launch counts."""
     import numpy as np
     import torch.distributed as dist
@@ -5615,6 +5905,7 @@ def mesh_full_width(torch, card):
         counts, got, m_mesh = _mesh_lane(torch, cfg, qparams, warm, main, "meshed", mesh=mesh)
         _, again, m_again = _mesh_lane(torch, cfg, qparams, warm, main, "meshed again",
                                        mesh=mesh)
+        cached, lanes = _mesh_cache_lanes(torch, cfg, qparams, warm, main, mesh)
     finally:
         dist.destroy_process_group()
     if not (np.array_equal(got, one) and np.array_equal(again, one)):
@@ -5628,38 +5919,43 @@ def mesh_full_width(torch, card):
             "unmeshed": {k: m_one[k] for k in ("p50_ms", "p99_ms", "qps")},
             "meshed": {k: m_mesh[k] for k in ("p50_ms", "p99_ms", "qps")},
             "meshed_again": {k: m_again[k] for k in ("p50_ms", "p99_ms", "qps")},
-            "phase_s": time.perf_counter() - t0}
+            "cache_lanes": lanes, "phase_s": time.perf_counter() - t0}
     print(f"  card: {card}; [mesh] {prof['phase_s']:.1f} s")
     print(json.dumps({"mesh_profile": prof}))
+    _add_counts(counts, cached)
     return counts
+
+
+def _dryrun_start():
+    """Start the dry run's cells, one process each, all together, on the
+    CPU alone and at the lowest priority: they take the cores the worlds of
+    [dist] to [analysis] leave idle."""
+    os.makedirs(DRYRUN_DIR, exist_ok=True)
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"), CUDA_VISIBLE_DEVICES="",
+               OMP_NUM_THREADS="1")
+    for a, s in DRYRUN_CELLS:
+        BACKGROUND.start(f"dryrun_{a}_{s}", [sys.executable, "-m", "repro_torch.launch.dryrun",
+                                             "--arch", a, "--shape", s, "--mesh", "single",
+                                             "--out", DRYRUN_DIR, "--force"], env=env, nice=19)
 
 
 def dryrun_cells(card):
     """``[dryrun]``: the port's dry run of ``DRYRUN_CELLS`` at full width on
     pod_32x8 (a fake process group of 256 in each of the cells' processes,
-    started together; ``meta`` tensors, nothing launched), then the
-    roofline at the H100 constants.  Gates: every cell ``ok``, each cell's
-    MODEL/counted flops at most 1, and its argument bytes times the 256
-    GPUs at least the unsharded arguments'."""
+    started together with [dist] by ``_dryrun_start``; ``meta`` tensors,
+    nothing launched), then the roofline at the H100 constants.  Gates:
+    every cell ``ok``, each cell's MODEL/counted flops at most 1, and its
+    argument bytes times the 256 GPUs at least the unsharded arguments'."""
     from repro_torch.benchmarks import roofline
 
     t0 = time.perf_counter()
-    os.makedirs(DRYRUN_DIR, exist_ok=True)
-    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"), CUDA_VISIBLE_DEVICES="")
-    procs = [subprocess.Popen([sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", a,
-                               "--shape", s, "--mesh", "single", "--out", DRYRUN_DIR, "--force"],
-                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
-                              env=env, cwd=ROOT) for a, s in DRYRUN_CELLS]
-    for p in procs:
-        try:
-            out, _ = p.communicate(timeout=DRYRUN_TIMEOUT)
-        except subprocess.TimeoutExpired:
-            for q in procs:
-                q.kill()
-            _fail(f"[dryrun] a cell ran past {DRYRUN_TIMEOUT} s")
-        if p.returncode != 0:
-            print(out[-3000:])
-            _fail(f"[dryrun] {' '.join(p.args[3:7])} exited {p.returncode}")
+    slowest = 0.0
+    for a, s in DRYRUN_CELLS:
+        proc, secs = BACKGROUND.wait(f"dryrun_{a}_{s}", DRYRUN_TIMEOUT)
+        slowest = max(slowest, secs)
+        if proc.returncode != 0:
+            print((proc.stdout + proc.stderr)[-3000:])
+            _fail(f"[dryrun] {a} {s} exited {proc.returncode}")
     cells = []
     for arch, shape in DRYRUN_CELLS:
         with open(os.path.join(DRYRUN_DIR, f"{arch}__{shape}__pod_32x8.json")) as f:
@@ -5685,8 +5981,10 @@ def dryrun_cells(card):
     print("  roofline at the H100 constants (derived, not measured):")
     print("  " + roofline.markdown_table(cells).replace("\n", "\n  "))
     secs = time.perf_counter() - t0
-    print(f"  card: {card}; [dryrun] {secs:.1f} s for {len(cells)} cells")
-    print(json.dumps({"dryrun_profile": {"card": card, "seconds": secs, "cells": cells}}))
+    print(f"  card: {card}; [dryrun] {len(cells)} cells in {slowest:.1f} s from their start "
+          f"with [dist] to the last one's exit, beside the phases; {secs:.1f} s here")
+    print(json.dumps({"dryrun_profile": {"card": card, "seconds": secs,
+                                         "cells_wall_s": slowest, "cells": cells}}))
 
 
 def _lm_gather_bound(ids, w_a, w_b):
@@ -5888,6 +6186,53 @@ def paper_rows(torch, card):
     print(json.dumps({"paper_profile": {"card": card, "steps": pt.TRAIN_STEPS, "rows": out,
                                         "full_cpu": full_cpu, "profiles": profiles}}))
     return counts
+
+
+ROWS_COUNTS = os.path.join(ROOT, "build", "background", "paper_counts.json")
+SWEEP_HEADER = ("[sweep] the planner-driven compression sweep: 9 models trained on the card, "
+                "held against the JAX package's run")
+PAPER_HEADER = ("[paper] paper_tables rows trained on the card, held against the CPU and the "
+                "reference")
+
+
+def rows_worker(out):
+    """``[sweep]`` and ``[paper]`` in a process of their own, started with
+    [dist]: their models are small and their steps wait on the host, so
+    they run beside the worlds of [dist] to [analysis] on the cores and
+    the card time those leave.  [paper]'s launch counts (zeroed just
+    before its rows, read just after, in this process) go to ``out``.
+    Returns the exit code."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    card = _card_line()
+    print(SWEEP_HEADER, flush=True)
+    sweep_rows(torch, card)
+    print(PAPER_HEADER, flush=True)
+    counts = paper_rows(torch, card)
+    with open(out, "w") as f:
+        json.dump(counts, f)
+    return 0
+
+
+def _rows_start():
+    if os.path.exists(ROWS_COUNTS):
+        os.remove(ROWS_COUNTS)
+    BACKGROUND.start("rows", _smoke_cmd("rows_worker", ROWS_COUNTS))
+
+
+def rows_read():
+    """[sweep] and [paper] as ``rows_worker`` ran them: its output, its exit
+    code and [paper]'s launch counts."""
+    proc, secs = BACKGROUND.wait("rows", 600)
+    sys.stdout.write(proc.stdout)
+    if proc.returncode != 0:
+        _fail(f"[sweep] / [paper] exited {proc.returncode}: {proc.stderr[-2000:]}")
+    print(f"  [sweep] and [paper] in {secs:.1f} s, started with [dist]")
+    with open(ROWS_COUNTS) as f:
+        return json.load(f)
 
 
 def drive_bag_path(torch, shapes):
@@ -6425,7 +6770,23 @@ def measure(torch, gen, k4_inputs, k2_inputs, k2_fields, qr_inputs, grouped_inpu
     ]
 
 
+# past this many seconds every thread's stack goes to stderr, so a smoke
+# stopped at its time limit shows where it was
+STACK_DUMP_S = 1100
+
+
 def main() -> int:
+    import faulthandler
+
+    faulthandler.dump_traceback_later(STACK_DUMP_S)
+    try:
+        return _main()
+    finally:
+        faulthandler.cancel_dump_traceback_later()
+        BACKGROUND.stop()
+
+
+def _main() -> int:
     import torch
 
     if not torch.cuda.is_available():
@@ -6485,10 +6846,15 @@ def main() -> int:
     counts["online"] = online_full_width(torch, planned, reqs, card)
     del planned
     print(f"  ({time.perf_counter() - t0:.0f} s so far)")
-    print("[sweep] the planner-driven compression sweep: 9 models trained on the card, held "
-          "against the JAX package's run")
-    sweep_rows(torch, card)
-    print(f"  ({time.perf_counter() - t0:.0f} s so far)")
+    # started here, read where their phases print: [sweep] and [paper] in a
+    # process of their own, the launchers of [dist], [serve_dist] and [lm],
+    # [analysis]'s injected run and the dry run's cells
+    _rows_start()
+    _dist_launcher_start()
+    _serve_dist_launcher_start()
+    _analysis_injected_start()
+    _lm_launchers_start()
+    _dryrun_start()
     print("[dist] full-width data-parallel step with compressed gradient exchange: NCCL world "
           "of one, gloo world of 4 on the card, Trainer(step_wire=), the launcher")
     counts["dist"] = dist_full_width(torch, card)
@@ -6506,9 +6872,13 @@ def main() -> int:
           "JIT-002 on the full-width engine")
     counts["analysis"], counts["analysis_jit"] = analysis_full_width(torch, card)
     print(f"  ({time.perf_counter() - t0:.0f} s so far)")
+    t = time.perf_counter()
+    BACKGROUND.settle(600)    # the phases from [lm] on run alone
+    print(f"  (the work started with [dist] settled {time.perf_counter() - t:.1f} s after "
+          f"[analysis])")
     print("[lm] full-width TinyLlama-1.1B served through ServeEngine with its QR vocabulary "
           "through K1: against the plain route and teacher forcing, an 8,192-token prompt, f32 "
-          "card vs CPU, 20 Adam steps through Trainer, the launchers")
+          "card vs CPU, 10 Adam steps through Trainer, the launchers")
     lm_counts, lm_k1, lm_err = lm_full_width(torch, card)
     counts.update(lm_counts)
     print(f"  ({time.perf_counter() - t0:.0f} s so far)")
@@ -6541,23 +6911,28 @@ def main() -> int:
     mm_counts, vlm_k1, vlm_err = mm_full_width(torch, card, "vlm")
     counts.update(mm_counts)
     print(f"  ({time.perf_counter() - t0:.0f} s so far)")
+    print("[granite] full-width granite-8b served through ServeEngine with its 49,152-token QR "
+          "vocabulary through K1: against the plain route and teacher forcing, f32 card vs CPU "
+          f"at 2 layers, {GRANITE_TRAIN_STEPS} Adam steps through Trainer at "
+          f"{GRANITE_TRAIN_LAYERS} of 36 layers")
+    counts["granite"], granite_k1, granite_err = granite_full_width(torch, card)
+    print(f"  ({time.perf_counter() - t0:.0f} s so far)")
     print("[mesh] full-width int8 DLRM-Criteo served by RecsysEngine(mesh=) on a (1, 1) NCCL "
-          "mesh, against the unmeshed engine")
+          "mesh, against the unmeshed engine, without a cache and through each hot-row cache")
     counts["mesh"] = mesh_full_width(torch, card)
     print(f"  ({time.perf_counter() - t0:.0f} s so far)")
     print("[dryrun] the dry run of one cell per family at full width on pod_32x8, and its "
           "roofline at the H100 constants")
     dryrun_cells(card)
     print(f"  ({time.perf_counter() - t0:.0f} s so far)")
-    print("[paper] paper_tables rows trained on the card, held against the CPU and the reference")
-    counts["paper"] = paper_rows(torch, card)
+    counts["paper"] = rows_read()
     print(f"  ({time.perf_counter() - t0:.0f} s so far)")
     print("[time] CUDA events")
     print(f"  card: {card}")
     errs = {"fused_serve_pool": max(k4_err, grouped_errs["k4"], plan_err),
             "dot_interaction": k2_err,
             "qr_gather": max(k1_err, grouped_errs["k1"], lm_err, moe_err, ssm_err, encdec_err,
-                             vlm_err),
+                             vlm_err, granite_err),
             "qr_gather_quant": max(k5_err, grouped_errs["k5"]), "qr_embedding_bag": k3_err}
     grouped = time_grouped(torch, grouped_inputs, grouped_errs)
     k2_fields = time_interaction(torch, k2_inputs)
@@ -6577,6 +6952,8 @@ def main() -> int:
     lm_shapes.update(time_lm_k1(torch, encdec_k1, "seamless-m4t", "seamless",
                                 counts["encdec"]["qr_gather"]))
     lm_shapes.update(time_lm_k1(torch, vlm_k1, "llava-next", "llava", counts["vlm"]["qr_gather"]))
+    lm_shapes.update(time_lm_k1(torch, granite_k1, "granite", "granite",
+                                counts["granite"]["qr_gather"]))
     next(k for k in kernels if k["name"] == "qr_gather")["lm_shapes"] = lm_shapes
     for k in kernels:
         if k["launches"] == 0:

@@ -37,7 +37,7 @@ import torch
 from .findings import Finding
 from .registry import Context, register_pass
 
-__all__ = ["wire_programs", "run_world", "audit_rows", "Interceptor",
+__all__ = ["wire_programs", "audit_exchange", "run_world", "audit_rows", "Interceptor",
            "DP_SHAPES", "FSDP_SHAPES", "SERVE_ROWS_PER_RANK", "SERVE_WIDTH",
            "SERVE_LOOKUPS"]
 
@@ -175,26 +175,49 @@ def wire_programs():
 # --------------------------------------------------------------- a world
 
 
+def audit_exchange(name, build, world, n, device="cpu") -> tuple[Finding | None, dict]:
+    """Run one exchange on this rank of ``world`` (a process group of ``n``
+    ranks; ``build`` is a ``run`` of ``wire_programs``), intercepted, and
+    hold the bytes handed to ``torch.distributed`` and those ``dist.wire``
+    recorded to the closed form.  Returns this rank's finding (None when
+    all three agree) and its row, whose ``closed_form_bytes`` is the
+    closed form as computed (``audit_rows`` compares the ranks' rows)."""
+    import torch.distributed as dist
+
+    from ..dist import wire
+    anchor = f"analysis://wire/{name}"
+    device = torch.device(device)
+    wire.reset()
+    icpt = Interceptor()
+    try:
+        with icpt:
+            closed = build(world, n, dist.get_rank(world), device)
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+    except Exception as e:
+        return (Finding(rule=_RULE, path=anchor, line=0, layer=2,
+                        message=f"exchange failed to run: {e!r}"),
+                {"name": name, "error": repr(e)})
+    row = {"name": name, "closed_form_bytes": closed, "intercepted_bytes": icpt.bytes,
+           "calls": icpt.calls, "wire_bytes": wire.snapshot()["total_bytes"]}
+    if os.environ.get("REPRO_ANALYSIS_INJECT") == "wire":
+        closed += 64.0   # test hook: prove a mismatch fails the run
+    if abs(row["intercepted_bytes"] - closed) > 1e-6 or abs(row["wire_bytes"] - closed) > 1e-6:
+        return (Finding(
+            rule=_RULE, path=anchor, line=0, layer=2,
+            message=f"accounting closed form ({closed:.0f} B) != the bytes handed to "
+                    f"torch.distributed ({row['intercepted_bytes']:.0f} B intercepted, "
+                    f"{row['wire_bytes']:.0f} B recorded by dist.wire) on {n} ranks — "
+                    "dist.accounting and the exchange have drifted apart"), row)
+    return None, row
+
+
 def _rank_main(rank, n, device, out_dir):
     """One rank: run every exchange, intercepted, and save what it saw."""
     import torch.distributed as dist
 
-    from ..dist import wire
-    device = torch.device(device)
-    rows = []
-    for name, run in wire_programs():
-        wire.reset()
-        icpt = Interceptor()
-        try:
-            with icpt:
-                closed = run(dist.group.WORLD, n, rank, device)
-            if device.type == "cuda":
-                torch.cuda.synchronize(device)
-            rows.append({"name": name, "closed_form_bytes": closed,
-                         "intercepted_bytes": icpt.bytes, "calls": icpt.calls,
-                         "wire_bytes": wire.snapshot()["total_bytes"]})
-        except Exception as e:
-            rows.append({"name": name, "error": repr(e)})
+    rows = [audit_exchange(name, run, dist.group.WORLD, n, device)[1]
+            for name, run in wire_programs()]
     with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
         json.dump(rows, f)
 

@@ -31,7 +31,7 @@ from ..core import EmbeddingSpec, factory
 
 __all__ = ["SHAPES", "Shape", "ModelApi", "embedding_spec", "resolve_plan", "sds",
            "lm_train_batch", "default_optimizer", "default_accum", "lm_api", "mamba_api",
-           "hybrid_api", "encdec_api", "vlm_api", "cache_spec", "param_structs",
+           "hybrid_api", "encdec_api", "vlm_api", "batch_sharding", "cache_spec", "param_structs",
            "state_structs", "lowerables"]
 
 
@@ -244,6 +244,15 @@ def vlm_api(cfg, n_params_billion: float, accum: int | None = None,
 
 
 # ------------------------------------------------------------------ the dry run's inputs
+
+
+def batch_sharding(mesh) -> tuple[str, ...]:
+    """The axes a batch dim is split over on ``mesh`` (a named
+    ``DeviceMesh``, a mapping of axis sizes, an int or a process group):
+    every axis but ``model``, the entry ``NamedSharding`` / ``to_placements``
+    take for dim 0."""
+    from ..dist.sharding import batch_axes
+    return batch_axes(mesh)
 
 
 def _dp(mesh):

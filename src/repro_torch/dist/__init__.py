@@ -11,7 +11,8 @@ gradient reduction with int8 and bf16 on the wire, used by
 ``make_fsdp_train_step`` (reduce-scatter).
 
 ``repro_torch.dist.sharding`` is the path+shape rule engine: the FSDP
-step's scatter dims and the serving placement's specs.
+step's scatter dims, the serving placement's specs, and the parameters'
+DTensor placements on a named mesh (``tree_shardings``, ``constrain``).
 
 ``repro_torch.dist.serve_placement`` places serving tables over the ranks
 of a group (replicate small sub-tables, row-shard big ones) and fetches
@@ -28,9 +29,20 @@ the reference's mesh stood.
 from . import accounting, compress, policy, serve_placement, sharding, wire
 from .compress import ef_psum_grads, init_error_state, quantize_int8, resolve_modes
 from .policy import AUTO, CompressionPolicy, resolve_policy
+from .serve_placement import (ServePlacement, SubTablePlacement, exchange_rows, place_params,
+                              plan_placement)
+from .sharding import (INFERENCE_OVERRIDES, batch_axes, constrain, constrain_batch,
+                       fit_template, model_divides, placement_overrides, placement_specs,
+                       scatter_dims, set_batch_shard_axes, spec_for, tree_shardings)
 
 __all__ = [
     "compress", "policy", "accounting", "wire", "sharding", "serve_placement",
+    "spec_for", "tree_shardings", "batch_axes", "constrain",
+    "constrain_batch", "set_batch_shard_axes", "model_divides",
+    "fit_template", "INFERENCE_OVERRIDES", "scatter_dims",
+    "placement_overrides", "placement_specs",
     "quantize_int8", "init_error_state", "ef_psum_grads", "resolve_modes",
     "AUTO", "CompressionPolicy", "resolve_policy",
+    "ServePlacement", "SubTablePlacement", "plan_placement",
+    "place_params", "exchange_rows",
 ]

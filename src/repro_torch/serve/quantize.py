@@ -25,9 +25,9 @@ from typing import Sequence
 
 import torch
 
-from ..core.compositional import is_quantized_table
+from ..core.compositional import is_quantized_table, table_rows
 
-__all__ = ["MODES", "TABLE_PATTERN", "quantize_table", "dequantize_table",
+__all__ = ["MODES", "TABLE_PATTERN", "quantize_table", "dequantize_rows", "dequantize_table",
            "quantize_params", "paths_and_leaves", "table_bytes", "table_shapes",
            "memory_report", "row_bytes"]
 
@@ -66,6 +66,14 @@ def quantize_table(w) -> dict:
     zp = torch.round(-(_QMAX - 1) - lo / s32)  # in [-(QMAX-1), QMAX-1]
     q = torch.clamp(torch.round(w32 / s32 + zp), -_QMAX, _QMAX)
     return {"q": q.to(torch.int8), "scale": scale, "zp": zp.to(torch.int8)}
+
+
+def dequantize_rows(qt: dict, idx):
+    """Gather and dequantize rows ``idx`` of a quantized table (f32 out).
+
+    Only the gathered rows are widened: the f32 table never materialises
+    (the point of serving quantized)."""
+    return table_rows(qt, idx)
 
 
 def dequantize_table(qt: dict):

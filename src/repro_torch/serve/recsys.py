@@ -60,8 +60,11 @@ variable-length multi-hot id bag per categorical feature.  The engine:
   placement minus FSDP); the dense stage runs on DTensors, the wave's
   rows split over the data axis.  The kernels take plain tensors: a leaf
   whole on every mesh dim of size > 1 gives its local tensor, any other
-  is gathered whole each wave (``full_tensor``, the gather GSPMD puts
-  around a custom call), and ``metrics()["mesh"]`` counts those bytes.
+  is gathered whole (``full_tensor``, the gather GSPMD puts around a
+  custom call), at most once a wave and only where the wave reads it, and
+  ``metrics()["mesh"]`` counts those bytes.  The hot-row cache serves
+  as on one device: its rows are computed from the same whole tables, so
+  a (1, 1) mesh runs the unmeshed cached engine's device work.
   ``mesh=`` and ``mesh_devices=`` are two layouts: give one.
 
 Deterministic given (params, request stream): no sampling, logical-clock
@@ -70,6 +73,7 @@ cache, fixed bucket grid, sorted unique keys.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import time
 from collections import deque
@@ -173,10 +177,9 @@ class RecsysEngine:
         if mesh is not None and not getattr(mesh, "mesh_dim_names", None):
             raise TypeError(f"mesh= takes a named DeviceMesh (launch.mesh.make_local_mesh), "
                             f"got {type(mesh).__name__}")
-        if mesh is not None and cache is not None:
-            raise NotImplementedError("the meshed engine serves without the hot-row cache")
         self.mesh = mesh
         self.mesh_gather_bytes = 0
+        self._wave_whole: Optional[dict] = None
         if cfg.embedding.kind == "feature":
             raise NotImplementedError(
                 "feature-generation mode has no serving path (F varies)")
@@ -283,11 +286,9 @@ class RecsysEngine:
 
     def _embed_fwd(self, idx, mask):
         self._seen("embed" if self._gathers is None else "sharded_embed", idx, mask)
-        tables, proj = self.params["tables"], self.params.get("proj")
-        if self.mesh is not None:
-            tables, proj = self._whole(tables), self._whole(proj)
+        tables = [self._read("tables", i) for i in range(len(self.modules))]
         feats = embed_features(tables, idx, self.cfg, modules=self.modules, mask=mask,
-                               proj=proj, gathers=self._gathers)
+                               proj=self._read("proj"), gathers=self._gathers)
         return feats if torch.is_tensor(feats) else torch.stack(feats, dim=1)
 
     def _dense_fwd(self, dense, feats):
@@ -337,6 +338,32 @@ class RecsysEngine:
             out.append(full)
         return tree.unflatten(params, out)
 
+    @contextlib.contextmanager
+    def _wave_tables(self):
+        """One wave's reads of the parameters: on a mesh, each table (and
+        ``proj``) a wave reads is made whole once and kept until the wave's
+        work is launched, so a wave whose admission is refused after its
+        miss rows were computed gathers those tables once."""
+        self._wave_whole = {}
+        try:
+            yield
+        finally:
+            self._wave_whole = None
+
+    def _read(self, key, i=None):
+        """``params[key]`` (``params[key][i]`` for a table) as the kernels
+        and the cache paths read it: the parameters themselves off a mesh,
+        else plain tensors by ``_whole``, once a wave."""
+        leaf = self.params.get(key) if i is None else self.params[key][i]
+        if self.mesh is None:
+            return leaf
+        memo = self._wave_whole
+        if memo is None:
+            return self._whole(leaf)
+        if (key, i) not in memo:
+            memo[key, i] = self._whole(leaf)
+        return memo[key, i]
+
     def _slab_pool(self, slabs, slots, mask):
         """Gather each feature's rows from its width's slab, mask-pool them
         in f32 and cast to the row dtype (``bag_pool``'s expression), then
@@ -346,7 +373,7 @@ class RecsysEngine:
             rows = slabs[0][slots]                                   # (B, F, L, D)
             return torch.sum(rows * m[..., None], dim=2,
                              dtype=torch.float32).to(self._row_dtypes[0])
-        proj = self.params.get("proj") or {}
+        proj = self._read("proj") or {}
         feats = []
         for i, d in enumerate(self._feat_width):
             rows = slabs[self._w_index[d]][slots[:, i, :]]           # (B, L, d)
@@ -384,8 +411,9 @@ class RecsysEngine:
            feature's row 0 into the cache, and no metrics see it).
 
         The queue, uid space, metrics history and completed map survive.
-        Single-host only: a sharded swap would also re-solve the placement
-        and reshard the tables."""
+        A meshed engine (``mesh=``) lays the new parameters out on its mesh
+        as ``__init__`` did.  Not with ``mesh_devices=``: a sharded swap
+        would also re-solve the placement and reshard the tables."""
         if self._n_shards > 1:
             raise NotImplementedError(
                 "swap_plan is single-host only: a sharded swap must also re-solve placement "
@@ -419,7 +447,7 @@ class RecsysEngine:
             idx = np.zeros((bb, f, lb), np.int32)
             mask = np.zeros((bb, f, lb), np.float32)
             mask[:, :, 0] = 1.0  # one live slot: exercises the miss path
-            with torch.inference_mode():
+            with torch.inference_mode(), self._wave_tables():
                 if isinstance(self.cache, DeviceHotRowCache) \
                         and not self.cache.record_events:
                     fast = self._embed_device_fast(idx, mask)
@@ -683,7 +711,8 @@ class RecsysEngine:
         gather per feature (``module.apply`` is elementwise per row, so
         these rows are bit-identical to what the in-graph embed computes).
         The rows of each width are joined into one block and handed out as
-        ``RowRef``s into it, so admission writes them with one gather."""
+        ``RowRef``s into it, so admission writes them with one gather.  On
+        a mesh only the features with misses have their tables read."""
         feats_of = (miss_keys >> _FEATURE_SHIFT).astype(np.int64)
         gids = (miss_keys & ((1 << _FEATURE_SHIFT) - 1)).astype(np.int64)
         rows_out: list = [None] * len(miss_keys)
@@ -695,7 +724,7 @@ class RecsysEngine:
             # reference does: the gather shapes stay O(log) in number
             n_pad = max(32, _next_pow2(len(ids)))
             padded = np.concatenate([ids, np.repeat(ids[-1:], n_pad - len(ids))])
-            rows = self.modules[i].apply(self.params["tables"][i],
+            rows = self.modules[i].apply(self._read("tables", i),
                                          self._host(padded.astype(np.int32)))
             parts.setdefault(self._feat_width[i], []).append((sel, rows.to(torch.float32)))
         for group in parts.values():
@@ -800,7 +829,7 @@ class RecsysEngine:
         admitted."""
         bb, f, lb = idx.shape
         d = self.cfg.emb_dim
-        proj = self.params.get("proj")
+        proj = self._read("proj")
         feats = np.zeros((bb, f, d), np.float32)
         for i, mod in enumerate(self.modules):
             pooled = np.zeros((bb, mod.out_dim), np.float32)
@@ -813,8 +842,7 @@ class RecsysEngine:
                 miss_gids = sorted({g for g, k in zip(gids, keys) if k in miss_set})
                 padded = miss_gids + [miss_gids[-1]] * \
                     (max(32, _next_pow2(len(miss_gids))) - len(miss_gids))
-                rows = mod.apply(self.params["tables"][i],
-                                 self._host(np.asarray(padded, np.int32)))
+                rows = mod.apply(self._read("tables", i), self._host(np.asarray(padded, np.int32)))
                 rows = rows.to("cpu", torch.float32).numpy()
                 for g, row in zip(miss_gids, rows):
                     found[self._row_key(i, g)] = row
@@ -840,7 +868,7 @@ class RecsysEngine:
         span = obs.tracer.range_begin("wave") if obs is not None and obs.tracer is not None \
             else None
         check = None
-        with torch.inference_mode():
+        with torch.inference_mode(), self._wave_tables():
             if self._n_shards > 1:
                 logits, check, ta = self._dispatch_sharded(dense, idx, mask)
             else:
@@ -896,7 +924,7 @@ class RecsysEngine:
                 self.cache_paths["probe_missed"] += 1
                 self.cache_paths["ingraph"] += 1
             elif int(nmiss):
-                with torch.inference_mode():
+                with torch.inference_mode(), self._wave_tables():
                     feats, branch = self._embed_device(idx, mask)   # exact: admit+count
                     logits = self._dense_fwd(self._host(dense), feats)
                 self.cache_paths["probe_missed"] += 1

@@ -1486,6 +1486,69 @@ def test_meshed_engine_on_nccl_world_of_one_is_bit_equal(cuda, tmp_path):
     assert res["mesh"]["metrics"]["mesh"] == {"axes": {"data": 1, "model": 1}, "gather_bytes": 0}
 
 
+def _meshed_cached_engine_on_one_card(rank, world_size, out):
+    """A NCCL world of one: the meshed engine on a (1, 1) mesh through each
+    kind of hot-row cache against the unmeshed engine through the same."""
+    import json as _json
+
+    from repro_torch.kernels import launch_counters
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.launch.serve import request_stream
+    from repro_torch.serve.cache import HotRowCache
+    cfg = dataclasses.replace(dlrm_criteo.config(reduced=True), use_kernel=True)
+    params = dlrm_criteo.api(cfg, device="cpu").init(torch.Generator().manual_seed(0))
+    qp = quantize_params(params, mode="int8")
+    reqs = list(request_stream(np.random.default_rng(0), cfg.table_sizes, 13, 256, 4))
+    # the stream, then its first 64 requests again: served from the slab
+    reqs += reqs[:64]
+    mesh = make_local_mesh(1, 1)
+    res = {}
+    for kind in ("device", "host"):
+        for label, kw in (("one", {}), ("mesh", {"mesh": mesh})):
+            cache = DeviceHotRowCache(1 << 16, device="cuda") if kind == "device" \
+                else HotRowCache(1 << 16)
+            engine = RecsysEngine(cfg, qp, max_batch=64, batching="waves", cache=cache,
+                                  device="cuda", **kw)
+            for fn in launch_counters().values():
+                fn.launches = 0
+            uids = [engine.submit(*r) for r in reqs]
+            done = engine.run_until_drained()
+            res[f"{kind}/{label}"] = {
+                "scores": [done[u].score for u in uids],
+                "counts": {name: fn.launches for name, fn in launch_counters().items()},
+                "metrics": engine.metrics()}
+    with open(out, "w") as f:
+        _json.dump(res, f)
+
+
+def test_meshed_cached_engine_on_nccl_world_of_one_is_bit_equal(cuda, tmp_path):
+    """``RecsysEngine(mesh=, cache=)`` on a (1, 1) NCCL mesh, through the
+    device cache (exact, then fast waves) and the host cache: scores, cache
+    statistics, branches and kernel launches equal the unmeshed engine's
+    through the same cache, nothing gathered."""
+    import json as _json
+
+    from repro_torch.dist import world
+    out = tmp_path / "mesh_cache.json"
+    world.spawn(_meshed_cached_engine_on_one_card, 1, "nccl", str(out))
+    res = _json.loads(out.read_text())
+    for kind in ("device", "host"):
+        one, mesh = res[f"{kind}/one"], res[f"{kind}/mesh"]
+        assert mesh["scores"] == one["scores"] and np.isfinite(mesh["scores"]).all()
+        assert mesh["counts"] == one["counts"]
+        assert mesh["metrics"]["cache"] == one["metrics"]["cache"]
+        assert mesh["metrics"]["cache_paths"] == one["metrics"]["cache_paths"]
+        assert mesh["metrics"]["mesh"] == {"axes": {"data": 1, "model": 1}, "gather_bytes": 0}
+        # one K2 per wave, and one more where a fast probe missed and the
+        # wave was recomputed on the exact path
+        waves, paths = one["metrics"]["waves"], one["metrics"]["cache_paths"]
+        assert waves == 5
+        assert one["counts"]["dot_interaction"] == waves + paths["probe_missed"]
+    paths = res["device/mesh"]["metrics"]["cache_paths"]
+    assert paths["fast"] and paths["exact"] and not paths["ingraph"]
+    assert res["host/mesh"]["metrics"]["cache_paths"]["host"] == 5
+
+
 # ------------------------------------------------- the analyzer on the card
 
 def _acc_programs():
@@ -1897,6 +1960,15 @@ def test_qk_norm_lm_on_the_card_equals_the_cpu(cuda):
     from repro_torch.models import lm
     assert qwen3_14b.config(reduced=True).qk_norm
     _lm_family_card_vs_cpu(cuda, "qwen3-14b", (
+        lm.init, lambda p, b, cfg: lm.loss_fn(p, b, cfg), lm.make_decode_cache, lm.prefill,
+        lm.decode_step))
+
+
+def test_granite_lm_on_the_card_equals_the_cpu(cuda):
+    """The reduced granite-8b (the llama-arch LM at granite's head layout)
+    on the card against the CPU, one K1 per serving call."""
+    from repro_torch.models import lm
+    _lm_family_card_vs_cpu(cuda, "granite-8b", (
         lm.init, lambda p, b, cfg: lm.loss_fn(p, b, cfg), lm.make_decode_cache, lm.prefill,
         lm.decode_step))
 

@@ -60,6 +60,21 @@ def test_quantize_table_bitwise_with_edge_rows():
     assert (err <= 0.5 * got["scale"].float().numpy() + 1e-7).all()
 
 
+def test_dequantize_rows_bitwise():
+    """Only the rows asked for, repeats and the last row included, widened
+    to f32 bit for bit as the reference's ``dequantize_rows``."""
+    rng = np.random.default_rng(1)
+    w = (rng.normal(size=(50, 24)) * np.exp(rng.normal(size=(50, 1)))).astype(np.float32)
+    w = np.concatenate([w, _half_way_rows()[:, :24]])
+    qt = tq.quantize_table(torch.from_numpy(w))
+    idx = np.array([[0, 51, 7, 7], [3, 50, 49, 0]], np.int32)
+    got = tq.dequantize_rows(qt, torch.from_numpy(idx))
+    want = jq.dequantize_rows(jq.quantize_table(jnp.asarray(w)), jnp.asarray(idx))
+    assert got.dtype == torch.float32 and got.shape == (2, 4, 24)
+    np.testing.assert_array_equal(got.numpy().view(np.int32), np.asarray(want).view(np.int32))
+    np.testing.assert_array_equal(got.numpy(), tq.dequantize_table(qt).numpy()[idx])
+
+
 def test_quantize_bf16_table_bitwise():
     rng = np.random.default_rng(1)
     w = jnp.asarray(rng.normal(size=(40, 16)), jnp.bfloat16)
