@@ -26,6 +26,7 @@ from __future__ import annotations
 
 import torch
 
+from ..obs.trace import span
 from . import _build, ref
 
 __all__ = ["EXAMPLES_PER_BLOCK", "dot_interaction", "dot_interaction_concat"]
@@ -39,34 +40,36 @@ _SMEM_MAX = 232448       # a block's shared memory on the H100
 
 def _launch(name, z, feats, out, z_cols):
     """Check ``z (B, D)`` and ``feats (B, T, D)``, launch the kernel into
-    ``out`` (rows of ``z_cols`` z columns, then the packed pairs)."""
-    _build.refuse_grad(name, (z, feats))
-    device = z.device
-    if z.dtype not in (torch.float32, torch.bfloat16) or feats.dtype != z.dtype:
-        raise ValueError(f"{name}: z and feats are f32 or bf16 alike, got {z.dtype} and "
-                         f"{feats.dtype}")
-    b, t, d = feats.shape
-    f = t + 1
-    pairs = f * (f - 1) // 2
-    e = EXAMPLES_PER_BLOCK
-    while e > 1 and 4 * (pairs + e * f * (d + 1)) > _SMEM_MAX:
-        e //= 2
-    smem = 4 * (pairs + e * f * (d + 1))
-    if smem > _SMEM_MAX:
-        raise ValueError(f"{name}: F={f}, D={d} need {smem} B of shared memory per block, "
-                         f"over {_SMEM_MAX}")
-    if device.type == "meta":
-        return _build.meta_call(name, sum(t.numel() * t.element_size()
-                                          for t in (z, feats, out)), out)
-    if b == 0 or out.shape[1] == 0:
+    ``out`` (rows of ``z_cols`` z columns, then the packed pairs), in one
+    ``repro.launch`` span."""
+    with span("repro.launch", kernel=name, rows=feats.shape[0]):
+        _build.refuse_grad(name, (z, feats))
+        device = z.device
+        if z.dtype not in (torch.float32, torch.bfloat16) or feats.dtype != z.dtype:
+            raise ValueError(f"{name}: z and feats are f32 or bf16 alike, got {z.dtype} and "
+                             f"{feats.dtype}")
+        b, t, d = feats.shape
+        f = t + 1
+        pairs = f * (f - 1) // 2
+        e = EXAMPLES_PER_BLOCK
+        while e > 1 and 4 * (pairs + e * f * (d + 1)) > _SMEM_MAX:
+            e //= 2
+        smem = 4 * (pairs + e * f * (d + 1))
+        if smem > _SMEM_MAX:
+            raise ValueError(f"{name}: F={f}, D={d} need {smem} B of shared memory per block, "
+                             f"over {_SMEM_MAX}")
+        if device.type == "meta":
+            return _build.meta_call(name, sum(t.numel() * t.element_size()
+                                              for t in (z, feats, out)), out)
+        if b == 0 or out.shape[1] == 0:
+            return out
+        code = _build.library("dot_interaction").dot_interaction(
+            z.data_ptr(), *z.stride(), feats.data_ptr(), *feats.stride(), out.data_ptr(),
+            out.stride(0), z_cols, b, t, d, int(z.dtype == torch.bfloat16), e, smem,
+            torch.cuda.current_stream(device).cuda_stream)
+        _build.check("dot_interaction", code, f"{name} launch")
+        dot_interaction.launches += 1
         return out
-    code = _build.library("dot_interaction").dot_interaction(
-        z.data_ptr(), *z.stride(), feats.data_ptr(), *feats.stride(), out.data_ptr(),
-        out.stride(0), z_cols, b, t, d, int(z.dtype == torch.bfloat16), e, smem,
-        torch.cuda.current_stream(device).cuda_stream)
-    _build.check("dot_interaction", code, f"{name} launch")
-    dot_interaction.launches += 1
-    return out
 
 
 def dot_interaction(x):

@@ -21,6 +21,7 @@ import itertools
 
 import torch
 
+from ..obs.trace import span
 from . import _build
 from .ref import GroupTable, pool_out_dtype
 
@@ -128,65 +129,68 @@ def launch(counter, name, idx, mask, tables, *, bag: bool, idx_b=None):
     ``(B, T, D)``: f32, or bf16 for unprojected dense bf16 tables
     (``ref.pool_out_dtype``).  Raises under grad mode when an operand
     requires grad (``_build.refuse_grad``): the kernel has no backward.
+    The host side of the call (checks, packing, the C call) is one
+    ``repro.launch`` span.
     """
-    _build.refuse_grad(name, itertools.chain((mask,), itertools.chain.from_iterable(
-        tab.tensors() for tab in tables)))
-    _require(1 <= len(tables) <= MAX_TABLES, name,
-             lambda: f"{len(tables)} tables; one launch takes 1..{MAX_TABLES}")
-    _require(idx.dim() == (3 if bag else 2) and idx.shape[1] == len(tables), name,
-             lambda: f"ids {tuple(idx.shape)} are not (B, T{', L' if bag else ''}) for "
-                     f"T={len(tables)} tables")
-    if idx.dtype not in _IDS:
-        idx = idx.to(torch.int32)
-    if idx_b is not None:
-        _require(idx_b.shape == idx.shape, name, "pre-split ids differ in shape")
-        idx_b = idx_b.to(idx.dtype)
-        if idx_b.stride() != idx.stride():   # both are read through one set of strides
-            idx, idx_b = idx.contiguous(), idx_b.contiguous()
-    if not bag:
-        idx = idx[..., None]
-        idx_b = None if idx_b is None else idx_b[..., None]
-    b, n_tables, length = idx.shape
-    if mask is not None:
-        if mask.dtype not in _MASKS:
-            mask = mask.to(torch.float32)
-        _require(mask.shape == idx.shape, name,
-                 lambda: f"mask {tuple(mask.shape)} != ids {tuple(idx.shape)}")
-    for t, tab in enumerate(tables):
-        fault = _table_fault(tab, bag, idx_b is not None)
-        if fault is not None:
-            raise ValueError(f"{name}: table {t}: {fault}")
-    widths = [tab.w_a.shape[1] if tab.proj is None else tab.proj.shape[1] for tab in tables]
-    dtypes = {pool_out_dtype(tab) for tab in tables}
-    _require(len(set(widths)) == 1 and len(dtypes) == 1, name,
-             lambda: f"the tables' outputs differ: widths {sorted(set(widths))}, dtypes "
-                     f"{sorted(map(str, dtypes))}")
-    d_out, out_dtype = widths[0], dtypes.pop()
-    widest = max(tab.w_a.shape[1] * tab.w_a.element_size() for tab in tables)
-    tpb = _threads_per_bag(widest)
-    ptrs, ints, smem = [], [], 0
-    keep = []   # converted projections: alive until the launch is queued
-    for tab in tables:
-        proj = tab.proj
-        if proj is not None:
-            proj = proj.to(torch.float32).contiguous()
-            keep.append(proj)
-            d = tab.w_a.shape[1]
-            smem = max(smem, proj_smem_bytes(d, d_out, tpb))
-        ptrs += [0 if x is None else x.data_ptr() for x in
-                 (tab.w_a, tab.w_b, tab.scale_a, tab.zp_a, tab.scale_b, tab.zp_b, proj)]
-        ints += [tab.m, tab.w_a.shape[1], _TYPES[tab.w_a.dtype], int(tab.op == "mult"),
-                 _vec_bytes(tab.w_a, tab.w_b, tpb)]
-    _require(smem <= _SMEM_MAX, name, lambda: f"projections need {smem} B of shared memory "
-                                              f"per block, over {_SMEM_MAX}")
-    out = torch.empty((b, n_tables, d_out), dtype=out_dtype, device=idx.device)
-    if idx.device.type == "meta":
-        return _build.meta_call(name, _bound_bytes(idx, idx_b, mask, tables, out), out)
-    if b == 0:
+    with span("repro.launch", kernel=name, ids=idx.numel()):
+        _build.refuse_grad(name, itertools.chain((mask,), itertools.chain.from_iterable(
+            tab.tensors() for tab in tables)))
+        _require(1 <= len(tables) <= MAX_TABLES, name,
+                 lambda: f"{len(tables)} tables; one launch takes 1..{MAX_TABLES}")
+        _require(idx.dim() == (3 if bag else 2) and idx.shape[1] == len(tables), name,
+                 lambda: f"ids {tuple(idx.shape)} are not (B, T{', L' if bag else ''}) for "
+                         f"T={len(tables)} tables")
+        if idx.dtype not in _IDS:
+            idx = idx.to(torch.int32)
+        if idx_b is not None:
+            _require(idx_b.shape == idx.shape, name, "pre-split ids differ in shape")
+            idx_b = idx_b.to(idx.dtype)
+            if idx_b.stride() != idx.stride():   # both are read through one set of strides
+                idx, idx_b = idx.contiguous(), idx_b.contiguous()
+        if not bag:
+            idx = idx[..., None]
+            idx_b = None if idx_b is None else idx_b[..., None]
+        b, n_tables, length = idx.shape
+        if mask is not None:
+            if mask.dtype not in _MASKS:
+                mask = mask.to(torch.float32)
+            _require(mask.shape == idx.shape, name,
+                     lambda: f"mask {tuple(mask.shape)} != ids {tuple(idx.shape)}")
+        for t, tab in enumerate(tables):
+            fault = _table_fault(tab, bag, idx_b is not None)
+            if fault is not None:
+                raise ValueError(f"{name}: table {t}: {fault}")
+        widths = [tab.w_a.shape[1] if tab.proj is None else tab.proj.shape[1] for tab in tables]
+        dtypes = {pool_out_dtype(tab) for tab in tables}
+        _require(len(set(widths)) == 1 and len(dtypes) == 1, name,
+                 lambda: f"the tables' outputs differ: widths {sorted(set(widths))}, dtypes "
+                         f"{sorted(map(str, dtypes))}")
+        d_out, out_dtype = widths[0], dtypes.pop()
+        widest = max(tab.w_a.shape[1] * tab.w_a.element_size() for tab in tables)
+        tpb = _threads_per_bag(widest)
+        ptrs, ints, smem = [], [], 0
+        keep = []   # converted projections: alive until the launch is queued
+        for tab in tables:
+            proj = tab.proj
+            if proj is not None:
+                proj = proj.to(torch.float32).contiguous()
+                keep.append(proj)
+                d = tab.w_a.shape[1]
+                smem = max(smem, proj_smem_bytes(d, d_out, tpb))
+            ptrs += [0 if x is None else x.data_ptr() for x in
+                     (tab.w_a, tab.w_b, tab.scale_a, tab.zp_a, tab.scale_b, tab.zp_b, proj)]
+            ints += [tab.m, tab.w_a.shape[1], _TYPES[tab.w_a.dtype], int(tab.op == "mult"),
+                     _vec_bytes(tab.w_a, tab.w_b, tpb)]
+        _require(smem <= _SMEM_MAX, name, lambda: f"projections need {smem} B of shared memory "
+                                                  f"per block, over {_SMEM_MAX}")
+        out = torch.empty((b, n_tables, d_out), dtype=out_dtype, device=idx.device)
+        if idx.device.type == "meta":
+            return _build.meta_call(name, _bound_bytes(idx, idx_b, mask, tables, out), out)
+        if b == 0:
+            return out
+        _call(counter, name, ptrs, ints, n_tables, idx, idx_b, idx.stride(), mask,
+              (0, 0, 0) if mask is None else mask.stride(), out, length, bag, False, tpb, smem)
         return out
-    _call(counter, name, ptrs, ints, n_tables, idx, idx_b, idx.stride(), mask,
-          (0, 0, 0) if mask is None else mask.stride(), out, length, bag, False, tpb, smem)
-    return out
 
 
 def launch_bag_pair(counter, name, idx, mask, w_a, w_b, *, m: int, op: str, idx_b=None):

@@ -81,9 +81,9 @@ def dcn_forward_from_features(params, dense_x, feats, cfg: DCNConfig):
     x = x0
     for layer in params["cross"]:
         x = x0 * (x @ layer["w"])[:, None] + layer["b"] + x
-    deep = _mlp_apply(params["deep"], x0)
+    deep = _mlp_apply(params["deep"], x0, "deep")
     out = torch.cat([x, deep], dim=-1)
-    return _mlp_apply(params["out"], out, final_linear=True)[:, 0]
+    return _mlp_apply(params["out"], out, "out", final_linear=True)[:, 0]
 
 
 def dcn_forward(params, dense_x, sparse_idx, cfg: DCNConfig, mask=None):

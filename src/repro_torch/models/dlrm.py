@@ -22,6 +22,7 @@ from ..core import (CompositionalEmbedding, EmbeddingSpec, FullEmbedding,
                     HashEmbedding, bag_pool, make_embedding)
 from ..dist.sharding import kernel_map
 from ..kernels import ops
+from ..obs.trace import span
 
 __all__ = ["DLRMConfig", "dlrm_init", "dlrm_forward", "dlrm_loss_fn",
            "dlrm_num_params", "tables_for", "embed_features", "proj_init",
@@ -98,12 +99,15 @@ def _mlp_init(generator, dims, dtype, device):
     return layers
 
 
-def _mlp_apply(layers, x, final_linear=False):
-    for i, layer in enumerate(layers):
-        x = x @ layer["w"] + layer["b"]
-        if not (final_linear and i == len(layers) - 1):
-            x = torch.relu(x)
-    return x
+def _mlp_apply(layers, x, which: str, final_linear=False):
+    """``x`` through the MLP ``layers`` in a ``repro.mlp`` span whose args
+    name it (``which``: bottom, top, deep or out)."""
+    with span("repro.mlp", which=which):
+        for i, layer in enumerate(layers):
+            x = x @ layer["w"] + layer["b"]
+            if not (final_linear and i == len(layers) - 1):
+                x = torch.relu(x)
+        return x
 
 
 def _num_features(cfg, modules) -> int:
@@ -208,48 +212,51 @@ def embed_features(table_params, sparse_idx, cfg, modules=None, mask=None, proj=
     remote rows through it.  A feature with a hook takes the plain
     ``bag_pool``, never a kernel (which gathers locally); every other
     feature keeps its kernel route, the grouped K4 included.
+
+    The stage is one ``repro.embed`` span.
     """
-    modules = tables_for(cfg) if modules is None else modules
-    multihot = sparse_idx.dim() == 3
-    use_kernel = getattr(cfg, "use_kernel", False)
-    if use_kernel and not _feature_mode(cfg):
-        grouped = _embed_grouped(table_params, sparse_idx, modules, mask, proj, gathers)
-        if grouped is not None:
-            return grouped
-    feats = []
-    for i, mod in enumerate(modules):
-        tp = table_params[i]
-        qr2 = _qr2(mod)
-        if multihot:
-            idx = sparse_idx[:, i, :]
-            mk = mask[:, i, :] if mask is not None \
-                else torch.ones(idx.shape, dtype=torch.float32, device=idx.device)
-            if _feature_mode(cfg) and isinstance(mod, CompositionalEmbedding):
-                raise NotImplementedError(
-                    "feature-generation mode has no multi-hot serving path")
-            g = None if gathers is None else gathers[i]
-            single = isinstance(mod, (FullEmbedding, HashEmbedding))
-            if use_kernel and g is None and (qr2 or single):
-                w = None if proj is None else proj.get(str(i))
-                if qr2:
-                    pooled = ops.serve_bag_pool(idx, mk, tp["table_0"], tp["table_1"],
-                                                op=mod.op, proj=w)
+    with span("repro.embed"):
+        modules = tables_for(cfg) if modules is None else modules
+        multihot = sparse_idx.dim() == 3
+        use_kernel = getattr(cfg, "use_kernel", False)
+        if use_kernel and not _feature_mode(cfg):
+            grouped = _embed_grouped(table_params, sparse_idx, modules, mask, proj, gathers)
+            if grouped is not None:
+                return grouped
+        feats = []
+        for i, mod in enumerate(modules):
+            tp = table_params[i]
+            qr2 = _qr2(mod)
+            if multihot:
+                idx = sparse_idx[:, i, :]
+                mk = mask[:, i, :] if mask is not None \
+                    else torch.ones(idx.shape, dtype=torch.float32, device=idx.device)
+                if _feature_mode(cfg) and isinstance(mod, CompositionalEmbedding):
+                    raise NotImplementedError(
+                        "feature-generation mode has no multi-hot serving path")
+                g = None if gathers is None else gathers[i]
+                single = isinstance(mod, (FullEmbedding, HashEmbedding))
+                if use_kernel and g is None and (qr2 or single):
+                    w = None if proj is None else proj.get(str(i))
+                    if qr2:
+                        pooled = ops.serve_bag_pool(idx, mk, tp["table_0"], tp["table_1"],
+                                                    op=mod.op, proj=w)
+                    else:
+                        fold = idx % mod.m if isinstance(mod, HashEmbedding) else idx
+                        pooled = ops.serve_bag_pool(fold, mk, tp["table"], proj=w)
+                    feats.append(pooled)
                 else:
-                    fold = idx % mod.m if isinstance(mod, HashEmbedding) else idx
-                    pooled = ops.serve_bag_pool(fold, mk, tp["table"], proj=w)
-                feats.append(pooled)
+                    feats.append(_project(bag_pool(mod, tp, idx, mk, gather=g), proj, i))
+                continue
+            idx = sparse_idx[:, i]
+            if _feature_mode(cfg) and isinstance(mod, CompositionalEmbedding):
+                feats.extend(mod.partition_embeddings(tp, idx))
+            elif use_kernel and qr2:
+                feats.append(_project(ops.qr_lookup(idx, tp["table_0"], tp["table_1"], op=mod.op),
+                                      proj, i))
             else:
-                feats.append(_project(bag_pool(mod, tp, idx, mk, gather=g), proj, i))
-            continue
-        idx = sparse_idx[:, i]
-        if _feature_mode(cfg) and isinstance(mod, CompositionalEmbedding):
-            feats.extend(mod.partition_embeddings(tp, idx))
-        elif use_kernel and qr2:
-            feats.append(_project(ops.qr_lookup(idx, tp["table_0"], tp["table_1"], op=mod.op),
-                                  proj, i))
-        else:
-            feats.append(_project(mod.apply(tp, idx), proj, i))
-    return feats
+                feats.append(_project(mod.apply(tp, idx), proj, i))
+        return feats
 
 
 def dlrm_forward_from_features(params, dense_x, feats, cfg: DLRMConfig):
@@ -257,18 +264,21 @@ def dlrm_forward_from_features(params, dense_x, feats, cfg: DLRMConfig):
 
     ``feats``: stacked table features ``(B, F-1, D)`` or a list of ``(B, D)``.
     With ``cfg.use_kernel`` the interaction kernel reads ``z`` and the
-    features in place and writes the top MLP's input itself.
+    features in place and writes the top MLP's input itself.  The
+    interaction, the features' stacking included, is a ``repro.interact``
+    span; each MLP a ``repro.mlp`` span.
     """
-    z = _mlp_apply(params["bottom"], dense_x.to(cfg.pdtype))  # (B, D)
-    if isinstance(feats, (list, tuple)):
-        feats = torch.stack(feats, dim=1)
-    feats = feats.to(z.dtype)
-    if cfg.use_kernel:
-        top_in = kernel_map(ops.dlrm_interact_concat, (z, feats))
-    else:
-        x = torch.cat([z[:, None, :], feats], dim=1)
-        top_in = torch.cat([z, _interact_plain(x)], dim=-1)
-    return _mlp_apply(params["top"], top_in, final_linear=True)[:, 0]
+    z = _mlp_apply(params["bottom"], dense_x.to(cfg.pdtype), "bottom")  # (B, D)
+    with span("repro.interact"):
+        if isinstance(feats, (list, tuple)):
+            feats = torch.stack(feats, dim=1)
+        feats = feats.to(z.dtype)
+        if cfg.use_kernel:
+            top_in = kernel_map(ops.dlrm_interact_concat, (z, feats))
+        else:
+            x = torch.cat([z[:, None, :], feats], dim=1)
+            top_in = torch.cat([z, _interact_plain(x)], dim=-1)
+    return _mlp_apply(params["top"], top_in, "top", final_linear=True)[:, 0]
 
 
 def dlrm_forward(params, dense_x, sparse_idx, cfg: DLRMConfig, mask=None):

@@ -7,7 +7,9 @@ Three pieces, off by default, as in the JAX package's ``obs``:
   only);
 * ``Tracer`` (``trace``) — ``span()`` context managers and caller-timed
   ``complete()`` events exporting Chrome-trace/Perfetto JSON, with
-  optional CUDA fencing and ``torch.profiler.record_function`` ranges;
+  optional ``torch.profiler.record_function`` ranges; the module-level
+  ``span`` marks the program's layer boundaries and records into the
+  tracer that ``Tracer.active()`` made active on the calling thread;
 * ``CollisionTelemetry`` (``collision``) — measured collision mass over
   served ids, the planner's predicted-vs-observed feedback signal.
 
@@ -38,15 +40,15 @@ class Obs:
     asks the serving engine to accumulate served-id histograms (the
     engine calls ``attach_collisions(table_sizes)`` when it boots);
     ``profiler_annotations=True`` mirrors spans, and each served wave, into
-    ``torch.profiler`` ranges.
+    ``torch.profiler`` ranges.  ``Trainer.run`` makes the tracer active, so
+    a traced training run records the program's own ``repro.*`` spans too.
     """
 
     def __init__(self, *, trace: bool = False, collisions: bool = False,
-                 fence: bool = False, profiler_annotations: bool = False):
+                 profiler_annotations: bool = False):
         self.registry = MetricsRegistry()
         self.tracer: Optional[Tracer] = (
-            Tracer(fence=fence, profiler_annotations=profiler_annotations)
-            if trace else None)
+            Tracer(profiler_annotations=profiler_annotations) if trace else None)
         self.want_collisions = collisions
         self.collisions: Optional[CollisionTelemetry] = None
 

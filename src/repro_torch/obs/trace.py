@@ -2,31 +2,39 @@
 
 ``Tracer`` records *complete* events (name, begin, duration) on a
 monotonic clock, either through the ``span("stage")`` context manager
-(nesting tracked per thread — the train loop's usage) or through
-``complete(name, t0, dur)`` when the caller already owns the boundary
-timestamps (the serving engine's usage: its stage timers double as the
-trace events, so tracing adds zero extra clock reads).
+(nesting tracked per thread) or through ``complete(name, t0, dur)`` when
+the caller already owns the boundary timestamps (the serving engine's
+usage: its stage timers double as the trace events, so tracing adds zero
+extra clock reads).
+
+The program marks its own layer boundaries with the module-level
+``span(name, **args)``: the train step's forward, backward and optimizer
+(``repro.train.*``), the models' embed stage, MLPs and interaction
+(``repro.embed``, ``repro.mlp``, ``repro.interact``) and the kernel
+launchers (``repro.launch``).  Off by default, ``span`` hands back one
+shared null context: no clock read, no profiler range (its arguments are
+still evaluated by the caller).  Inside ``with tracer.active():`` every
+such span opened on that thread records into ``tracer`` (``Trainer.run``
+turns on the tracer of the ``Obs`` it was given); each thread has its
+own active tracer, so spans of other threads (autograd's device thread
+among them) record nothing.
 
 Export is the Chrome Trace Event JSON format (``{"traceEvents": [...]}``
-with ``ph: "X"`` complete events, microsecond timestamps), which
-``chrome://tracing`` and https://ui.perfetto.dev both load directly —
-one wave renders as a ``wave`` bar with its stage bars nested inside.
-The event layout is the JAX package's, so the same caller-timed events
-export to the same JSON in both packages.
+with ``ph: "X"`` complete events, microsecond timestamps from the
+tracer's creation), which ``chrome://tracing`` and
+https://ui.perfetto.dev both load directly — one wave renders as a
+``wave`` bar with its stage bars nested inside.  The event layout is the
+JAX package's, so the same caller-timed events export to the same JSON in
+both packages.  ``otherData.origin_unix_ns`` places the events on the
+clock ``torch.profiler`` stamps its own with (``time.time_ns()``, taken
+with the tracer's origin): an event's ``ts`` in µs, times 1,000, plus the
+origin is its start in the profiler's nanoseconds.
 
-Two honesty knobs:
-
-* ``fence=True`` — ``tracer.fence(x)`` synchronizes the CUDA device that
-  holds ``x`` (``torch.cuda.synchronize``) before the enclosing span
-  closes, so a span around asynchronous launches measures *device* time,
-  not launch time.  Off by default: fencing serializes the pipeline and
-  is a measurement mode, never a serving mode (with ``fence=False``, or
-  for tensors on the CPU, ``fence(x)`` is a passthrough).
-* ``profiler_annotations=True`` — each ``span`` additionally enters a
-  ``torch.profiler.record_function`` range of the same name, so when a run
-  is wrapped in ``torch.profiler.profile`` the engine's logical stages
-  line up against the device's own timeline (the serving engine opens one
-  ``wave`` range per wave through ``range_begin`` / ``range_end``).
+``profiler_annotations=True`` makes each ``span`` also enter a
+``torch.profiler.record_function`` range of the same name, so when a run
+is wrapped in ``torch.profiler.profile`` the program's stages line up
+against the device's own timeline (the serving engine opens one ``wave``
+range per wave through ``range_begin`` / ``range_end``).
 
 The tracer is append-only and bounded (``max_events``, oldest dropped);
 ``drain()`` hands the events over and clears, so a long-running engine
@@ -40,23 +48,46 @@ import json
 import threading
 import time
 
-__all__ = ["Tracer"]
+__all__ = ["Tracer", "span"]
+
+_NULL = contextlib.nullcontext()
+_active = threading.local()     # ``.tracer``: what ``span`` records into on this thread
+
+
+def span(name: str, **args):
+    """A span at one of the program's layer boundaries: this thread's
+    active tracer's ``span(name, **args)``, or with no tracer active one
+    shared null context."""
+    tracer = getattr(_active, "tracer", None)
+    return _NULL if tracer is None else tracer.span(name, **args)
 
 
 class Tracer:
-    def __init__(self, *, fence: bool = False, profiler_annotations: bool = False,
-                 max_events: int = 200_000, pid: int = 0):
-        self.fence_enabled = fence
+    def __init__(self, *, profiler_annotations: bool = False, max_events: int = 200_000,
+                 pid: int = 0):
         self.max_events = max_events
         self.pid = pid
         self.events: list[dict] = []
         self._lock = threading.Lock()
         self._local = threading.local()
         self._t0 = time.monotonic()
+        self._origin_unix_ns = time.time_ns()
         self._annotate = None
         if profiler_annotations:
             from torch.profiler import record_function
             self._annotate = record_function
+
+    @contextlib.contextmanager
+    def active(self):
+        """Record the program's ``span``s of this thread into this tracer
+        for the block (the thread's tracer active before is restored
+        after)."""
+        before = getattr(_active, "tracer", None)
+        _active.tracer = self
+        try:
+            yield self
+        finally:
+            _active.tracer = before
 
     # ------------------------------------------------------------- recording
 
@@ -79,14 +110,6 @@ class Tracer:
         ev = {"name": name, "ph": "X", "pid": self.pid,
               "tid": threading.get_ident() & 0xFFFF,
               "ts": (t0 - self._t0) * 1e6, "dur": dur_s * 1e6}
-        if args:
-            ev["args"] = args
-        self._append(ev)
-
-    def instant(self, name: str, **args) -> None:
-        ev = {"name": name, "ph": "i", "pid": self.pid,
-              "tid": threading.get_ident() & 0xFFFF,
-              "ts": (self._now() - self._t0) * 1e6, "s": "t"}
         if args:
             ev["args"] = args
         self._append(ev)
@@ -127,27 +150,14 @@ class Tracer:
         if ctx is not None:
             ctx.__exit__(None, None, None)
 
-    def fence(self, value):
-        """Wait for the CUDA device that holds ``value`` (a tensor or a
-        tree of them) when fencing is enabled, so the enclosing span
-        measures device completion, not asynchronous launch.  Passthrough
-        when disabled or when nothing in ``value`` lies on a CUDA device."""
-        if self.fence_enabled and value is not None:
-            from ..tree import leaves
-            for leaf in leaves(value):
-                if getattr(leaf, "is_cuda", False):
-                    import torch
-                    torch.cuda.synchronize(leaf.device)
-                    break
-        return value
-
     # ------------------------------------------------------------- export
 
     def chrome_trace(self) -> dict:
         """The Chrome Trace Event payload (Perfetto-loadable)."""
         with self._lock:
             events = [dict(e) for e in self.events]
-        return {"traceEvents": events, "displayTimeUnit": "ms"}
+        return {"traceEvents": events, "displayTimeUnit": "ms",
+                "otherData": {"origin_unix_ns": self._origin_unix_ns}}
 
     def to_json(self) -> str:
         return json.dumps(self.chrome_trace())

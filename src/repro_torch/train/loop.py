@@ -14,7 +14,12 @@
   events;
 * **observability** — with ``obs=Obs(...)`` each step lands in a step-time
   histogram, the steps and straggler counters and, with tracing on, a
-  ``train_step`` event; with ``obs=None`` none of it runs.
+  ``train_step`` event (the step number in its args); with ``obs=None``
+  none of it runs.  While a tracer is active (``Trainer.run`` makes
+  ``obs.tracer`` active) each step records the program's spans
+  ``repro.train.forward``, ``repro.train.backward`` and
+  ``repro.train.optimizer``, which lie inside that step's ``train_step``
+  event.
 
 * **gradient compression** — ``make_dp_train_step`` reduces gradients
   over a ``torch.distributed`` process group with bf16/int8 error
@@ -40,6 +45,7 @@ on the same global batch and keeps its own block of it.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 import statistics
@@ -51,6 +57,7 @@ import torch.distributed as dist
 
 from .. import tree
 from ..ckpt import checkpoint as ckpt
+from ..obs.trace import span
 from ..optim.optimizers import Optimizer, clip_by_global_norm
 
 __all__ = ["TrainConfig", "init_state", "make_train_step", "make_dp_train_step",
@@ -84,14 +91,18 @@ def value_and_grad(loss_fn):
     """``jax.value_and_grad(loss_fn, has_aux=True)``: a function of
     ``(params, batch)`` returning ``((loss, metrics), grads)``, with
     ``grads`` a tree like ``params`` (zeros for a leaf the loss does not
-    reach) and every returned tensor detached."""
+    reach) and every returned tensor detached.  The loss is taken in a
+    ``repro.train.forward`` span, the gradients in ``repro.train.backward``."""
 
     def fn(params, batch):
         flat = tree.leaves(params)
         live = [p.detach().requires_grad_(True) for p in flat]
         with torch.enable_grad():
-            loss, metrics = loss_fn(tree.unflatten(params, live), batch)
-            grads = torch.autograd.grad(loss, live, allow_unused=True, materialize_grads=True)
+            with span("repro.train.forward"):
+                loss, metrics = loss_fn(tree.unflatten(params, live), batch)
+            with span("repro.train.backward"):
+                grads = torch.autograd.grad(loss, live, allow_unused=True,
+                                            materialize_grads=True)
         metrics = {k: v.detach() for k, v in metrics.items()}
         return (loss.detach(), metrics), tree.unflatten(params, list(grads))
 
@@ -131,7 +142,8 @@ def make_train_step(loss_fn, optimizer: Optimizer, *, clip_norm=None,
         if clip_norm is not None:
             grads, gnorm = clip_by_global_norm(grads, clip_norm)
             metrics = dict(metrics, grad_norm=gnorm)
-        new_params, new_opt = optimizer.update(grads, state["opt"], params, state["step"])
+        with span("repro.train.optimizer"):
+            new_params, new_opt = optimizer.update(grads, state["opt"], params, state["step"])
         new_state = {"params": new_params, "opt": new_opt, "step": state["step"] + 1}
         return new_state, dict(metrics, loss=loss)
 
@@ -224,8 +236,9 @@ def make_dp_train_step(loss_fn, optimizer: Optimizer, group=None, *,
         if clip_norm is not None:
             grads, gnorm = clip_by_global_norm(grads, clip_norm)
             metrics = dict(metrics, grad_norm=gnorm)
-        new_params, new_opt = optimizer.update(grads, state["opt"], state["params"],
-                                               state["step"])
+        with span("repro.train.optimizer"):
+            new_params, new_opt = optimizer.update(grads, state["opt"], state["params"],
+                                                   state["step"])
         new_state = {"params": new_params, "opt": new_opt, "step": state["step"] + 1,
                      "err": new_err}
         return new_state, dict(metrics, loss=loss)
@@ -364,8 +377,10 @@ def make_fsdp_train_step(loss_fn, optimizer: Optimizer, group, params_like, *,
             metrics = dict(metrics, grad_norm=gnorm)
 
         params = state["params"]
-        new_p_local, new_opt = optimizer.update(tree.unflatten(params, red), state["opt"],
-                                                tree.unflatten(params, p_local), state["step"])
+        with span("repro.train.optimizer"):
+            new_p_local, new_opt = optimizer.update(tree.unflatten(params, red), state["opt"],
+                                                    tree.unflatten(params, p_local),
+                                                    state["step"])
         new_params = []
         for np_loc, (path, shape, _, dim) in zip(tree.leaves(new_p_local), plan):
             if dim is None:
@@ -507,7 +522,13 @@ class Trainer:
     def run(self, state, *, fail_at_step: Optional[int] = None):
         """Steps from ``state["step"]`` to ``num_steps``; returns the final
         state and ``[(step, loss)]`` at the log steps.  Each step ends in
-        one synchronize; the loss is read back only at log steps."""
+        one synchronize; the loss is read back only at log steps.  With
+        ``obs.tracer``, that tracer is active for the run."""
+        tracer = None if self._obs is None else self._obs.tracer
+        with contextlib.nullcontext() if tracer is None else tracer.active():
+            return self._run(state, fail_at_step)
+
+    def _run(self, state, fail_at_step):
         cfg = self.cfg
         history = []
         durations: list[float] = []
