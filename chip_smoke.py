@@ -74,7 +74,12 @@ Phases (any failure exits non-zero, and no result line is printed):
    counts, finite logits, and logits and loss against ``use_kernel=False``;
    print BCE, accuracy, wall and device ms per batch, device operations,
    the device's busy share, table bytes and peak memory;
-11. train the full-width DLRM-Criteo (plain path, as the reference trains)
+11. ``[K6]``: hold the QR pairs' backward (``qr_pairs_backward``) at the
+   training cell's shape (the 26 Kaggle tables as f32 QR pairs, B=65,536,
+   D=16, ids ``floor(S * u ** 1.5)``) against its plain version, bit-equal
+   over two calls, one launch a call; time it beside its bound, the plain
+   version and ``F.embedding``'s dense backward of the same gradients; then
+   train the full-width DLRM-Criteo (plain path, as the reference trains)
    with the paper's Adagrad (1e-2) at B=256 for 200 steps through
    ``Trainer``: finite losses, the mean of the last 10 below step 0's; one
    step's loss and gradients on the card against the CPU's on the same
@@ -432,6 +437,7 @@ BAG_CASES = (("bench", "f32", "mult"), ("bench", "f32", "add"), ("serving", "f32
              ("bandwidth", "f32", "add"), ("bandwidth", "f32", "mult"))
 EVAL_STEPS = range(10_000, 10_012)
 TRAIN_STEPS = 200               # Adagrad steps through Trainer at full width
+K6_BATCH = 65_536               # [K6]: the training cell's batch
 TRAIN_TIMED = (5, 30)           # [train]'s timing: warm-up steps, then timed steps
 # one full-width step's loss and gradients, card vs CPU on the same
 # parameters and batch: f32 sums in another order through two MLPs (cuBLAS
@@ -1703,6 +1709,76 @@ def _ckpt_seconds(torch, state):
     print(f"  checkpoint of the full train state ({nbytes} B): save {save_s:.3f} s, restore "
           f"onto the card {restore_s:.3f} s (sha256 verified), equal")
     return save_s, restore_s, nbytes
+
+
+def check_qr_pairs_backward(torch, gen):
+    """The [K6] phase: the QR pairs' backward at the training cell's shape
+    (the 26 Kaggle tables as f32 QR pairs, c = 4, D = 16, B = 65,536, ids
+    ``floor(S * u ** 1.5)``) against its plain version, bit-equal over two
+    calls, one launch a call and no other kernel (the gradients within
+    1e-5 of each table's largest of the plain version run in f64, beside
+    the plain version's own f32 gap); then its time (the
+    wrapper's whole call: the zero fill, the keys, the stable sort and the
+    two passes) beside its bound, the plain version's, and, as the library
+    yardstick, that of the same gradients through ``F.embedding``'s dense
+    backward (two ``F.embedding`` + the multiply per pair, backward only).
+    Returns the kernel's ``kernels`` fields, with ``counts`` (the checked
+    calls' launch counts) and ``max_abs_err``."""
+    import torch.nn.functional as tf
+
+    from repro_torch.data.criteo import KAGGLE_TABLE_SIZES
+    from repro_torch.kernels import qr_pairs_backward as k6
+    from repro_torch.kernels import ref
+
+    grads, rem, quo, tables = [], [], [], []
+    for size in KAGGLE_TABLE_SIZES:
+        m = -(-size // 4)
+        tables += [torch.randn((m, D), generator=gen, device="cuda"),
+                   torch.randn((-(-size // m), D), generator=gen, device="cuda")]
+        ids = _zipf_ids(torch, gen, (K6_BATCH,), size).long()
+        rem.append(ids % m)
+        quo.append(ids // m)
+        grads.append(torch.randn((K6_BATCH, D), generator=gen, device="cuda"))
+    args = (grads, rem, quo, tables, ["mult"] * len(KAGGLE_TABLE_SIZES))
+    _zero_counts()
+    got = k6.qr_pairs_backward(*args)
+    again = k6.qr_pairs_backward(*args)
+    torch.cuda.synchronize()
+    counts = _read_counts()
+    _check_counts("K6", counts, {"qr_pairs_backward": 2})
+    same = all(torch.equal(a, b) for a, b in zip(got, again))
+    exact = ref.qr_pairs_backward([g.double() for g in grads], rem, quo,
+                                  [t.double() for t in tables], args[4])
+    plain = ref.qr_pairs_backward(*args)
+
+    def worst(xs):
+        return max(float((x.double() - w).abs().max()) / float(w.abs().max())
+                   for x, w in zip(xs, exact))
+
+    err, plain_err = worst(got), worst(plain)
+    print(f"  26 Kaggle QR pairs, B={K6_BATCH}, D={D} f32, against the plain version in f64: "
+          f"K6's worst table {err:.3e} of its largest gradient (tol 1e-5), the plain version's "
+          f"in f32 {plain_err:.3e}; two calls bit-equal {same}")
+    if not (same and err <= 1e-5):
+        _fail("K6 disagrees with its plain version, or with itself over two calls")
+    del got, again, exact, plain
+    leaves = [t.detach().requires_grad_(True) for t in tables]
+    outs = [tf.embedding(rem[p], leaves[2 * p]) * tf.embedding(quo[p], leaves[2 * p + 1])
+            for p in range(len(grads))]
+    nbytes = k6._bound_bytes(*args)
+    bound_ms, bound_by = _bound(nbytes, 4 * sum(g.numel() for g in grads))
+    out = {"shape": f"26 Kaggle f32 QR pairs (c=4), B={K6_BATCH}, D={D}, ids floor(S*u^1.5)",
+           "ms": _time_ms(torch, lambda: k6.qr_pairs_backward(*args), 20),
+           "plain_ms": _time_ms(torch, lambda: ref.qr_pairs_backward(*args), 3),
+           "bound_ms": bound_ms, "bound_by": bound_by, "bound_bytes": nbytes,
+           "yardstick": "F.embedding's dense backward: two F.embedding + the multiply per "
+                        "pair, autograd.grad of the 26 outputs",
+           "yardstick_ms": _time_ms(torch, lambda: torch.autograd.grad(
+               outs, leaves, grads, retain_graph=True), 3),
+           "counts": counts, "max_abs_err": err, "plain_f32_err": plain_err}
+    print(f"  K6 {out['ms']:.4f} ms (bound {bound_ms:.4f} ms, {bound_by}, {nbytes} B) | plain "
+          f"{out['plain_ms']:.4f} ms | F.embedding's dense backward {out['yardstick_ms']:.4f} ms")
+    return out
 
 
 def train_full_width(torch, card):
@@ -6061,6 +6137,22 @@ def _paper_device_profile(torch, pt, spec, warm=3, steps=5):
         _top_ms(dev, steps, k=6)
 
 
+def _k6_calls_per_step(cfg) -> int:
+    """K6 calls of one training step of ``cfg`` on the card: one per dtype
+    and width of its dense mult/add QR pairs, per ``MAX_PAIRS`` of them (none
+    with ``use_kernel`` or in feature mode)."""
+    from repro_torch.kernels.qr_pairs_backward import MAX_PAIRS
+    from repro_torch.models import dlrm
+
+    if getattr(cfg, "use_kernel", False) or cfg.embedding.kind == "feature":
+        return 0
+    widths = {}
+    for mod in dlrm.tables_for(cfg):
+        if dlrm._qr2(mod):
+            widths[mod.out_dim] = widths.get(mod.out_dim, 0) + 1
+    return sum(-(-n // MAX_PAIRS) for n in widths.values())
+
+
 def _first_steps_vs_cpu(torch, pt, mod, spec, card_losses):
     """[paper]'s check (c): the row's first ``PAPER_CPU_STEPS`` steps on
     the machine's CPU and, from each of those states on the same batch,
@@ -6137,6 +6229,12 @@ def paper_rows(torch, card):
         if r.kernel is not None:
             for k, v in r.kernel["expected_launches"].items():
                 expected[k] = expected.get(k, 0) + v
+        # K6 on every gradient the row takes on the card: its training, and
+        # the first steps' check below (a gradient and a step each)
+        k6 = (pt.TRAIN_STEPS + 2 * PAPER_CPU_STEPS) \
+            * _k6_calls_per_step(pt.setup(mod, **spec.kw)[0])
+        if k6:
+            expected["qr_pairs_backward"] = expected.get("qr_pairs_backward", 0) + k6
         first = _first_steps_vs_cpu(torch, pt, mod, spec, losses[:PAPER_CPU_STEPS])
         want = ref["rows"][name]
         gap = abs(r.loss - want["loss"])
@@ -6828,6 +6926,9 @@ def _main() -> int:
     counts["cache"] = cache_paths(torch, engine, reqs, card)
     print("[eval] full-width one-hot DLRM-Criteo, 12 held-out batches of 256")
     counts.update(eval_full_width(torch))
+    print("[K6] qr_pairs_backward vs plain at the training cell's shape")
+    k6 = check_qr_pairs_backward(torch, gen)
+    counts["k6"] = k6.pop("counts")
     print("[train] full-width DLRM-Criteo, Adagrad, then the trained tables through the kernels")
     counts.update(train_full_width(torch, card))
     print(f"  ({time.perf_counter() - t0:.0f} s so far)")
@@ -6955,6 +7056,13 @@ def _main() -> int:
     lm_shapes.update(time_lm_k1(torch, granite_k1, "granite", "granite",
                                 counts["granite"]["qr_gather"]))
     next(k for k in kernels if k["name"] == "qr_gather")["lm_shapes"] = lm_shapes
+    by_path = {path: c["qr_pairs_backward"] for path, c in counts.items()
+               if c.get("qr_pairs_backward")}
+    kernels.append({"name": "qr_pairs_backward", "route": "cuda",
+                    "source": "src/repro_torch/csrc/qr_pairs_backward.cu",
+                    "replaces": "none: the backward of K1's function (the TPU kernel has none)",
+                    "launches": sum(by_path.values()), "library_ms": None,
+                    "launches_by_path": by_path, **k6})
     for k in kernels:
         if k["launches"] == 0:
             _fail(f"{k['name']} was launched on no path")

@@ -9,9 +9,10 @@ started together).  Every pointer and the stream cross as
 ``ctypes.c_void_p``; every launch entry returns ``cudaGetLastError()``.
 
 Nothing here runs at import time, and nothing falls back: a missing
-``nvcc`` or a failed build raises.  The kernels have no backward, so a
-launch that autograd would have to differentiate raises too
-(``refuse_grad``).
+``nvcc`` or a failed build raises.  The forward kernels have no backward,
+so a launch that autograd would have to differentiate raises too
+(``refuse_grad``); training's QR pairs reach K6 through their own autograd
+Function instead (``qr_pairs_backward.QRPairs``).
 """
 
 from __future__ import annotations
@@ -45,6 +46,11 @@ _SIGNATURES = {
     "dot_interaction": {
         "dot_interaction": ([_P, _L, _L, _P] + [_L] * 3 + [_P, _L] + [_I] * 7 + [_P], _I),
         "dot_interaction_error_string": ([_I], ctypes.c_char_p),
+    },
+    "qr_pairs_backward": {
+        "qr_pairs_keys": ([_P, _P, _I, _L, _I, _P, _P], _I),
+        "qr_pairs_backward": ([_P, _P, _I, _L, _I, _I, _I, _I, _I, _I] + [_P] * 6, _I),
+        "qr_pairs_backward_error_string": ([_I], ctypes.c_char_p),
     },
 }
 SOURCES = tuple(_SIGNATURES)

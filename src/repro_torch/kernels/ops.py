@@ -4,9 +4,10 @@ They split QR ids into (remainder, quotient) rows, pick the fused kernel
 for what it covers and the plain tensor path for what it does not
 (``op="concat"`` pairs and pairs that mix a dense and a quantized table,
 on either device).  The grouped entries look up every feature of a wave
-or batch in one launch, with the id split inside the kernel.  Whether a
-kernel launches is the kernel wrapper's decision: a CPU tensor takes the
-plain version, a CUDA tensor the kernel.
+or batch in one launch, with the id split inside the kernel.  ``qr_pairs``
+takes training's dense QR pairs through an autograd Function whose
+backward is K6.  Whether a kernel launches is the kernel wrapper's
+decision: a CPU tensor takes the plain version, a CUDA tensor the kernel.
 """
 
 from __future__ import annotations
@@ -19,10 +20,12 @@ from .grouped_lookup import MAX_TABLES
 from .dot_interaction import dot_interaction, dot_interaction_concat
 from .embedding_bag import qr_embedding_bag_raw
 from .qr_gather import qr_gather, qr_gather_grouped, qr_gather_quant, qr_gather_quant_grouped
+from .qr_pairs_backward import MAX_PAIRS, qr_pairs
 from .serve_path import fused_serve_pool, fused_serve_pool_grouped
 
 __all__ = ["qr_lookup", "qr_bag_lookup", "serve_bag_pool", "dlrm_interact",
-           "dlrm_interact_concat", "serve_bag_pool_grouped", "qr_lookup_grouped"]
+           "dlrm_interact_concat", "serve_bag_pool_grouped", "qr_lookup_grouped", "qr_pairs",
+           "MAX_PAIRS"]
 
 
 def _rows(table) -> int:

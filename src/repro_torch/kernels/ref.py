@@ -17,7 +17,7 @@ import torch
 __all__ = ["qr_gather", "qr_gather_quant", "qr_embedding_bag", "fused_serve_pool",
            "dot_interaction", "pad_empty_wave", "GroupTable", "pool_out_dtype",
            "fused_serve_pool_grouped", "qr_gather_grouped", "qr_gather_quant_grouped",
-           "qr_embedding_bag_raw", "dot_interaction_concat"]
+           "qr_embedding_bag_raw", "dot_interaction_concat", "qr_pairs_backward"]
 
 
 class GroupTable(NamedTuple):
@@ -150,6 +150,38 @@ def fused_serve_pool_grouped(idx, mask, tables):
         feats.append(fused_serve_pool(ia, mask[:, t], tab.w_a, ib, tab.w_b, tab.scale_a,
                                       tab.zp_a, tab.scale_b, tab.zp_b, tab.proj, op=tab.op))
     return torch.stack(feats, dim=1)
+
+
+def _table_rows(ids, table):
+    """Row ids as ``table[ids]`` reads them: int64, a negative id counted
+    from the end."""
+    ids = ids.long()
+    return torch.where(ids < 0, ids + table.shape[0], ids)
+
+
+def qr_pairs_backward(grads, rem, quo, tables, ops):
+    """K6's function: the gradients of P QR pairs' tables (``tables``: 2P,
+    remainder and quotient pair by pair) from their outputs' gradients
+    ``grads`` (P ``(B, D)``), with ``rem`` / ``quo`` the P pairs' ``(B,)``
+    row ids and ``ops`` their combines.  For ``mult`` each sample adds
+    ``g * (the other table's row)`` to its row of each table, for ``add``
+    ``g``; the products (bf16 widened exactly) and the sums are f32 (f64 for
+    f64 tables: the oracle the card's checks hold K6 to), each row's terms
+    added in sample order on the CPU (``index_add_``), and the sums rounded
+    once to the tables' dtype.  Returns the 2P gradients as views of one
+    flat buffer."""
+    d = tables[0].shape[1]
+    rows = [t.shape[0] for t in tables]
+    acc = torch.promote_types(tables[0].dtype, torch.float32)
+    flat = torch.zeros((sum(rows), d), dtype=acc, device=tables[0].device)
+    sums = torch.split(flat, rows)
+    for p, op in enumerate(ops):
+        w_rem, w_quo = tables[2 * p], tables[2 * p + 1]
+        r, q = _table_rows(rem[p], w_rem), _table_rows(quo[p], w_quo)
+        g = grads[p].to(acc)
+        sums[2 * p].index_add_(0, r, g * w_quo[q].to(acc) if op == "mult" else g)
+        sums[2 * p + 1].index_add_(0, q, g * w_rem[r].to(acc) if op == "mult" else g)
+    return list(torch.split(flat.to(tables[0].dtype), rows))
 
 
 def qr_embedding_bag_raw(idx, mask, w_rem, w_quo, *, op: str = "mult"):

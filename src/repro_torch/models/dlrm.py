@@ -20,7 +20,7 @@ import torch
 
 from ..core import (CompositionalEmbedding, EmbeddingSpec, FullEmbedding,
                     HashEmbedding, bag_pool, make_embedding)
-from ..dist.sharding import kernel_map
+from ..dist.sharding import is_dtensor, kernel_map
 from ..kernels import ops
 from ..obs.trace import span
 
@@ -142,6 +142,46 @@ def _qr2(mod) -> bool:
         and mod.op in ("mult", "add")
 
 
+def _trains_through_k6(mod, tp, device) -> bool:
+    """Whether a one-hot feature's backward goes through K6: a dense f32 or
+    bf16 mult/add QR pair on the ids' CUDA device, plain tensors of one
+    dtype and width, a table of which requires grad."""
+    if device.type != "cuda" or not _qr2(mod):
+        return False
+    w0, w1 = tp["table_0"], tp["table_1"]
+    return (all(isinstance(w, torch.Tensor) and not is_dtensor(w) and w.device == device
+                and w.dtype == w0.dtype and w.dim() == 2 and w.shape[1] == w0.shape[1]
+                and w.is_contiguous() for w in (w0, w1))
+            and w0.dtype in (torch.float32, torch.bfloat16)
+            and (w0.requires_grad or w1.requires_grad))
+
+
+def _embed_trained_pairs(table_params, sparse_idx, modules, gathers):
+    """Under grad mode, the one-hot features whose QR pair trains through
+    K6 (``_trains_through_k6``, no ``gathers`` hook), looked up through
+    ``ops.qr_pairs``: one call per dtype and width, of at most
+    ``ops.MAX_PAIRS`` pairs.  Returns ``{feature: (B, D) output}``; the
+    forward is the per-table route's gathers and combine, and the backward
+    of each call one K6 call for its pairs."""
+    if not torch.is_grad_enabled():
+        return {}
+    groups = {}
+    for i, (mod, tp) in enumerate(zip(modules, table_params)):
+        if (gathers is None or gathers[i] is None) \
+                and _trains_through_k6(mod, tp, sparse_idx.device):
+            groups.setdefault((tp["table_0"].dtype, tp["table_0"].shape[1]), []).append(i)
+    out = {}
+    for feats in groups.values():
+        for s in range(0, len(feats), ops.MAX_PAIRS):
+            part = feats[s:s + ops.MAX_PAIRS]
+            rem = [modules[i].partitions[0].bucket(sparse_idx[:, i]) for i in part]
+            quo = [modules[i].partitions[1].bucket(sparse_idx[:, i]) for i in part]
+            tables = [w for i in part for w in (table_params[i]["table_0"],
+                                                table_params[i]["table_1"])]
+            out.update(zip(part, ops.qr_pairs(rem, quo, tables, [modules[i].op for i in part])))
+    return out
+
+
 def _embed_grouped(table_params, sparse_idx, modules, mask, proj, gathers=None):
     """The embed stage in one kernel launch — K4 over every table for
     multi-hot ids, K5 (int8) or K1 (dense) for one-hot ids — as a ``(B, F,
@@ -204,7 +244,11 @@ def embed_features(table_params, sparse_idx, cfg, modules=None, mask=None, proj=
     through the fused serving kernel, and each one-hot mult/add QR pair
     through ``ops.qr_lookup`` (K1 dense, K5 int8), and the result is a list
     of ``(B, D)`` features (feature mode expands per partition, one-hot
-    only).
+    only).  Without ``cfg.use_kernel``, under grad mode, the one-hot dense
+    mult/add QR pairs on the card whose tables require grad go through
+    ``ops.qr_pairs`` (the same gathers and combine, with K6 as their
+    backward); every other feature, and every feature on the CPU, takes its
+    module's ``apply``.
 
     ``gathers`` (optional, one per feature, entries may be ``None``)
     substitutes each multi-hot feature's row fetch
@@ -223,6 +267,8 @@ def embed_features(table_params, sparse_idx, cfg, modules=None, mask=None, proj=
             grouped = _embed_grouped(table_params, sparse_idx, modules, mask, proj, gathers)
             if grouped is not None:
                 return grouped
+        trained = {} if multihot or use_kernel or _feature_mode(cfg) else \
+            _embed_trained_pairs(table_params, sparse_idx, modules, gathers)
         feats = []
         for i, mod in enumerate(modules):
             tp = table_params[i]
@@ -254,6 +300,8 @@ def embed_features(table_params, sparse_idx, cfg, modules=None, mask=None, proj=
             elif use_kernel and qr2:
                 feats.append(_project(ops.qr_lookup(idx, tp["table_0"], tp["table_1"], op=mod.op),
                                       proj, i))
+            elif i in trained:
+                feats.append(_project(trained[i], proj, i))
             else:
                 feats.append(_project(mod.apply(tp, idx), proj, i))
         return feats

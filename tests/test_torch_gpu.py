@@ -27,7 +27,7 @@ from repro_torch.configs import dlrm_criteo
 from repro_torch.configs.common import Shape
 from repro_torch.core import EmbeddingSpec
 from repro_torch.kernels import (dot_interaction, embedding_bag, grouped_lookup, ops, qr_gather,
-                                 ref, serve_path)
+                                 qr_pairs_backward, ref, serve_path)
 from repro_torch.launch import serve as launch_serve
 from repro_torch.models.dlrm import DLRMConfig, dlrm_forward, dlrm_init
 from repro_torch.serve.cache import DeviceHotRowCache, RowRef
@@ -959,13 +959,93 @@ def test_training_through_the_kernels_raises_and_the_plain_path_trains(cuda):
         torch.testing.assert_close(cg.cpu(), g, rtol=0, atol=1e-5 * scale)
 
 
+def _kaggle_pairs(cuda, b, dtype, n_tables=None, seed=0):
+    """The Kaggle tables as QR pairs (c = 4, D = 16) on the card, ids
+    ``floor(S * u ** 1.5)`` split by each pair, and a gradient per pair:
+    (grads, rem, quo, tables, ops)."""
+    sizes = dlrm_criteo.config(reduced=False).table_sizes[:n_tables]
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    grads, rem, quo, tables = [], [], [], []
+    for size in sizes:
+        m = -(-size // 4)
+        tables += [torch.randn((m, 16), generator=gen, device=cuda).to(dtype),
+                   torch.randn((-(-size // m), 16), generator=gen, device=cuda).to(dtype)]
+        u = torch.rand((b,), generator=gen, device=cuda)
+        ids = torch.clamp(torch.floor(size * u ** 1.5), max=size - 1).long()
+        rem.append(ids % m)
+        quo.append(ids // m)
+        grads.append(torch.randn((b, 16), generator=gen, device=cuda).to(dtype))
+    return grads, rem, quo, tables, ["mult"] * len(sizes)
+
+
+@pytest.mark.parametrize("dtype, n_tables", [(torch.float32, None), (torch.bfloat16, 6)])
+def test_k6_matches_plain_at_the_training_cells_shape(cuda, dtype, n_tables):
+    """K6 over the 26 Kaggle QR pairs at B = 65,536 (bf16: the first 6),
+    against its plain version on the card, run on f64 copies of the same
+    tables and gradients: each table's gradient within the file's tolerance
+    of its largest (K6 sums in f32; a plain f32 sum of a quotient row's
+    ~16 k to 65 k terms, in the atomics' order, is itself up to ~9e-6 off),
+    bit-equal over two calls, one launch a call."""
+    args = _kaggle_pairs(cuda, 65_536, dtype, n_tables)
+    before = qr_pairs_backward.qr_pairs_backward.launches
+    got = qr_pairs_backward.qr_pairs_backward(*args)
+    again = qr_pairs_backward.qr_pairs_backward(*args)
+    torch.cuda.synchronize()
+    assert qr_pairs_backward.qr_pairs_backward.launches == before + 2
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    grads, rem, quo, tables, ops_ = args
+    want = ref.qr_pairs_backward([g.double() for g in grads], rem, quo,
+                                 [t.double() for t in tables], ops_)
+    tol = TOL["f32" if dtype == torch.float32 else "bf16"]
+    for g, w in zip(got, want):
+        scale = float(w.float().abs().max())
+        torch.testing.assert_close(g.float(), w.float(), rtol=0, atol=tol * scale)
+
+
+@pytest.mark.parametrize("arch", ["dcn", "dlrm"])
+def test_training_steps_take_their_qr_pairs_backward_through_k6(cuda, arch):
+    """DCN and ``use_kernel=False`` DLRM training on the card: one K6 launch
+    a step (the reduced configs' QR pairs are of one dtype and width), no
+    other kernel, and the step's loss and gradients equal the plain route's
+    on the CPU (f32 1e-5 of each leaf's largest gradient)."""
+    from repro_torch import tree
+    from repro_torch.configs import dcn_criteo
+    from repro_torch.kernels import launch_counters
+    from repro_torch.train.loop import init_state, make_train_step, value_and_grad
+
+    mod = dcn_criteo if arch == "dcn" else dlrm_criteo
+    cfg = dataclasses.replace(mod.config(reduced=True), table_sizes=(100, 500, 33, 10_000))
+    api, cpu_api = mod.api(cfg, device=cuda), mod.api(cfg, device="cpu")
+    params = cpu_api.init(torch.Generator().manual_seed(0))
+    batch = cpu_api.batch_fn(3, Shape("t", 1, 64, "train"))
+    on_card = tree.tree_map(lambda x: x.to(cuda), params)
+    counters = {k: fn.launches for k, fn in launch_counters().items()}
+    step = make_train_step(api.loss_fn, api.optimizer)
+    state = init_state(on_card, api.optimizer)
+    for s in range(3):
+        state, _ = step(state, {k: v.to(cuda) for k, v in cpu_api.batch_fn(s, Shape(
+            "t", 1, 64, "train")).items()})
+    torch.cuda.synchronize()
+    moved = {k: fn.launches - counters[k] for k, fn in launch_counters().items()
+             if fn.launches != counters[k]}
+    assert moved == {"qr_pairs_backward": 3}
+    (loss, _), grads = value_and_grad(cpu_api.loss_fn)(params, batch)
+    (card_loss, _), card_grads = value_and_grad(api.loss_fn)(
+        on_card, {k: v.to(cuda) for k, v in batch.items()})
+    torch.testing.assert_close(card_loss.cpu(), loss, rtol=1e-5, atol=1e-6)
+    for g, cg in zip(tree.leaves(grads), tree.leaves(card_grads)):
+        scale = max(1.0, float(g.abs().max()))
+        torch.testing.assert_close(cg.cpu(), g, rtol=0, atol=1e-5 * scale)
+
+
 def test_restart_replays_bit_for_bit_with_deterministic_algorithms(cuda, tmp_path):
     """A killed and resumed Trainer on the card ends with the same bits as
-    an uninterrupted run, with torch.use_deterministic_algorithms(True)
-    (the gathers' backward accumulates with atomics otherwise).  cuBLAS
-    needs CUBLAS_WORKSPACE_CONFIG set before its first call (this module
-    sets it when imported, unless the caller set another value: then the
-    test skips)."""
+    an uninterrupted run, with torch.use_deterministic_algorithms(True),
+    which the full tables' gather backward and cuBLAS need; the QR pairs'
+    backward goes through K6 (one launch a step), which sums in a fixed
+    order on its own.  cuBLAS needs CUBLAS_WORKSPACE_CONFIG set before its
+    first call (this module sets it when imported, unless the caller set
+    another value: then the test skips)."""
     from repro_torch import tree
     from repro_torch.train.loop import (SimulatedFailure, TrainConfig, Trainer, init_state,
                                         make_train_step)
@@ -982,8 +1062,10 @@ def test_restart_replays_bit_for_bit_with_deterministic_algorithms(cuda, tmp_pat
         tc = TrainConfig(num_steps=12, ckpt_every=6, ckpt_dir=str(tmp_path), log_every=3)
         step = make_train_step(api.loss_fn, api.optimizer)
         tr = Trainer(step, tc, batch_at=lambda s: api.batch_fn(s, shape))
+        k6 = qr_pairs_backward.qr_pairs_backward.launches
         with pytest.raises(SimulatedFailure):
             tr.run(state0, fail_at_step=9)
+        assert qr_pairs_backward.qr_pairs_backward.launches == k6 + 9
         tr.checkpointer.wait()
         tr2 = Trainer(step, tc, batch_at=lambda s: api.batch_fn(s, shape))
         resumed = tr2.resume_or(state0)

@@ -15,7 +15,8 @@ from pathlib import Path
 import pytest
 import torch
 
-from repro_torch.kernels import _build, dot_interaction, embedding_bag, qr_gather, ref, serve_path
+from repro_torch.kernels import (_build, dot_interaction, embedding_bag, qr_gather,
+                                 qr_pairs_backward, ref, serve_path)
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
@@ -90,6 +91,8 @@ def test_missing_toolkit_or_mixed_devices_raise(monkeypatch):
             meta.to(torch.int8), cpu.to(torch.int8), m=2)]),
         lambda: qr_gather.qr_gather_grouped(ids, [ref.GroupTable(meta, cpu, m=2)]),
         lambda: dot_interaction.dot_interaction_concat(cpu, meta[:, None]),
+        lambda: qr_pairs_backward.qr_pairs_backward([cpu], [ids[:, 0]], [ids[:, 0]],
+                                                    [meta, cpu], ["mult"]),
     ]
     for call in wrappers:
         with pytest.raises(ValueError, match="one CUDA device"):
@@ -103,7 +106,7 @@ def test_failed_build_raises(monkeypatch, tmp_path):
     fake.chmod(0o755)
     monkeypatch.setenv("PATH", str(tmp_path))
     monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
-    assert set(_build.SOURCES) == {"grouped_lookup", "dot_interaction"}
+    assert set(_build.SOURCES) == {"grouped_lookup", "dot_interaction", "qr_pairs_backward"}
     with pytest.raises(RuntimeError, match="(?s)build failed.*unsupported gpu") as err:
         _build.build_all(_build.SOURCES)
     for name in _build.SOURCES:
